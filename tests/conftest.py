@@ -13,6 +13,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: multi-second fault-injection tests (subprocess SIGKILL harness)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA GPU of compute capability 9.0 or above and "
+        "nvcc; skipped elsewhere")
 
 
 @pytest.fixture(scope="session")
