@@ -9,19 +9,34 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
 The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
 ``build/`` on first use. Phases (any failure exits non-zero):
 
-  1. each kernel against its plain PyTorch version on the card;
-  2. the threefry draws on the card, bitwise against the CPU;
+  1. each kernel against its plain PyTorch version on the card, at every
+     shape a later phase launches it at (derived from the run tables
+     below) and at odd sizes;
+  2. the draws on the card against the CPU: threefry, uniform, randint
+     bitwise; normal and categorical to the last bit or ulp;
   3. Table I fused: 1 island, pop 800, shifted Rosenbrock-1000, 200 gens;
   4. Table I unfused: sync, 20 gens, and chunked, 100 gens
      (benchmarks/table1_de_scaling.py's setup);
   5. 8 islands x pop 800 x dim 1000, ring migration, fused, 100 gens;
-  6. small runs (fused, sync, chunked) on the card against the same runs
-     on the CPU.
+  6. small DE runs (fused, sync, chunked) on the card against the same runs
+     on the CPU;
+  7. PSO, GA and SA, each fused and unfused, at Table I's objective and
+     width (1 island, pop 800, dim 1000); then the paper's Fig. 4 settings
+     on rastrigin-1000 (GA and SA pop 100, PSO pop 10);
+  8. DGA: 8 GA islands x pop 800 x dim 1000, fused, aging, starvation
+     migration, with the default offspring wave and in a steady-state form
+     whose islands starve; and 8 PSO islands, fused, ring migration;
+  9. small PSO, GA (steady-state aging, starvation) and SA runs, fused and
+     unfused, on the card against the same runs on the CPU.
 
-Phases 3-5 are the main path: each run resets the kernels' launch counters,
-drives ``IslandOptimizer.minimize`` and reads the counters right after. Each
-phase then profiles a few rounds of a further run, init excluded, for the
-device's busy time and idle share.
+Phases 3-5, 7 and 8 are the main path: each run resets the kernels' launch
+counters, drives ``IslandOptimizer.minimize`` and reads the counters right
+after. Each engine configuration is then profiled over a few rounds of a
+further run, init excluded, for the device's busy time and idle share.
+Every launch records its kernel and input shape; the run fails if a phase
+launched a kernel at a shape phase 1 did not check, or if a run marked to
+adopt migrants never did.
+
 Before the last line it prints the card's name and power limit and one JSON
 line describing every kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -46,20 +61,162 @@ ROOT = Path(__file__).resolve().parent
 # and dense float32 FLOP/s outside the tensor cores.
 CARD_RATES = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12)}
 
-# The main path's sizes: Table I's population and dimension, and the
-# generations each main-path phase runs.
+# The main path's sizes: Table I's population and dimension.
 POP, DIM, SYNC_EVERY = 800, 1000, 10
-GENS = {"fused": 200, "sync": 20, "chunked": 100, "islands": 100}
 
-# bench_eval shapes checked against the plain version in phase 1: Table I's
-# population, the chunked path's 100-row chunks, odd sizes, and the 8-island
-# init (a grid of several waves).
-EVAL_SHAPES = ((800, 1000), (130, 1000), (37, 100), (5, 1), (6400, 1000))
+
+@dataclasses.dataclass(frozen=True)
+class Run:
+    """One engine configuration a phase drives: ``ALGORITHMS[algo]`` on
+    ``fn`` (shifted Rosenbrock of ``dim``, or a benchmark function by name)
+    for ``gens`` generations on the ``cuda`` backend, with ring migration
+    between islands unless ``migration`` says otherwise."""
+
+    label: str
+    algo: str
+    gens: int
+    params: dict = dataclasses.field(default_factory=dict)
+    fn: str = "shifted_rosenbrock"
+    seed: int = 0
+    n_islands: int = 1
+    pop: int = POP
+    dim: int = DIM
+    migration: str | None = None
+    sync_every: int = SYNC_EVERY
+    profile: bool = True
+    adopts: bool = False     # migrants must be adopted in at least one round
+
+
+# Table I's DE parameters (benchmarks/table1_de_scaling.py).
+DE_TABLE1 = {"w": 0.5, "px": 0.2}
+# GA aging in the DGA runs: Gaussian age limits, mean 6 and sd 2 generations.
+AGING = {"age_mean": 6.0, "age_sd": 2.0}
+# A steady-state DGA: one offspring per island and generation and short,
+# widely spread lives, so each island holds a few live members and their
+# counts differ enough (a ratio of 2.5) for starvation migration to fire.
+# At the default pop / 4 offspring the live counts of the islands stay
+# within a few percent of each other and starvation never fires.
+STARVING = {"n_offspring": 1, "age_mean": 2.0, "age_sd": 6.0}
+
+# The main path: phases 3-5, 7 and 8, each run once through _drive.
+MAIN_RUNS = {
+    3: (Run("Table I fused", "de", 200, {**DE_TABLE1, "fused": True}),),
+    4: (Run("Table I sync", "de", 20, {**DE_TABLE1, "barrier_mode": "sync"},
+            profile=False),
+        Run("Table I chunked", "de", 100,
+            {**DE_TABLE1, "barrier_mode": "chunked"})),
+    5: (Run("8 islands fused ring", "de", 100, {**DE_TABLE1, "fused": True},
+            seed=1, n_islands=8),),
+    # PSO, GA and SA at Table I's objective and width; then the paper's
+    # Fig. 4 settings (benchmarks/fig4_pairwise.py) on rastrigin-1000.
+    7: tuple(Run(f"{a} {'fused' if fz else 'unfused'} {POP} x {DIM}", a, 100,
+                 {"fused": fz}) for a in ("pso", "ga", "sa") for fz in (True, False))
+       + (Run(f"Fig. 4 ga pop 100 rastrigin-{DIM}", "ga", 30,
+              {"pc": 0.7, "pm": 0.1}, fn="rastrigin", seed=1, pop=100, profile=False),
+          Run(f"Fig. 4 sa pop 100 rastrigin-{DIM}", "sa", 30,
+              {"schedule": "linear", "T0": 1000.0, "n_gens_hint": 1000 * DIM // 100},
+              fn="rastrigin", seed=1, pop=100, profile=False),
+          Run(f"Fig. 4 pso pop 10 rastrigin-{DIM}", "pso", 30,
+              {"w": 0.6, "fp": 1.0, "fg": 1.0}, fn="rastrigin", seed=1, pop=10,
+              profile=False)),
+    # DGA: 8 GA islands with aging and starvation migration (the default
+    # offspring wave, then the steady-state form, which starves); 8 PSO
+    # islands with ring migration. Adoption runs on the card in both.
+    8: (Run("8 islands ga fused starvation", "ga", 50, {**AGING, "fused": True},
+            seed=2, n_islands=8, migration="starvation"),
+        Run("8 islands ga fused starvation, steady state", "ga", 50,
+            {**STARVING, "fused": True}, seed=2, n_islands=8,
+            migration="starvation", profile=False, adopts=True),
+        Run("8 islands pso fused ring", "pso", 50, {"fused": True}, seed=2,
+            n_islands=8, adopts=True)),
+}
+
+# Small runs on the card against the same runs on the CPU: DE (phase 6;
+# pop 60 makes chunks of 7 rows, so the ninth chunk is clamped onto the
+# eighth) and PSO, GA (steady-state aging, starvation) and SA (phase 9).
+CARD_VS_CPU_RUNS = {
+    6: tuple(Run(f"de ring {mode}", "de", 40, {**DE_TABLE1, **extra}, seed=11,
+                 n_islands=4, pop=60, dim=100)
+             for mode, extra in (("fused", {"fused": True}),
+                                 ("sync", {"barrier_mode": "sync"}),
+                                 ("chunked", {"barrier_mode": "chunked"}))),
+    9: tuple(Run(f"{a} {mig} {'fused' if fz else 'unfused'}", a, 40,
+                 {**extra, "fused": fz}, seed=11, n_islands=4, pop=64, dim=100,
+                 migration=mig, sync_every=sync, adopts=a != "sa")
+             for a, mig, extra, sync in (("pso", "ring", {}, SYNC_EVERY),
+                                         ("ga", "starvation", STARVING, 2),
+                                         ("sa", "ring", {}, SYNC_EVERY))
+             for fz in (True, False)),
+}
+
+FUSED_KERNEL = {"de": "de_step", "pso": "pso_step", "ga": "ga_step",
+                "sa": "eval_select"}
+
+
+def _chunks(pop: int) -> tuple[int, int]:
+    """(rows per chunk, chunks) of chunked DE's 8 chunks: the last chunk is
+    clamped onto the one before when the size does not divide pop."""
+    csz = max(1, pop // 8)
+    return csz, -(-pop // csz)
+
+
+def _evals_per_gen(algo: str, pop: int, params: dict) -> int:
+    """Evaluations one generation charges (the engine's evals_per_gen)."""
+    if algo == "ga":
+        return params.get("n_offspring") or max(1, pop // 4)
+    if algo == "de" and params.get("barrier_mode") == "chunked":
+        csz, n = _chunks(pop)
+        return csz * n
+    return pop
+
+
+def launch_shapes(r: Run) -> dict[str, set[tuple[int, ...]]]:
+    """The shapes run ``r`` launches each kernel at: bench_eval on the
+    flattened ``(islands * rows, D)`` batch the executor evaluates (init;
+    unfused, every generation's batch or chunk); a fused kernel on the
+    island-stacked ``(I, rows, D)`` state, also for one island."""
+    I, P, D = r.n_islands, r.pop, r.dim
+    out = {"bench_eval": {(I * P, D)}}
+    if r.params.get("fused"):
+        out[FUSED_KERNEL[r.algo]] = {(I, _evals_per_gen(r.algo, P, r.params), D)}
+    elif r.params.get("barrier_mode") == "chunked":
+        out["bench_eval"].add((I * _chunks(P)[0], D))
+    else:
+        out["bench_eval"].add((I * _evals_per_gen(r.algo, P, r.params), D))
+    return out
+
+
+def _all_runs():
+    for table in (MAIN_RUNS, CARD_VS_CPU_RUNS):
+        for runs in table.values():
+            yield from runs
+
+
+def _derived(kernels) -> tuple[tuple[int, ...], ...]:
+    return tuple(sorted({s for r in _all_runs() for k, shapes in launch_shapes(r).items()
+                         if k in kernels for s in shapes}))
+
+
+# Shapes phase 1 checks each kernel at against its plain version: every
+# shape a run of the tables above launches it at, plus Table I's rows as a
+# plain (P, D) tensor and odd sizes. The fused-generation kernels share one
+# list (GA's 200-row wave at pop 800 among them), and a row view at a
+# storage offset is added at (800, 1000).
+EVAL_SHAPES = tuple(sorted(set(_derived({"bench_eval"}))
+                           | {(130, 1000), (37, 100), (5, 1)}))
+FUSED_SHAPES = tuple(sorted(set(_derived({"eval_select", "pso_step", "ga_step"}))
+                            | {(800, 1000), (200, 1000), (130, 1000), (37, 100),
+                               (5, 1), (8, 800, 1000)}))
+DE_SHAPES = _derived({"de_step"})
 
 PALLAS_SITES = {
     "bench_eval": "src/repro/kernels/bench_eval.py:136",
     "de_step": "src/repro/kernels/de_step.py:85",
+    "eval_select": "src/repro/kernels/eval_select.py:86",
+    "pso_step": "src/repro/kernels/pso_step.py:98",
+    "ga_step": "src/repro/kernels/ga_step.py:98",
 }
+KERNELS = tuple(PALLAS_SITES)
 
 
 class PhaseFailed(Exception):
@@ -141,7 +298,7 @@ def profile_rounds(c: "Ctx", make_opt, f, seed: int, timed: int = 2,
     busy_ms = sum(r[0] for r in rows) / 1e3 / gens
     wall_ms = (marks["profiled"] - marks["timed"]) * 1e3 / (timed * every)
     ours = {name: sum(t for t, k, _ in rows if f"{name}_kernel" in k) / 1e3 / gens
-            for name in ("bench_eval", "de_step")}
+            for name in KERNELS}
     return {"timed_gens": timed * every, "profiled_gens": gens,
             "wall_ms_per_gen": wall_ms,
             "profiled_wall_ms_per_gen": (marks["end"] - marks["profiled"]) * 1e3 / gens,
@@ -149,21 +306,24 @@ def profile_rounds(c: "Ctx", make_opt, f, seed: int, timed: int = 2,
             "device_idle_share": (1.0 - busy_ms / wall_ms) if rows else None,
             "device_launches_per_gen": sum(r[2] for r in rows) / gens,
             "port_kernels_device_ms_per_gen": ours,
-            "top": [{"name": k[:160], "device_ms": t / 1e3, "count": n}
-                    for t, k, n in rows[:6]]}
+            "top": [{"name": k[:90], "device_ms": t / 1e3, "count": n}
+                    for t, k, n in rows[:4]]}
 
 
 class Ctx:
     """What the phases share: modules, device, and the per-kernel record.
     ``max_abs_err`` is the fitness error for bench_eval and the population
-    error for de_step (whose fitness error is kept relative)."""
+    (or slot-row) error for the generation kernels, whose fitness error is
+    kept relative."""
 
     def __init__(self, torch, rt, dev: str = "cuda"):
         self.torch = torch
         self.rt = rt
         self.dev = torch.device(dev)
         self.kern = {k: {"launches": 0, "max_abs_err": 0.0, "max_rel_err": 0.0}
-                     for k in ("bench_eval", "de_step")}
+                     for k in KERNELS}
+        self.phase = None     # the phase running now
+        self.shapes = {}      # phase -> {(kernel, shape of its first input)}
 
     def sync(self) -> None:
         if self.dev.type == "cuda":
@@ -182,16 +342,28 @@ class Ctx:
         return rel
 
     def reset(self) -> None:
-        self.rt.bench_eval.LAUNCHES = 0
-        self.rt.de_step.LAUNCHES = 0
+        for k in KERNELS:
+            getattr(self.rt, k).LAUNCHES = 0
 
     def counts(self) -> dict[str, int]:
-        return {"bench_eval": self.rt.bench_eval.LAUNCHES,
-                "de_step": self.rt.de_step.LAUNCHES}
+        return {k: getattr(self.rt, k).LAUNCHES for k in KERNELS}
 
     def add_launches(self, counts: dict[str, int]) -> None:
         for k, v in counts.items():
             self.kern[k]["launches"] += v
+
+
+def record_launch_shapes(c: Ctx) -> None:
+    """Wrap the kernels' shared launch step so that every launch records
+    its kernel and the shape of its first input under the running phase."""
+    b = c.rt._build
+    launch = b.launch
+
+    def recording(name, device, *args):
+        c.shapes.setdefault(c.phase, set()).add((name, tuple(args[0].shape)))
+        return launch(name, device, *args)
+
+    b.launch = recording
 
 
 def _uniform(torch, gen, shape, lo, hi, dev):
@@ -202,11 +374,15 @@ def port_modules() -> types.SimpleNamespace:
     """The port's modules the phases use, imported from ``src/``."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import prng
-    from repro_torch.core import ExecutorConfig, IslandConfig, IslandOptimizer, de
+    from repro_torch.core import (ALGORITHMS, ExecutorConfig, IslandConfig,
+                                  IslandOptimizer, de, migration)
     from repro_torch.functions import benchmarks as bm
-    from repro_torch.kernels import _build, bench_eval, de_step
+    from repro_torch.kernels import (_build, bench_eval, de_step, eval_select,
+                                     ga_step, pso_step)
     return types.SimpleNamespace(
         prng=prng, de=de, bm=bm, bench_eval=bench_eval, de_step=de_step,
+        eval_select=eval_select, pso_step=pso_step, ga_step=ga_step,
+        ALGORITHMS=ALGORITHMS, migration=migration,
         _build=_build, ExecutorConfig=ExecutorConfig, IslandConfig=IslandConfig,
         IslandOptimizer=IslandOptimizer)
 
@@ -253,7 +429,7 @@ def phase_kernels(c: Ctx) -> None:
         f"{c.kern['bench_eval']['max_rel_err']:.3g}")
 
     cases = (("shifted_rosenbrock", (800, 1000)), ("rastrigin", (99, 333)),
-             ("shifted_rosenbrock", (8, 800, 1000)))
+             *(("shifted_rosenbrock", shape) for shape in DE_SHAPES))
     for fn, shape in cases:
         *lead, D = shape
         P = lead[-1]
@@ -289,6 +465,148 @@ def phase_kernels(c: Ctx) -> None:
         log(f"phase 1: de_step {fn} {shape}: accepted {int(took_k.sum())}/"
             f"{took_k.numel()}, pop abs err {pe:.3g}, fit rel err {rel:.3g}, "
             f"near-tie rows deciding differently {n_close}")
+    check_fused_kernels(c)
+
+
+# Bound of tests/test_kernels.py for the fused-generation kernels:
+# max |a - b| / (|b| + 1), and the margin a decision must clear to count.
+FUSED_TOL = 1e-4
+
+
+def _clear(torch, cand, comp):
+    """Rows whose candidate value is clear of its comparand by FUSED_TOL
+    (an infinite comparand is always clear)."""
+    d = (cand.double() - comp.double()).abs()
+    return (d > FUSED_TOL * (comp.double().abs() + 1.0)) | ~torch.isfinite(comp)
+
+
+def _decide(c: Ctx, name: str, label: str, got, want, clear) -> int:
+    """Decisions identical on clear rows; returns the near-tie rows that
+    decided differently."""
+    agree = got == want
+    require(bool(agree[clear].all()),
+            f"{name} {label}: decisions differ on {int((~agree & clear).sum())} clear rows")
+    return int((~agree).sum())
+
+
+def _fused_case(c: Ctx, gen, fn: str, shape):
+    """Inputs on the card for one tag and shape: (shift, bias, lo, hi, U)
+    where U(*shape, lo=, hi=) draws uniforms in the box."""
+    torch, bm = c.torch, c.rt.bm
+    D = shape[-1]
+    if fn == "shifted_rosenbrock":
+        shift, bias, lo, hi = bm.shift_vector(D, device=c.dev), 390.0, -100.0, 100.0
+    else:
+        f = bm.FUNCTIONS[fn]
+        shift, bias, lo, hi = None, 0.0, max(f.lo, -5.0), min(f.hi, 5.0)
+
+    def U(*sh, lo=lo, hi=hi):
+        return torch.rand(sh, generator=gen, device=c.dev) * (hi - lo) + lo
+
+    return shift, bias, lo, hi, U
+
+
+def _views(shape, arrays):
+    """(label, arrays) to check: the arrays, and at Table I's shape also
+    rows 100:300 of each (at pop 800), views with a storage offset."""
+    out = [(str(tuple(shape)), arrays)]
+    if tuple(shape) == (POP, DIM):
+        rows = slice(POP // 8, 3 * POP // 8)
+        view = [a[rows] if a.dim() and a.shape[0] == POP else a for a in arrays]
+        require(view[0].storage_offset() > 0, "row slice has no storage offset")
+        out.append((f"rows {rows.start}:{rows.stop} of {tuple(shape)}", view))
+    return out
+
+
+def check_fused_kernels(c: Ctx) -> None:
+    """eval_select, pso_step and ga_step against their plain versions on
+    the card: every tag at FUSED_SHAPES, plus a row view. Decisions must be
+    identical on clear rows; positions, velocities and placed children
+    carry no evaluation and must be bit-exact."""
+    torch, rt = c.torch, c.rt
+    be, es, ps, gs = rt.bench_eval, rt.eval_select, rt.pso_step, rt.ga_step
+    gen = torch.Generator(device=c.dev).manual_seed(5)
+    near = {k: 0 for k in ("eval_select", "pso_step", "ga_step")}
+    for fn in be.EVAL_TAGS:
+        for shape in FUSED_SHAPES:
+            shift, bias, lo, hi, U = _fused_case(c, gen, fn, shape)
+            lead = shape[:-1]
+            # eval_select, Metropolis thresholds; one u = 0 (threshold +inf)
+            pop, trial = U(*shape), U(*shape)
+            fit = be.bench_eval_ref(pop, fn, shift, bias)
+            dF = be.bench_eval_ref(trial, fn, shift, bias) - fit
+            u = torch.rand(lead, generator=gen, device=c.dev)
+            u.view(-1)[0] = 0.0
+            th = -(0.5 * dF.abs().median()) * torch.log(u)
+            for label, (a, b, d, t, fa) in _views(shape, (pop, trial, dF, th, fit)):
+                got = es.eval_select(a, fa, b, t, fn, shift, bias)
+                want = es.eval_select_ref(a, fa, b, t, fn, shift, bias)
+                c.sync()
+                clear = (_clear(torch, d + fa, fa)
+                         & (_clear(torch, d, t) | ~torch.isfinite(t)))
+                near["eval_select"] += _decide(c, "eval_select", f"{fn} {label}",
+                                               got[2], want[2], clear)
+                same = got[2] == want[2]
+                require(label.startswith("rows") or bool(got[2].view(-1)[0]),
+                        f"eval_select {fn} {label}: u = 0 did not accept")
+                pe = float((got[0] - want[0]).abs()[same].max()) if same.any() else 0.0
+                rel = c.err("eval_select", got[1][same], want[1][same], absolute=False)
+                c.kern["eval_select"]["max_abs_err"] = max(c.kern["eval_select"]["max_abs_err"], pe)
+                require(pe == 0.0 and rel < FUSED_TOL,
+                        f"eval_select {fn} {label}: pop err {pe:.3g}, fit rel err {rel:.3g}")
+            # pso_step
+            x, pb = U(*shape), U(*shape)
+            v = U(*shape, lo=-0.1 * (hi - lo), hi=0.1 * (hi - lo))
+            r1 = torch.rand(shape, generator=gen, device=c.dev)
+            r2 = torch.rand(shape, generator=gen, device=c.dev)
+            pbf = be.bench_eval_ref(pb, fn, shift, bias)
+            g = torch.gather(pb, -2, pbf.argmin(-1)[..., None, None].expand(
+                *lead[:-1], 1, shape[-1])).squeeze(-2).contiguous()
+            kw = dict(w=0.6, fp=1.0, fg=1.0, vmax=0.2 * (hi - lo), lo=lo, hi=hi)
+            for label, (a, vv, p_, f_, q1, q2) in _views(shape, (x, v, pb, pbf, r1, r2)):
+                args = (a, vv, p_, f_, q1, q2, g, fn, shift, bias)
+                got = ps.pso_step(*args, **kw)
+                want = ps.pso_step_ref(*args, **kw)
+                c.sync()
+                require(bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])),
+                        f"pso_step {fn} {label}: positions or velocities differ")
+                rel = c.err("pso_step", got[2], want[2], absolute=False)
+                c.kern["pso_step"]["max_abs_err"] = max(
+                    c.kern["pso_step"]["max_abs_err"], float((got[0] - want[0]).abs().max()))
+                near["pso_step"] += _decide(c, "pso_step", f"{fn} {label}", got[4] != f_,
+                                            want[4] != f_, _clear(torch, want[2], f_))
+                require(rel < FUSED_TOL, f"pso_step {fn} {label}: fit rel err {rel:.3g}")
+            # ga_step, two dead slots per island
+            p1, p2, slot = U(*shape), U(*shape), U(*shape)
+            slot_f = be.bench_eval_ref(slot, fn, shift, bias)
+            slot_f[..., :2] = torch.inf
+            cut = torch.randint(1, max(shape[-1], 2), lead, generator=gen, device=c.dev)
+            co = torch.rand(lead, generator=gen, device=c.dev)
+            um = torch.rand(shape, generator=gen, device=c.dev)
+            nz = torch.randn(shape, generator=gen, device=c.dev)
+            kw = dict(pc=0.7, pm=0.1, sigma_m=0.1 * (hi - lo), lo=lo, hi=hi)
+            for label, arrs in _views(shape, (p1, p2, slot, slot_f, cut, co, um, nz)):
+                got = gs.ga_step(*arrs, fn, shift, bias, **kw)
+                want = gs.ga_step_ref(*arrs, fn, shift, bias, **kw)
+                child = gs.crossover(arrs[0], arrs[1], arrs[4], arrs[5], kw["pc"])
+                child = torch.clamp(child + torch.where(arrs[6] < kw["pm"], kw["sigma_m"] * arrs[7], 0.0),
+                                    lo, hi)
+                cfit = be.bench_eval_ref(child, fn, shift, bias)
+                c.sync()
+                near["ga_step"] += _decide(c, "ga_step", f"{fn} {label}", got[2], want[2],
+                                           _clear(torch, cfit, arrs[3]))
+                same = got[2] == want[2]
+                pe = float((got[0] - want[0]).abs()[same].max()) if same.any() else 0.0
+                c.kern["ga_step"]["max_abs_err"] = max(c.kern["ga_step"]["max_abs_err"], pe)
+                rel = c.err("ga_step", got[1][same], want[1][same], absolute=False)
+                require(pe == 0.0 and rel < FUSED_TOL,
+                        f"ga_step {fn} {label}: slot err {pe:.3g}, fit rel err {rel:.3g}")
+                require(label.startswith("rows") or bool(got[2][..., :2].all()),
+                        f"ga_step {fn} {label}: dead slot not taken")
+    for k, n in near.items():
+        log(f"phase 1: {k} 10 tags x {len(FUSED_SHAPES)} shapes + a row view: max rel err "
+            f"{c.kern[k]['max_rel_err']:.3g}, max abs err {c.kern[k]['max_abs_err']:.3g}, "
+            f"near-tie rows deciding differently {n}")
 
 
 def phase_prng(c: Ctx) -> None:
@@ -310,42 +628,43 @@ def phase_prng(c: Ctx) -> None:
                 a, b = a.view(torch.int32), b.view(torch.int32)
             require(bool(torch.equal(a, b)), f"prng draws differ (seed {seed})")
     log("phase 2: uniform/randint/split/fold_in bitwise equal on cuda and cpu")
+    # normal and categorical take erf_inv's log1p and the gumbel's log in
+    # float64, rounded once: equal on both devices unless the two float64
+    # libraries straddle a float32 rounding boundary (about 1 value in 1e8).
+    n_vals = n_diff = max_ulp = 0
+    n_cat = cat_diff = 0
+    for seed in (0, 2008):
+        k_cpu = prng.split(prng.PRNGKey(seed), 8)
+        k_gpu = k_cpu.to(c.dev)
+        x = (prng.normal(k_cpu[0], (800, 1000)), prng.normal(k_gpu[0], (800, 1000)).cpu())
+        y = (prng.normal(k_cpu[:4], (200, 1000), 20.0, 3.0),
+             prng.normal(k_gpu[:4], (200, 1000), 20.0, 3.0).cpu())
+        for a, b in (x, y):
+            d = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+            n_vals += a.numel()
+            n_diff += int((d > 0).sum())
+            max_ulp = max(max_ulp, int(d.max()))
+        logits = torch.log(torch.rand((8, 800), generator=torch.Generator().manual_seed(seed)))
+        a = prng.categorical(k_cpu, logits, (2, 200))
+        b = prng.categorical(k_gpu, logits.to(c.dev), (2, 200)).cpu()
+        n_cat += a.numel()
+        cat_diff += int((a != b).sum())
+    log(f"phase 2: normal card vs cpu: {n_diff} of {n_vals} values differ, largest "
+        f"distance {max_ulp} ulp; categorical: {cat_diff} of {n_cat} samples differ")
+    require(max_ulp <= 1 and n_diff <= n_vals // 1_000_000 and cat_diff <= n_cat // 10_000,
+            "normal or categorical draws differ between card and cpu beyond "
+            "float64 last-bit rounding")
 
 
-def _table1_opt(c: Ctx, gens: int, n_islands: int = 1, round_callback=None,
-                **params):
-    """Table I's engine (pop 800, dim 1000, w 0.5, px 0.2, sync_every 10)
-    for ``gens`` generations on the ``cuda`` backend."""
-    rt = c.rt
-    mig = "ring" if n_islands > 1 else "none"
-    cfg = rt.IslandConfig(n_islands=n_islands, pop=POP, dim=DIM,
-                          migration=mig, sync_every=SYNC_EVERY,
-                          max_evals=n_islands * POP * (gens + 1))
-    return rt.IslandOptimizer(
-        rt.de.make, cfg, params={"w": 0.5, "px": 0.2, **params},
-        exec_cfg=rt.ExecutorConfig(backend="cuda"),
-        round_callback=round_callback, device=c.dev)
-
-
-def _profile(c: Ctx, f, seed: int, n_islands: int = 1, **params) -> dict:
-    """profile_rounds over Table I's engine with ``params``."""
-    return profile_rounds(
-        c, lambda gens, cb: _table1_opt(c, gens, n_islands, cb, **params), f, seed)
-
-
-def _drive(c: Ctx, opt, f, seed: int):
-    """Warm up with a one-round run of the same engine, then reset the
+def _drive(c: Ctx, r: Run, f):
+    """Warm up with a one-round run of ``r``'s engine, then reset the
     counters, drive the full run and read the counters right after."""
     prng = c.rt.prng
-    cfg = opt.cfg
-    warm = type(opt)(opt.algo_maker, dataclasses.replace(
-        cfg, max_evals=cfg.n_islands * cfg.pop * (cfg.sync_every + 1)),
-        params=opt.params, exec_cfg=opt.exec_cfg, device=c.dev)
-    warm.minimize(f, prng.PRNGKey(seed))
+    _algo_opt(c, r, gens=r.sync_every).minimize(f, prng.PRNGKey(r.seed))
     c.sync()
     c.reset()
     t0 = time.perf_counter()
-    res = opt.minimize(f, prng.PRNGKey(seed))
+    res = _algo_opt(c, r).minimize(f, prng.PRNGKey(r.seed))
     c.sync()
     wall = time.perf_counter() - t0
     counts = c.counts()
@@ -353,113 +672,167 @@ def _drive(c: Ctx, opt, f, seed: int):
     return res, wall, counts
 
 
-def _init_best(c: Ctx, f, n_islands: int, seed: int) -> float:
-    """Best fitness of the initial population the engine draws for ``seed``
-    (the same keys as ``minimize``), by the plain objective."""
+def _objective(c: Ctx, r: Run):
+    bm = c.rt.bm
+    if r.fn == "shifted_rosenbrock":
+        return bm.make_shifted_rosenbrock(r.dim)
+    return bm.FUNCTIONS[r.fn]
+
+
+def _algo_opt(c: Ctx, r: Run, gens: int | None = None, round_callback=None,
+              device=None):
+    """The engine for run ``r`` (``gens`` generations if given) on the
+    ``cuda`` backend."""
+    rt = c.rt
+    gens = r.gens if gens is None else gens
+    per_gen = _evals_per_gen(r.algo, r.pop, r.params)
+    cfg = rt.IslandConfig(
+        n_islands=r.n_islands, pop=r.pop, dim=r.dim, sync_every=r.sync_every,
+        migration=r.migration or ("ring" if r.n_islands > 1 else "none"),
+        max_evals=r.n_islands * (r.pop + per_gen * gens))
+    return rt.IslandOptimizer(rt.ALGORITHMS[r.algo], cfg, params=dict(r.params),
+                              exec_cfg=rt.ExecutorConfig(backend="cuda"),
+                              round_callback=round_callback,
+                              device=c.dev if device is None else device)
+
+
+def _init_best(c: Ctx, opt, f, seed: int) -> float:
+    """Best fitness of the initial population ``opt.minimize(f,
+    PRNGKey(seed))`` starts from (the same init key), evaluated with the
+    plain objective, not with the kernel under test."""
     prng = c.rt.prng
     ik = prng.split(prng.PRNGKey(seed, c.dev))[1]
-    keys = prng.split(ik, n_islands) if n_islands > 1 else ik[None]
-    pop = prng.uniform(keys, (POP, DIM), f.lo, f.hi)
-    return float(f.fn(pop).min())
+    pop = opt._init_state(opt._build(f), ik)["pop"]
+    return float(f.fn(pop.reshape(-1, pop.shape[-1])).min())
 
 
-def phase_table1_fused(c: Ctx) -> dict:
-    f = c.rt.bm.make_shifted_rosenbrock(DIM)
-    opt = _table1_opt(c, GENS["fused"], fused=True)
-    res, wall, counts = _drive(c, opt, f, 0)
-    init_best = _init_best(c, f, 1, 0)
-    require(counts["de_step"] == res.n_gens,
-            f"de_step launched {counts['de_step']} times for {res.n_gens} gens")
-    require(counts["bench_eval"] == 2,
-            f"bench_eval launched {counts['bench_eval']} times, expected 2 at init")
+def _want_counts(r: Run, gens: int) -> dict:
+    """Launches one run must make: the fused kernel once per generation
+    (all islands in one launch) and bench_eval twice at init; unfused, the
+    executor's two bench_eval launches per evaluation (chunked DE evaluates
+    once per chunk, the last chunk clamped onto the one before)."""
+    if r.params.get("fused"):
+        want = {FUSED_KERNEL[r.algo]: gens, "bench_eval": 2}
+    else:
+        chunked = r.params.get("barrier_mode") == "chunked"
+        evals = _chunks(r.pop)[1] if chunked else 1
+        want = {"bench_eval": 2 + 2 * evals * gens}
+    return {k: want.get(k, 0) for k in KERNELS}
+
+
+def _count_adoptions(c: Ctx):
+    """Wrap the engine's migrant adoption to record, per migration round,
+    how many rows adopted a migrant (device tensors, read at the end)."""
+    pf = sys.modules["repro_torch.core.portfolio"]
+    orig = pf.adopt_native
+    seen = []
+
+    def counting(name, state, mask):
+        seen.append(mask.sum())
+        return orig(name, state, mask)
+
+    pf.adopt_native = counting
+    return seen, lambda: setattr(pf, "adopt_native", orig)
+
+
+def _adoptions(c: Ctx, r: Run, seen: list, rounds: int) -> list[int]:
+    """Rows adopted in each of the last ``rounds`` migration rounds; with
+    ``r.adopts``, at least one round must have adopted a migrant."""
+    per_round = [int(n) for n in c.torch.stack(seen[-rounds:]).cpu()] if seen else []
+    require(not r.adopts or any(per_round),
+            f"{r.label}: no migration round adopted a migrant")
+    return per_round
+
+
+def _run_main(c: Ctx, phase: int, r: Run) -> dict:
+    """Drive one main-path run, hold its launches to _want_counts, its best
+    below the initial best and its history non-increasing; record migrant
+    adoption per round; profile a further run."""
+    f = _objective(c, r)
+    seen, restore = _count_adoptions(c)
+    try:
+        res, wall, counts = _drive(c, r, f)
+    finally:
+        restore()
+    init_best = _init_best(c, _algo_opt(c, r), f, r.seed)
+    g = res.n_gens
+    want = _want_counts(r, g)
+    require(counts == want, f"{r.label}: launches {counts}, expected {want}")
     require(math.isfinite(res.value) and res.value < init_best,
-            f"best {res.value} not below initial best {init_best}")
-    out = {"gens": res.n_gens, "ms_per_gen": wall / res.n_gens * 1e3,
-           "best": res.value, "init_best": init_best, "launches": counts}
-    log(f"phase 3: Table I fused: {json.dumps(out)}")
-    log(f"phase 3: profile, init excluded: {json.dumps(_profile(c, f, 0, fused=True))}")
+            f"{r.label}: best {res.value} not below initial best {init_best}")
+    require(bool((res.history[1:] <= res.history[:-1]).all()),
+            f"{r.label}: the incumbent history rose")
+    per_gen = {k: (n - (2 if k == "bench_eval" else 0)) / g
+               for k, n in counts.items() if n}
+    out = {"gens": g, "ms_per_gen": wall / g * 1e3, "best": res.value,
+           "init_best": init_best, "launches_per_gen": per_gen, "launches": counts}
+    if r.n_islands > 1:
+        rounds = g // r.sync_every
+        out["adopted_rows_per_round"] = _adoptions(c, r, seen, rounds)
+    log(f"phase {phase}: {r.label}: {json.dumps(out)}")
+    if r.profile:
+        prof = profile_rounds(c, lambda gens_, cb: _algo_opt(
+            c, r, gens_, round_callback=cb), f, r.seed)
+        log(f"phase {phase}: {r.label} profile, init excluded: {json.dumps(prof)}")
+        out["profile"] = prof
     return out
 
 
-def phase_table1_unfused(c: Ctx) -> dict:
-    """Table I unfused: sync, then chunked (benchmarks/table1_de_scaling.py).
-    The executor's retry evaluates every batch twice, so sync makes 2
-    bench_eval launches per generation and chunked 2 per chunk."""
-    f = c.rt.bm.make_shifted_rosenbrock(DIM)
-    outs = {}
-    for mode, per_gen in (("sync", 2), ("chunked", 16)):
-        opt = _table1_opt(c, GENS[mode], barrier_mode=mode)
-        res, wall, counts = _drive(c, opt, f, 0)
-        require(counts["bench_eval"] == 2 + per_gen * res.n_gens,
-                f"{mode}: bench_eval launched {counts['bench_eval']} times, "
-                f"expected 2 + {per_gen} x {res.n_gens}")
-        require(counts["de_step"] == 0, f"{mode} run launched de_step")
-        require(math.isfinite(res.value), f"{mode}: best {res.value} not finite")
-        out = outs[mode] = {
-            "gens": res.n_gens, "ms_per_gen": wall / res.n_gens * 1e3,
-            "best": res.value,
-            "bench_eval_launches_per_gen": (counts["bench_eval"] - 2) / res.n_gens,
-            "launches": counts}
-        log(f"phase 4: Table I {mode}: {json.dumps(out)}")
-    prof = _profile(c, f, 0, barrier_mode="chunked")
-    log(f"phase 4: chunked profile, init excluded: {json.dumps(prof)}")
-    return outs
-
-
-def phase_islands(c: Ctx) -> dict:
-    f = c.rt.bm.make_shifted_rosenbrock(DIM)
-    opt = _table1_opt(c, GENS["islands"], n_islands=8, fused=True)
-    res, wall, counts = _drive(c, opt, f, 1)
-    init_best = _init_best(c, f, 8, 1)
-    require(counts["de_step"] == res.n_gens,
-            f"de_step launched {counts['de_step']} times for {res.n_gens} gens")
-    require(math.isfinite(res.value) and res.value < init_best,
-            f"best {res.value} not below initial best {init_best}")
-    out = {"gens": res.n_gens, "ms_per_gen": wall / res.n_gens * 1e3,
-           "best": res.value, "launches": counts}
-    log(f"phase 5: 8 islands fused ring: {json.dumps(out)}")
-    prof = _profile(c, f, 1, n_islands=8, fused=True)
-    log(f"phase 5: profile, init excluded: {json.dumps(prof)}")
+def main_path_phases() -> dict[str, set[int]]:
+    """The main-path phases whose runs launch each kernel."""
+    out = {k: set() for k in KERNELS}
+    for phase, runs in MAIN_RUNS.items():
+        for r in runs:
+            for k in launch_shapes(r):
+                out[k].add(phase)
     return out
 
 
-def phase_card_vs_cpu(c: Ctx) -> None:
-    """4 islands x pop 60 x dim 100 on the card and on the CPU. Pop 60 makes
-    chunks of 7 rows, so the ninth chunk is clamped onto the eighth."""
+def run_main_phase(phase: int):
+    def run(c: Ctx) -> dict:
+        return {r.label: _run_main(c, phase, r) for r in MAIN_RUNS[phase]}
+    return run
+
+
+def _card_vs_cpu(c: Ctx, phase: int, r: Run) -> None:
+    """Run ``r`` on the card and on the CPU from the same seed: the
+    incumbent histories within rtol 1e-4, the same accounting and the same
+    migrant adoptions per round, and the card run's launches as
+    _want_counts says."""
     import numpy as np
-    rt = c.rt
-    I, P, D, gens = 4, 60, 100, 40
-    csz = P // 8
-    n_chunks = -(-P // csz)
-    require(P % csz != 0, "chunks do not overlap")
-    f = rt.bm.make_shifted_rosenbrock(D)
-    cases = (({"fused": True}, P, {"de_step": gens, "bench_eval": 2}),
-             ({"barrier_mode": "sync"}, P, {"de_step": 0, "bench_eval": 2 + 2 * gens}),
-             ({"barrier_mode": "chunked"}, csz * n_chunks,
-              {"de_step": 0, "bench_eval": 2 + 2 * n_chunks * gens}))
-    for params, evals_per_gen, want_counts in cases:
-        res = {}
-        for dev in (c.dev, "cpu"):
-            cfg = rt.IslandConfig(n_islands=I, pop=P, dim=D, migration="ring",
-                                  sync_every=SYNC_EVERY,
-                                  max_evals=I * (P + evals_per_gen * gens))
-            opt = rt.IslandOptimizer(rt.de.make, cfg,
-                                     params={"w": 0.5, "px": 0.2, **params},
-                                     exec_cfg=rt.ExecutorConfig(backend="cuda"),
-                                     device=dev)
-            c.reset()
-            res[dev] = opt.minimize(f, rt.prng.PRNGKey(11))
-            if dev == c.dev:
-                counts = c.counts()
-        a, b = res[c.dev], res["cpu"]
-        rel = float(np.max(np.abs(a.history - b.history) / np.abs(b.history)))
-        require(rel < 1e-4, f"card vs cpu {params}: history rel diff {rel:.3g}")
-        require(a.n_evals == b.n_evals and a.n_gens == b.n_gens == gens,
-                f"card vs cpu {params}: accounting differs")
-        require(counts == want_counts,
-                f"card vs cpu {params}: launches {counts}, expected {want_counts}")
-        log(f"phase 6: card vs cpu {params}: history rel diff {rel:.3g}, "
-            f"n_gens {a.n_gens}, n_evals {a.n_evals}, card launches {counts}")
+    f = _objective(c, r)
+    res, adopted = {}, {}
+    for dev in (c.dev, "cpu"):
+        opt = _algo_opt(c, r, device=dev)
+        seen, restore = _count_adoptions(c)
+        c.reset()
+        try:
+            res[dev] = opt.minimize(f, c.rt.prng.PRNGKey(r.seed))
+        finally:
+            restore()
+        if dev == c.dev:
+            counts = c.counts()
+        adopted[dev] = _adoptions(c, r, seen, res[dev].n_gens // r.sync_every)
+    a, b = res[c.dev], res["cpu"]
+    rel = float(np.max(np.abs(a.history - b.history) / np.abs(b.history)))
+    want = _want_counts(r, r.gens)
+    require(rel < 1e-4, f"card vs cpu {r.label}: history rel diff {rel:.3g}")
+    require(a.n_evals == b.n_evals and a.n_gens == b.n_gens == r.gens,
+            f"card vs cpu {r.label}: accounting differs")
+    require(adopted[c.dev] == adopted["cpu"],
+            f"card vs cpu {r.label}: adoptions per round differ: "
+            f"{adopted[c.dev]} vs {adopted['cpu']}")
+    require(counts == want, f"card vs cpu {r.label}: launches {counts}, expected {want}")
+    log(f"phase {phase}: card vs cpu {r.label} {r.params}: history rel diff {rel:.3g}, "
+        f"n_gens {a.n_gens}, n_evals {a.n_evals}, adopted rows per round "
+        f"{adopted[c.dev]}, card launches { {k: v for k, v in counts.items() if v} }")
+
+
+def card_vs_cpu_phase(phase: int):
+    def run(c: Ctx) -> None:
+        for r in CARD_VS_CPU_RUNS[phase]:
+            _card_vs_cpu(c, phase, r)
+    return run
 
 
 def kernel_timings(c: Ctx, bw: float, flops: float) -> None:
@@ -495,15 +868,67 @@ def kernel_timings(c: Ctx, bw: float, flops: float) -> None:
     nops = 12 * P * D + 4 * n_cross
     k.update(bound_ms=max(nbytes / bw, nops / flops) * 1e3,
              bound_by="bytes" if nbytes / bw >= nops / flops else "operations")
-    for name in ("bench_eval", "de_step"):
+
+    def bound(name: str, nbytes: float, nops: float) -> None:
+        c.kern[name].update(
+            bound_ms=max(nbytes / bw, nops / flops) * 1e3,
+            bound_by="bytes" if nbytes / bw >= nops / flops else "operations")
+
+    # eval_select at SA's Table I shape, Metropolis thresholds.
+    trial = _uniform(torch, gen, (P, D), -100.0, 100.0, c.dev)
+    th = -100.0 * torch.log(torch.rand(P, generator=gen)).to(c.dev)
+    args = (pop, fit, trial, th, "shifted_rosenbrock", shift, 390.0)
+    k = c.kern["eval_select"]
+    k["ms"] = time_ms(lambda: rt.eval_select.eval_select(*args))
+    k["plain_ms"] = time_ms(lambda: rt.eval_select.eval_select_ref(*args))
+    # pop, trial in; pop out; fit, thresh, shift in; fit, accepted out.
+    bound("eval_select", 4 * 3 * P * D + 4 * (3 * P + D) + 4 * P + P,
+          12 * P * D + 3 * P)
+
+    # pso_step at Table I's shape (Fig. 4's w, fp, fg; vmax 0.2 of the box).
+    x, v, pb = (_uniform(torch, gen, (P, D), -100.0, 100.0, c.dev) for _ in range(3))
+    r1, r2 = (torch.rand((P, D), generator=gen).to(c.dev) for _ in range(2))
+    pbf = be.bench_eval_ref(pb, "shifted_rosenbrock", shift, 390.0)
+    args = (x, v, pb, pbf, r1, r2, pb[int(pbf.argmin())].contiguous(),
+            "shifted_rosenbrock", shift, 390.0, 0.6, 1.0, 1.0, 40.0, -100.0, 100.0)
+    k = c.kern["pso_step"]
+    k["ms"] = time_ms(lambda: rt.pso_step.pso_step(*args))
+    k["plain_ms"] = time_ms(lambda: rt.pso_step.pso_step_ref(*args))
+    # x, v, pbest, r1, r2 in; x, v, pbest out; pbest_f, gbest, shift in;
+    # fitness, pbest_f out. Per lane: 11 operations for the update (two of
+    # them fused multiply-adds) and 12 for the evaluation.
+    bound("pso_step", 4 * 8 * P * D + 4 * (P + 2 * D) + 4 * 2 * P,
+          (13 + 12) * P * D + P)
+
+    # ga_step at GA's Table I wave: n_off = 200 offspring of pop 800.
+    N = P // 4
+    p1, p2, slot = (_uniform(torch, gen, (N, D), -100.0, 100.0, c.dev) for _ in range(3))
+    slot_f = be.bench_eval_ref(slot, "shifted_rosenbrock", shift, 390.0)
+    cut = torch.randint(1, D, (N,), generator=gen).to(c.dev)
+    co = torch.rand(N, generator=gen).to(c.dev)
+    um = torch.rand((N, D), generator=gen).to(c.dev)
+    nz = torch.randn((N, D), generator=gen).to(c.dev)
+    args = (p1, p2, slot, slot_f, cut, co, um, nz, "shifted_rosenbrock", shift,
+            390.0, 0.7, 0.1, 20.0, -100.0, 100.0)
+    k = c.kern["ga_step"]
+    k["ms"] = time_ms(lambda: rt.ga_step.ga_step(*args))
+    k["plain_ms"] = time_ms(lambda: rt.ga_step.ga_step_ref(*args))
+    # p1, p2, slot, um, noise in; slot out; slot_f, co, cut, shift in;
+    # slot_f, take out. Per lane: crossover select, clip (2) and evaluation
+    # (12); a product and a sum only on the lanes this run mutates.
+    n_mut = float((um < 0.1).sum())
+    bound("ga_step", 4 * 6 * N * D + 4 * (2 * N + D) + 8 * N + 4 * N + N,
+          15 * N * D + 2 * n_mut + N)
+    for name in KERNELS:
         k = c.kern[name]
-        log(f"timing {name} at (800, 1000): kernel {k['ms']:.4f} ms, plain "
+        shape = (N, D) if name == "ga_step" else (P, D)
+        log(f"timing {name} at {shape}: kernel {k['ms']:.4f} ms, plain "
             f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -527,38 +952,49 @@ def main() -> int:
 
     c = Ctx(torch, rt)
     t_build = time.perf_counter()
-    _build.library("bench_eval")
-    _build.library("de_step")
+    for name in KERNELS:               # the first builds every source at once
+        _build.library(name)
     log(f"build: {time.perf_counter() - t_build:.1f} s into {_build.build_dir()}")
-    for name in ("bench_eval", "de_step"):
+    for name in KERNELS:
         regs = [ln.strip() for ln in _build.ptxas_report(name).splitlines()
                 if "registers" in ln]
         log(f"ptxas {name}: " + " | ".join(regs[:3]) + (" ..." if len(regs) > 3 else ""))
 
     ok = True
-    steps = ((1, phase_kernels), (2, phase_prng), (3, phase_table1_fused),
-             (4, phase_table1_unfused), (5, phase_islands), (6, phase_card_vs_cpu))
-    for num, fn in steps:
+    record_launch_shapes(c)
+    steps = {1: phase_kernels, 2: phase_prng,
+             **{n: run_main_phase(n) for n in MAIN_RUNS},
+             **{n: card_vs_cpu_phase(n) for n in CARD_VS_CPU_RUNS}}
+    for num in sorted(steps):
         if num not in phases:
             continue
+        c.phase = num
         t0 = time.perf_counter()
         try:
-            fn(c)
+            steps[num](c)
         except PhaseFailed as e:
             ok = False
             log(f"phase {num} FAILED: {e}")
         log(f"phase {num}: {time.perf_counter() - t0:.1f} s")
+    c.phase = None
     if 1 in phases:
         kernel_timings(c, bw, flops)
-    if {3, 5} & phases and c.kern["de_step"]["launches"] == 0:
-        ok = False
-        log("FAILED: the main path never launched de_step")
-    if {3, 4, 5} & phases and c.kern["bench_eval"]["launches"] == 0:
-        ok = False
-        log("FAILED: the main path never launched bench_eval")
+        # Every shape a later phase launched a kernel at was checked in phase 1.
+        checked = c.shapes.get(1, set())
+        for num in sorted(phases - {1}):
+            unchecked = sorted(c.shapes.get(num, set()) - checked)
+            if unchecked:
+                ok = False
+                log(f"FAILED: phase {num} launched kernels at shapes phase 1 "
+                    f"did not check against the plain versions: {unchecked}")
+    # The main-path phases that must launch each kernel.
+    for name, need in main_path_phases().items():
+        if need & phases and c.kern[name]["launches"] == 0:
+            ok = False
+            log(f"FAILED: the main path never launched {name}")
 
     rows = []
-    for name in ("bench_eval", "de_step"):
+    for name in KERNELS:
         k = c.kern[name]
         rows.append({
             "name": name, "route": "cuda",

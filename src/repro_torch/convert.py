@@ -1,9 +1,11 @@
 """Carry engine state and objectives across from numpy data.
 
 The two packages share a state layout (``pop``, ``fit``, ``best_arg``,
-``best_val``), except that this port always keeps the island axis: a JAX
-single-island state, which has none, gains one on the way in. With these a
-test starts both engines from one state.
+``best_val``, and each policy's own keys: PSO's ``vel``, ``pbest``,
+``pbest_f``; GA's ``age``, ``age_limit``, ``alive``; SA's step ``t``),
+except that this port always keeps the island axis: a JAX single-island
+state, which has none, gains one on the way in. With these a test starts
+both engines from one state.
 """
 from __future__ import annotations
 
@@ -16,14 +18,21 @@ from repro_torch.functions.benchmarks import (FUNCTIONS, Function,
                                               make_shifted_rosenbrock, on_device)
 
 STATE_KEYS = ("pop", "fit", "best_arg", "best_val")
-_RANK = {"pop": 3, "fit": 2, "best_arg": 2, "best_val": 1}  # island-stacked
+# Rank of each state key with the island axis.
+_RANK = {"pop": 3, "fit": 2, "best_arg": 2, "best_val": 1, "vel": 3,
+         "pbest": 3, "pbest_f": 2, "age": 2, "age_limit": 2, "alive": 2,
+         "t": 1}
 
 
 def state_from_numpy(d: dict[str, Any], device: str | torch.device) -> dict:
-    """Engine state from numpy arrays (either package's layout) on ``device``."""
+    """Engine state from numpy arrays (either package's layout) on
+    ``device``: every key of ``d`` the engines know, ``alive`` as bool and
+    the rest as float32."""
     out = {}
-    for k in STATE_KEYS:
-        a = np.asarray(d[k], dtype=np.float32)
+    for k, v in d.items():
+        if k not in _RANK:
+            raise ValueError(f"unknown state key {k!r}")
+        a = np.asarray(v, dtype=bool if k == "alive" else np.float32)
         if a.ndim == _RANK[k] - 1:
             a = a[None]
         if a.ndim != _RANK[k]:
@@ -34,7 +43,7 @@ def state_from_numpy(d: dict[str, Any], device: str | torch.device) -> dict:
 
 def state_to_numpy(state: dict) -> dict[str, np.ndarray]:
     """Island-stacked numpy copies of the engine state."""
-    return {k: state[k].detach().cpu().numpy() for k in STATE_KEYS}
+    return {k: v.detach().cpu().numpy() for k, v in state.items()}
 
 
 def function_from_numpy(name: str, shift: np.ndarray | None = None,

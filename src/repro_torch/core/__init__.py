@@ -1,5 +1,6 @@
-"""The paper's engine in PyTorch: island DE with its executor and migration."""
-from repro_torch.core import de  # noqa: F401
+"""The paper's engine in PyTorch: island DE, GA, PSO and SA with their
+executor and migration."""
+from repro_torch.core import de, ga, pso, sa  # noqa: F401
 from repro_torch.core.api import OptimizeResult, Optimizer, lexi_min  # noqa: F401
 from repro_torch.core.executor import ExecutorConfig, make_batch_evaluator  # noqa: F401
 from repro_torch.core.islands import (  # noqa: F401
@@ -7,4 +8,7 @@ from repro_torch.core.islands import (  # noqa: F401
 
 ALGORITHMS = {
     "de": de.make,
+    "ga": ga.make,
+    "pso": pso.make,
+    "sa": sa.make,
 }

@@ -27,7 +27,8 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.islands import (MetaHeuristic, State, clip_box,
-                                      track_best, uniform_init)
+                                      evaluate_rows, init_state, track_best,
+                                      uniform_init)
 from repro_torch.functions.benchmarks import Function
 from repro_torch.kernels import registry as kreg
 from repro_torch.kernels.de_step import gather_rows, mutate
@@ -80,16 +81,11 @@ def make(
     lo, hi = f.lo, f.hi
 
     def evaluate(x: Tensor) -> Tensor:
-        """The row-local evaluator over every island's rows at once."""
-        return evaluator(x.reshape(-1, x.shape[-1])).reshape(x.shape[:-1])
+        return evaluate_rows(evaluator, x)
 
     def init(keys: Tensor) -> State:
         p = uniform_init(keys, pop, dim, lo, hi)
-        fit = evaluate(p)
-        i = torch.argmin(fit, dim=-1)
-        isl = torch.arange(p.shape[0], device=p.device)
-        return {"pop": p, "fit": fit, "best_arg": p[isl, i],
-                "best_val": fit[isl, i]}
+        return init_state(p, evaluate(p))
 
     def gen_sync(state: State, keys: Tensor) -> State:
         p, fit = state["pop"], state["fit"]

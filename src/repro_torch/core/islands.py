@@ -17,9 +17,11 @@ Two drivers, with the same trajectory for a fixed key:
 
 The key discipline is the JAX engine's, draw for draw, so a seed gives the
 same trajectory in both packages up to float32 rounding of the fitness.
-This slice carries barrier islands with ring/none migration; starvation,
-polish, portfolios, async islands, warm starts, meshes and the jobs axis
-raise ``NotImplementedError``.
+This slice carries barrier islands with ring, starvation and none
+migration, and the adoption of migrants into policies with per-individual
+state (``core.portfolio.adopt_native``: ga revives and zeroes the age, pso
+restarts velocity and personal best). Polish, portfolios, async islands,
+warm starts, meshes and the jobs axis raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 
 from repro_torch import prng, resolve_device
 from repro_torch.core import migration as mig
+from repro_torch.core import portfolio as pf
 from repro_torch.core.api import OptimizeResult
 from repro_torch.core.executor import ExecutorConfig, make_batch_evaluator
 from repro_torch.functions.benchmarks import Function
@@ -48,7 +51,7 @@ class IslandConfig:
     pop: int = 64                 # per-island population capacity
     dim: int = 10
     sync_every: int = 10          # generations between migration/incumbent rounds
-    migration: str = "ring"       # ring | none (starvation: later slice)
+    migration: str = "ring"       # ring | starvation | none
     n_migrants: int = 2           # paper: at most 2 leave an island per round
     share_incumbent: bool = False # broadcast the global best at each round
     max_evals: int = 100_000      # Fig.4 budget unit: function evaluations
@@ -106,9 +109,7 @@ class IslandOptimizer:
         mesh: Any = None,
         mesh_cfg: Any = None,
     ) -> None:
-        if cfg.migration == "starvation":
-            raise _later("starvation migration")
-        if cfg.migration not in ("ring", "none"):
+        if cfg.migration not in mig.POLICIES:
             raise ValueError(f"unknown migration policy {cfg.migration!r}")
         if cfg.polish != "none":
             raise _later("memetic polish (IslandConfig.polish)")
@@ -156,15 +157,21 @@ class IslandOptimizer:
         cfg = self.cfg
         step = algo.step_override if algo.step_override is not None else algo.gen
         stacked = cfg.n_islands > 1
+        adopts = pf.has_adopt_state(algo.name)
 
         def round_fn(state: State, key: Tensor) -> State:
             gen_keys = prng.split(key, cfg.sync_every)
             for g in range(cfg.sync_every):
                 state = step(state, self._island_keys(gen_keys[g]))
             if stacked and cfg.migration != "none":
-                pop, fit = mig.migrate(cfg.migration, state["pop"], state["fit"],
-                                       k=cfg.n_migrants)
+                old_pop, old_fit = state["pop"], state["fit"]
+                pop, fit = mig.migrate(cfg.migration, old_pop, old_fit,
+                                       k=cfg.n_migrants, alive=state.get("alive"))
                 state = {**state, "pop": pop, "fit": fit}
+                if adopts:
+                    # Slots whose contents changed hold adopted migrants.
+                    adopted = torch.any(pop != old_pop, dim=-1) | (fit != old_fit)
+                    state = pf.adopt_native(algo.name, state, adopted)
             if stacked and cfg.share_incumbent:
                 bv, ba = state["best_val"], state["best_arg"]
                 gi = torch.argmin(bv)
@@ -259,17 +266,32 @@ def clip_box(x: Tensor, lo: float, hi: float) -> Tensor:
     return torch.clamp(x, lo, hi)
 
 
-def track_best(state: State, pop: Tensor, fit: Tensor) -> State:
-    """Update each island's incumbent from its population: the first
+def evaluate_rows(evaluator: Callable[[Tensor], Tensor], x: Tensor) -> Tensor:
+    """Fitness ``(I, N)`` of island-stacked rows ``(I, N, D)``: one call of
+    the row-local evaluator over every island's rows at once."""
+    return evaluator(x.reshape(-1, x.shape[-1])).reshape(x.shape[:-1])
+
+
+def incumbent(state: State, pop: Tensor, fit: Tensor) -> State:
+    """Each island's ``best_val``/``best_arg`` after a generation: the first
     minimum of ``fit`` replaces the incumbent only if strictly better."""
     i = torch.argmin(fit, dim=-1)                                   # (I,)
     fi = torch.gather(fit, -1, i[:, None])[:, 0]
     pi = torch.gather(pop, 1, i[:, None, None].expand(-1, 1, pop.shape[-1]))[:, 0]
     better = fi < state["best_val"]
-    return {
-        **state,
-        "pop": pop,
-        "fit": fit,
-        "best_val": torch.where(better, fi, state["best_val"]),
-        "best_arg": torch.where(better[:, None], pi, state["best_arg"]),
-    }
+    return {"best_val": torch.where(better, fi, state["best_val"]),
+            "best_arg": torch.where(better[:, None], pi, state["best_arg"])}
+
+
+def track_best(state: State, pop: Tensor, fit: Tensor) -> State:
+    """The state with a new population and its incumbent updated from it."""
+    return {**state, "pop": pop, "fit": fit, **incumbent(state, pop, fit)}
+
+
+def init_state(pop: Tensor, fit: Tensor) -> State:
+    """A fresh island-stacked state: the population, its fitness, and each
+    island's first minimum as the incumbent."""
+    i = torch.argmin(fit, dim=-1)
+    isl = torch.arange(pop.shape[0], device=pop.device)
+    return {"pop": pop, "fit": fit, "best_arg": pop[isl, i],
+            "best_val": fit[isl, i]}

@@ -2,19 +2,28 @@
 
 Operates on island-stacked tensors ``pop: (I, P, D)``, ``fit: (I, P)``.
 
-  ring   counter-clock-wise unidirectional ring (the DPSO/DDE default):
-         island i sends its best ``k`` individuals to island i+1 (mod I),
-         which adopts any migrant better than its current worst.
-  none   isolated islands.
+  ring        counter-clock-wise unidirectional ring (the DPSO/DDE default):
+              island i sends its best ``k`` individuals to island i+1 (mod I),
+              which adopts any migrant better than its current worst.
+  starvation  the DGA/DGABH model: an island whose live population is 0, or
+              less than (max island population / 2.5), becomes the
+              immigration host; every other island sends its best there. At
+              most ``k`` <= 2 migrants leave an island per sync round.
+  none        isolated islands.
 
-Starvation migration and the async mailbox come in a later slice. Sorts are
-stable, as ``jnp.argsort`` is, so ties pick the same slots in both packages.
+The async mailbox comes in a later slice. Sorts are stable, as
+``jnp.argsort`` is, so ties pick the same slots in both packages. Neither
+policy reads a value back to the host: the host island is chosen on the
+device.
 """
 from __future__ import annotations
 
 import torch
 
 Tensor = torch.Tensor
+
+POLICIES = ("ring", "starvation", "none")
+STARVATION_RATIO = 2.5  # the paper's "population of another island divided by 2.5"
 
 
 def _replace_worst(pop: Tensor, fit: Tensor, mig: Tensor, migf: Tensor):
@@ -43,13 +52,47 @@ def ring(pop: Tensor, fit: Tensor, k: int = 2):
     return _replace_worst(pop, fit, mig, migf)
 
 
-def migrate(policy: str, pop: Tensor, fit: Tensor, k: int = 2):
-    """Dispatch to a migration policy by name: ring | none."""
+def starvation(pop: Tensor, fit: Tensor, k: int = 2,
+               alive: Tensor | None = None):
+    """DGA starvation-based immigration: the weakest island hosts everyone's
+    best. ``alive`` ``(I, P)`` marks live individuals (aging model; dead
+    slots carry +inf fitness), ``isfinite(fit)`` when not given. Migrants
+    land in the host's worst (dead first) slots."""
+    n_isl = pop.shape[0]
+    if n_isl <= 1:
+        return pop, fit
+    if alive is None:
+        alive = torch.isfinite(fit)
+    counts = alive.sum(dim=1)                                       # (I,)
+    host = torch.argmin(counts).reshape(1)                          # first on ties
+    host_n = counts.index_select(0, host)
+    starving = (host_n == 0) | (host_n.float() < counts.max().float() / STARVATION_RATIO)
+
+    k = min(k, 2)  # paper: at most 2 migrants leave an island per round
+    best = torch.argsort(fit, dim=1, stable=True)[:, :k]            # (I,k)
+    mig = torch.gather(pop, 1, best.unsqueeze(-1).expand(*best.shape, pop.shape[-1]))
+    migf = torch.gather(fit, 1, best)
+    # Donors: every island except the host.
+    donor = torch.arange(n_isl, device=pop.device) != host
+    migf = torch.where(donor[:, None], migf, torch.inf)
+    flat_f = migf.reshape(-1)
+    order = torch.argsort(flat_f, stable=True)[:min(flat_f.shape[0], pop.shape[1])]
+    arrivals = mig.reshape(-1, pop.shape[-1])[order]
+    hpop, hfit = pop.index_select(0, host), fit.index_select(0, host)
+    hpop2, hfit2 = _replace_worst(hpop, hfit, arrivals[None], flat_f[order][None])
+    hpop2 = torch.where(starving, hpop2, hpop)
+    hfit2 = torch.where(starving, hfit2, hfit)
+    return pop.index_copy(0, host, hpop2), fit.index_copy(0, host, hfit2)
+
+
+def migrate(policy: str, pop: Tensor, fit: Tensor, k: int = 2,
+            alive: Tensor | None = None):
+    """Dispatch to a migration policy by name: ring | starvation | none.
+    ``alive`` is read by starvation only."""
     if policy == "ring":
         return ring(pop, fit, k)
+    if policy == "starvation":
+        return starvation(pop, fit, k, alive)
     if policy == "none":
         return pop, fit
-    if policy == "starvation":
-        raise NotImplementedError(
-            "starvation migration comes with a later slice of the port")
     raise ValueError(f"unknown migration policy {policy!r}")

@@ -17,6 +17,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -31,6 +33,12 @@ SIGNATURES = {
     "de_step": ("de_step_launch",
                 (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                  _F, _F, _F, _F, _F, _P)),
+    "eval_select": ("eval_select_launch",
+                    (*(_P,) * 8, _I, _I, _I, _F, _P)),
+    "pso_step": ("pso_step_launch",
+                 (*(_P,) * 13, _I, _I, _I, _I, *(_F,) * 7, _P)),
+    "ga_step": ("ga_step_launch",
+                (*(_P,) * 12, _I, _I, _I, *(_F,) * 6, _P)),
 }
 
 _LOCK = threading.Lock()
@@ -88,7 +96,7 @@ def _build_all(out: Path) -> None:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name`` (``bench_eval`` or ``de_step``),
+    """The loaded kernel library ``name`` (a key of :data:`SIGNATURES`),
     building all of them on first use."""
     with _LOCK:
         lib = _LIBS.get(name)
@@ -114,7 +122,52 @@ def ptxas_report(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def check(err: int, name: str) -> None:
-    """Raise if a launch entry returned a CUDA error code."""
+def on_card(name: str, x: torch.Tensor, dims: tuple[int, ...] = (2, 3)) -> bool:
+    """Whether wrapper ``name`` launches its kernel on ``x``: False for a
+    CPU tensor (the wrapper runs its plain version), True for a CUDA tensor
+    with a dimension count in ``dims``; ValueError for anything else."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    if x.dim() not in dims:
+        raise ValueError(f"{name}: input must have {' or '.join(map(str, dims))} "
+                         f"dimensions, got {tuple(x.shape)}")
+    return True
+
+
+def check_inputs(device, *specs) -> None:
+    """Raise unless each ``(name, tensor, shape)`` is a contiguous float32
+    tensor of that shape on ``device``; a ``None`` tensor is skipped."""
+    for name, t, shape in specs:
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def index_input(name: str, t: torch.Tensor, shape: tuple, device) -> torch.Tensor:
+    """``t`` as a contiguous int64 tensor, checked for ``shape`` and ``device``."""
+    out = t.to(torch.int64).contiguous()
+    if out.device != device or tuple(out.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)} on {device}, got "
+                         f"{tuple(t.shape)} on {t.device}")
+    return out
+
+
+def launch(name: str, device, *args) -> None:
+    """Call library ``name``'s launch entry with ``args`` on ``device``'s
+    current stream: tensors go by data pointer, ``None`` as a null pointer,
+    numbers as the C signature says. Raises if the entry returns a CUDA
+    error."""
+    fn = getattr(library(name), SIGNATURES[name][0])
+    err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -8,8 +8,6 @@ there is no fallback from the card to the plain version.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.functions import benchmarks as bm
@@ -46,40 +44,19 @@ def bench_eval_ref(pop: torch.Tensor, fn: str, shift: torch.Tensor | None = None
     return getattr(bm, fn)(x) + bias
 
 
-def check_cuda(name: str, t: torch.Tensor, shape: tuple, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def bench_eval(pop: torch.Tensor, fn: str, shift: torch.Tensor | None = None,
                bias: float = 0.0) -> torch.Tensor:
     """pop ``(P, D)`` float32 -> fitness ``(P,)``. ``shift``: ``(D,)``."""
     tag = check_tag(fn)
-    if pop.device.type == "cpu":
+    if not _build.on_card("bench_eval", pop, dims=(2,)):
         return bench_eval_ref(pop, fn, shift, bias)
-    if pop.device.type != "cuda":
-        raise ValueError(f"bench_eval runs on cpu or cuda, not {pop.device}")
-    if pop.dim() != 2:
-        raise ValueError(f"pop must be (P, D), got {tuple(pop.shape)}")
     P, D = pop.shape
-    check_cuda("pop", pop, (P, D), pop.device)
-    if shift is not None:
-        check_cuda("shift", shift, (D,), pop.device)
-    out = torch.empty(P, dtype=torch.float32, device=pop.device)
+    dev = pop.device
+    _build.check_inputs(dev, ("pop", pop, (P, D)), ("shift", shift, (D,)))
+    out = torch.empty(P, dtype=torch.float32, device=dev)
     if P == 0:
         return out
-    lib = _build.library("bench_eval")
-    stream = torch.cuda.current_stream(pop.device).cuda_stream
-    err = lib.bench_eval_launch(
-        pop.data_ptr(), None if shift is None else shift.data_ptr(),
-        out.data_ptr(), P, D, tag, ctypes.c_float(bias), stream)
-    _build.check(err, "bench_eval")
+    _build.launch("bench_eval", dev, pop, shift, out, P, D, tag, bias)
     global LAUNCHES
     LAUNCHES += 1
     return out

@@ -1,5 +1,5 @@
-// Row evaluation of the §V testbed functions, shared by bench_eval.cu and
-// de_step.cu.
+// Row evaluation of the §V testbed functions, shared by every kernel in
+// this directory.
 //
 // Replaces `_eval_tile` of src/repro/kernels/bench_eval.py, which evaluates a
 // (pop_block, dim_pad) VMEM tile with a lane mask. On Hopper one thread block

@@ -13,11 +13,20 @@ so all islands draw in one call. uint32 arithmetic is emulated in int64 with
 ``& 0xFFFFFFFF`` after each add, shift and multiply; ``torch.uint32`` lacks
 the operators this needs. Draws run on the key's device and give the same
 bits on the CPU and on the card.
+
+``normal`` and ``categorical`` pass the uniform bits through ``erf_inv`` and
+``log``, whose float32 results XLA computes with its own approximations. The
+port follows XLA's ``erf_inv`` polynomial step by step and takes ``log`` in
+float64, so its draws are within a few ulps of ``jax.random``'s rather than
+equal to them (bounds in ``tests/test_torch_prng.py``), and still equal bit
+for bit between the CPU and the card.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch import f32
 
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -93,17 +102,15 @@ def uniform(key: torch.Tensor, shape: tuple[int, ...], minval: float = 0.0,
     """float32 draws in ``[minval, maxval)``, as ``jax.random.uniform``:
     the top 23 bits fill a mantissa with exponent 0, giving ``[1, 2)``.
 
-    XLA contracts ``floats * (hi - lo) + lo`` into one fused multiply-add;
-    the product of two float32 values is exact in float64, so computing it
-    there and rounding once gives the fused result on every device."""
+    XLA contracts ``floats * (hi - lo) + lo`` into one fused multiply-add,
+    which ``f32.fma`` reproduces on every device."""
     bits = random_bits(key, shape)
     fbits = (bits >> 9) | 0x3F800000
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
     # Bounds as float32 values held in Python floats: no host-to-device copy.
-    lo = float(np.float32(minval))
+    lo = f32.const(minval)
     span = float(np.float32(maxval) - np.float32(minval))
-    scaled = (floats.double() * span + lo).float()
-    return torch.clamp(scaled, min=lo)
+    return torch.clamp(f32.fma(floats, span, lo), min=lo)
 
 
 def randint(key: torch.Tensor, shape: tuple[int, ...], minval: int,
@@ -123,3 +130,58 @@ def randint(key: torch.Tensor, shape: tuple[int, ...], minval: int,
     mult = ((mult * mult) & M32) % span
     off = ((((higher % span) * mult) & M32) + lower % span) & M32
     return off % span + minval
+
+
+# XLA's ErfInv32 (M. Giles, "Approximating the erfinv function", GPU Gems
+# vol. 2): one polynomial in w = -log1p(-x*x) below 5, one in sqrt(w) above.
+_ERFINV_W_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+_SQRT2 = f32.const(np.sqrt(2.0))
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``erf_inv`` on (-1, 1), in XLA's order of operations: Horner
+    steps as fused multiply-adds (XLA contracts them), ``log1p`` and
+    ``sqrt`` rounded once from float64. ``normal`` never passes +-1, where XLA's version returns +-inf."""
+    w = -f32.log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, f32.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_W_LT5[0], _ERFINV_W_GE5[0])
+    for a, b in zip(_ERFINV_W_LT5[1:], _ERFINV_W_GE5[1:]):
+        p = f32.fma(p, w, torch.where(lt, a, b))
+    return p * x
+
+
+def normal(key: torch.Tensor, shape: tuple[int, ...], scale: float = 1.0,
+           loc: torch.Tensor | float | None = None) -> torch.Tensor:
+    """float32 standard-normal draws ``(..., *shape)``, as
+    ``jax.random.normal``: ``sqrt(2) * erf_inv(u)`` for ``u`` uniform on
+    ``(nextafter(-1, 0), 1)``.
+
+    ``scale`` and ``loc`` give ``loc + scale * normal(key, shape)`` as XLA
+    computes that expression with a constant ``scale``: it folds ``scale``
+    into the ``sqrt(2)`` factor, and contracts the add of ``loc`` into one
+    fused multiply-add."""
+    e = _erf_inv(uniform(key, shape, _NORMAL_LO, 1.0))
+    c = f32.const(np.float32(scale) * np.float32(_SQRT2))
+    return e * c if loc is None else f32.fma(e, c, loc)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                shape: tuple[int, ...]) -> torch.Tensor:
+    """int64 samples ``(..., *shape)`` from ``softmax(logits)`` over its last
+    axis, as ``jax.random.categorical(key, logits, shape=shape)`` (with
+    replacement): the argmax of ``gumbel + logits``, with
+    ``gumbel = -log(-log(u))`` for ``u`` uniform on ``[tiny, 1)``. ``logits``
+    is ``(..., n)``: one distribution per key."""
+    n = logits.shape[-1]
+    u = uniform(key, (*shape, n), _TINY, 1.0)
+    g = -f32.log(-f32.log(u))
+    lg = logits.reshape(logits.shape[:-1] + (1,) * len(shape) + (n,))
+    return torch.argmax(g + lg, dim=-1)

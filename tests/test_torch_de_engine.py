@@ -155,12 +155,11 @@ def test_device_none_needs_a_gpu():
 
 
 @pytest.mark.parametrize("cfg,kw", [
-    (dict(migration="starvation"), {}),
     (dict(polish="asd"), {}),
     (dict(sync_policy="async", n_islands=2), {}),
     (dict(portfolio=("de", "pso"), n_islands=2), {}),
     (dict(), {"mesh_cfg": object()}),
-], ids=["starvation", "polish", "async", "portfolio", "mesh"])
+], ids=["polish", "async", "portfolio", "mesh"])
 def test_later_slice_features_raise(cfg, kw):
     with pytest.raises(NotImplementedError, match="later slice"):
         tcore.IslandOptimizer(tcore.ALGORITHMS["de"], tcore.IslandConfig(**cfg),
