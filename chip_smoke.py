@@ -27,12 +27,24 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      migration, with the default offspring wave and in a steady-state form
      whose islands starve; and 8 PSO islands, fused, ring migration;
   9. small PSO, GA (steady-state aging, starvation) and SA runs, fused and
-     unfused, on the card against the same runs on the CPU.
+     unfused, on the card against the same runs on the CPU;
+ 10. llama3.2-1b at full width and depth, bf16, random weights from a fixed
+     key: ``serve`` with batch 4, a 2048-token prompt and 32 greedy decode
+     steps, then ``make_prefill_step`` at batch 1 x 4096 (flash_attention
+     once per layer and prefill: 16);
+ 11. mamba2-370m at full width and depth, bf16: ``make_prefill_step`` at
+     batch 4 x 2048 (ssd_scan once per layer: 48), then ``serve`` with
+     batch 4, a 64-token prompt and 32 decode steps (the recurrent
+     cache-filling prefill launches no kernel);
+ 12. both at full width with 2 layers in float32, on the card against the
+     plain path on the CPU on the same weights: prefill logits, and greedy
+     decoding teacher-forced by the CPU's tokens.
 
-Phases 3-5, 7 and 8 are the main path: each run resets the kernels' launch
-counters, drives ``IslandOptimizer.minimize`` and reads the counters right
-after. Each engine configuration is then profiled over a few rounds of a
-further run, init excluded, for the device's busy time and idle share.
+Phases 3-5, 7, 8, 10 and 11 are the main path: each run resets the kernels'
+launch counters, drives its entry point (``IslandOptimizer.minimize``,
+``serve``, a prefill step) and reads the counters right after. Each engine configuration is then profiled over a few rounds of a
+further run, init excluded, and each serve run over a few further decode
+steps, for the device's busy time and idle share.
 Every launch records its kernel and input shape; the run fails if a phase
 launched a kernel at a shape phase 1 did not check, or if a run marked to
 adopt migrants never did.
@@ -57,9 +69,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Data-sheet rates of the H100 SXM (NVIDIA H100 data sheet): memory bytes/s
-# and dense float32 FLOP/s outside the tensor cores.
-CARD_RATES = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12)}
+# Data-sheet rates of the H100 SXM (NVIDIA H100 data sheet): memory bytes/s,
+# dense float32 FLOP/s outside the tensor cores and dense bf16 FLOP/s on the
+# tensor cores.
+CARD_RATES = {"NVIDIA H100 80GB HBM3": {"bytes": 3.35e12, "float32": 67e12,
+                                        "bfloat16": 989e12}}
 
 # The main path's sizes: Table I's population and dimension.
 POP, DIM, SYNC_EVERY = 800, 1000, 10
@@ -153,6 +167,51 @@ FUSED_KERNEL = {"de": "de_step", "pso": "pso_step", "ga": "ga_step",
                 "sa": "eval_select"}
 
 
+@dataclasses.dataclass(frozen=True)
+class ModelRun:
+    """One drive of the model serving path: ``entry`` "prefill" is
+    ``make_prefill_step`` on a (batch, seq) prompt; "serve" is
+    ``launch.serve.serve``, which fills the cache with a seq-token prompt
+    and decodes ``decode_steps`` tokens greedily. Weights come from
+    ``init_params(PRNGKey(0))``, at full width, with ``n_layers`` layers (0:
+    the config's full depth) and ``compute_dtype`` activations."""
+
+    label: str
+    arch: str
+    entry: str
+    batch: int
+    seq: int
+    decode_steps: int = 0
+    n_layers: int = 0
+    compute_dtype: str = "bfloat16"
+
+
+# The kernel of each architecture's prefill; the cache-filling prefill of a
+# recurrent arch steps through the prompt token by token and launches none.
+MODEL_KERNEL = {"llama3.2-1b": "flash_attention", "mamba2-370m": "ssd_scan"}
+
+# The model serving path at full width and depth, bf16 (phases 10-11).
+MODEL_RUNS = {
+    10: (ModelRun("llama3.2-1b serve", "llama3.2-1b", "serve", 4, 2048, 32),
+         ModelRun("llama3.2-1b prefill", "llama3.2-1b", "prefill", 1, 4096)),
+    11: (ModelRun("mamba2-370m prefill", "mamba2-370m", "prefill", 4, 2048),
+         ModelRun("mamba2-370m serve", "mamba2-370m", "serve", 4, 64, 32)),
+}
+# Full width, 2 layers, float32: the card with its kernels against the
+# plain path on the CPU, on the same weights (phase 12). Mamba2's prefill
+# spans two 256-token chunks.
+CARD_VS_CPU_MODEL_RUNS = {
+    12: (ModelRun("llama3.2-1b prefill, 2 layers, f32", "llama3.2-1b", "prefill", 2, 256,
+                  n_layers=2, compute_dtype="float32"),
+         ModelRun("llama3.2-1b serve, 2 layers, f32", "llama3.2-1b", "serve", 2, 256, 8,
+                  n_layers=2, compute_dtype="float32"),
+         ModelRun("mamba2-370m prefill, 2 layers, f32", "mamba2-370m", "prefill", 2, 512,
+                  n_layers=2, compute_dtype="float32"),
+         ModelRun("mamba2-370m serve, 2 layers, f32", "mamba2-370m", "serve", 2, 64, 8,
+                  n_layers=2, compute_dtype="float32")),
+}
+
+
 def _chunks(pop: int) -> tuple[int, int]:
     """(rows per chunk, chunks) of chunked DE's 8 chunks: the last chunk is
     clamped onto the one before when the size does not divide pop."""
@@ -215,8 +274,11 @@ PALLAS_SITES = {
     "eval_select": "src/repro/kernels/eval_select.py:86",
     "pso_step": "src/repro/kernels/pso_step.py:98",
     "ga_step": "src/repro/kernels/ga_step.py:98",
+    "flash_attention": "src/repro/kernels/flash_attention.py:99",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:72",
 }
 KERNELS = tuple(PALLAS_SITES)
+POP_KERNELS = KERNELS[:5]      # the population kernels of phases 1-9
 
 
 class PhaseFailed(Exception):
@@ -232,7 +294,7 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_rates(name: str) -> tuple[float, float]:
+def card_rates(name: str) -> dict[str, float]:
     if name not in CARD_RATES:
         raise PhaseFailed(f"no data-sheet rates for card {name!r}")
     return CARD_RATES[name]
@@ -355,12 +417,15 @@ class Ctx:
 
 def record_launch_shapes(c: Ctx) -> None:
     """Wrap the kernels' shared launch step so that every launch records
-    its kernel and the shape of its first input under the running phase."""
+    its kernel and the shape and type of its first input under the running
+    phase."""
     b = c.rt._build
     launch = b.launch
 
     def recording(name, device, *args):
-        c.shapes.setdefault(c.phase, set()).add((name, tuple(args[0].shape)))
+        first = args[0]
+        c.shapes.setdefault(c.phase, set()).add(
+            (name, tuple(first.shape), str(first.dtype).replace("torch.", "")))
         return launch(name, device, *args)
 
     b.launch = recording
@@ -377,14 +442,20 @@ def port_modules() -> types.SimpleNamespace:
     from repro_torch.core import (ALGORITHMS, ExecutorConfig, IslandConfig,
                                   IslandOptimizer, de, migration)
     from repro_torch.functions import benchmarks as bm
+    from repro_torch.configs import get_config
     from repro_torch.kernels import (_build, bench_eval, de_step, eval_select,
-                                     ga_step, pso_step)
+                                     flash_attention, ga_step, pso_step,
+                                     ssd_scan)
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer
     return types.SimpleNamespace(
         prng=prng, de=de, bm=bm, bench_eval=bench_eval, de_step=de_step,
         eval_select=eval_select, pso_step=pso_step, ga_step=ga_step,
+        flash_attention=flash_attention, ssd_scan=ssd_scan,
         ALGORITHMS=ALGORITHMS, migration=migration,
         _build=_build, ExecutorConfig=ExecutorConfig, IslandConfig=IslandConfig,
-        IslandOptimizer=IslandOptimizer)
+        IslandOptimizer=IslandOptimizer, get_config=get_config, serve=serve,
+        steps=steps, T=transformer)
 
 
 def _check_eval(c: Ctx, pop, fn: str, shift, bias: float, label: str) -> None:
@@ -466,6 +537,7 @@ def phase_kernels(c: Ctx) -> None:
             f"{took_k.numel()}, pop abs err {pe:.3g}, fit rel err {rel:.3g}, "
             f"near-tie rows deciding differently {n_close}")
     check_fused_kernels(c)
+    check_model_kernels(c)
 
 
 # Bound of tests/test_kernels.py for the fused-generation kernels:
@@ -785,6 +857,9 @@ def main_path_phases() -> dict[str, set[int]]:
         for r in runs:
             for k in launch_shapes(r):
                 out[k].add(phase)
+    for phase, runs in MODEL_RUNS.items():
+        for r in runs:
+            out[MODEL_KERNEL[r.arch]].add(phase)
     return out
 
 
@@ -835,10 +910,352 @@ def card_vs_cpu_phase(phase: int):
     return run
 
 
-def kernel_timings(c: Ctx, bw: float, flops: float) -> None:
-    """Time each kernel and its plain version at the Table I shape and work
-    out its bound from this run's inputs."""
+# -- the model serving path ------------------------------------------------------
+
+# Bounds of tests/test_kernels.py: flash attention absolute, the SSD scan
+# relative to the reference's largest |y|.
+FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# tests/test_kernels.py's own cases: flash (BH, S, T, hd) causal in both
+# types, its masks (window, softcap, causal) at (2, 192, 192, 64) float32;
+# ssd (BH, S, P, N, chunk) in both types, B/C per scan row.
+FLASH_SUITE = ((2, 128, 128, 64), (2, 256, 256, 64), (2, 128, 256, 128), (2, 100, 200, 64))
+FLASH_MASKS = ((64, 0.0, True), (0, 50.0, True), (0, 0.0, False), (32, 30.0, True))
+SSD_SUITE = ((3, 128, 32, 16, 32), (3, 256, 64, 64, 64), (3, 256, 64, 128, 128))
+# Logits of the card within this share of the CPU's largest |logit|.
+MODEL_TOL = 1e-4
+
+
+def model_cfg(rt, r: ModelRun):
+    over = {"compute_dtype": r.compute_dtype}
+    if r.n_layers:
+        over["n_layers"] = r.n_layers
+    return dataclasses.replace(rt.get_config(r.arch), **over)
+
+
+def model_cases(rt, r: ModelRun) -> dict[str, tuple]:
+    """The kernel launch run ``r`` makes per prefill: ``{kernel: (case,
+    launches)}``. A flash case is ((BH, S, hd), T, dtype); an ssd case
+    ((BH, S, P), N, H, chunk, dtype), B/C shared by the H heads of a row."""
+    cfg = model_cfg(rt, r)
+    if cfg.block_pattern == "attn":
+        return {"flash_attention": (((r.batch * cfg.n_heads, r.seq, cfg.hd), r.seq,
+                                     r.compute_dtype), cfg.n_layers)}
+    if r.entry == "serve":
+        return {}
+    return {"ssd_scan": (((r.batch * cfg.ssm_heads, r.seq, cfg.ssm_head_dim), cfg.ssm_state,
+                          cfg.ssm_heads, min(cfg.ssm_chunk, r.seq), r.compute_dtype),
+                         cfg.n_layers)}
+
+
+def _model_runs():
+    for table in (MODEL_RUNS, CARD_VS_CPU_MODEL_RUNS):
+        for runs in table.values():
+            yield from runs
+
+
+def _flash_check(c: Ctx, gen, shape, T, dtype, mask=(0, 0.0, True)) -> float:
+    torch, fa = c.torch, c.rt.flash_attention
+    BH, S, hd = shape
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(sh, generator=gen, device=c.dev).to(dt)
+               for sh in ((BH, S, hd), (BH, T, hd), (BH, T, hd)))
+    window, softcap, causal = mask
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_ref(q, k, v, **kw)
+    c.sync()
+    c.err("flash_attention", got.float(), want.float())
+    err = float((got.float() - want.float()).abs().max())
+    require(got.dtype == dt and err < FLASH_TOL[dtype],
+            f"flash_attention {shape} T {T} {dtype} mask {mask}: abs err {err:.3g}")
+    return err
+
+
+def _ssd_inputs(c: Ctx, gen, shape, N, H, dtype):
+    """x, B, C normal; dt = softplus(normal); A = -exp(normal), as in
+    tests/test_kernels.py; B/C (BH / H, S, N)."""
+    torch = c.torch
+    BH, S, P = shape
+    dt_ = getattr(torch, dtype)
+    x = torch.randn((BH, S, P), generator=gen, device=c.dev).to(dt_)
+    b, cc = (torch.randn((BH // H, S, N), generator=gen, device=c.dev).to(dt_)
+             for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn((BH, S), generator=gen, device=c.dev))
+    A = -torch.exp(torch.randn(BH, generator=gen, device=c.dev))
+    return x, dt, A, b, cc
+
+
+def _ssd_check(c: Ctx, gen, shape, N, H, chunk, dtype) -> float:
+    ss = c.rt.ssd_scan
+    args = _ssd_inputs(c, gen, shape, N, H, dtype)
+    got = ss.ssd_scan(*args, chunk=chunk)
+    want = ss.ssd_ref(*args)
+    c.sync()
+    c.err("ssd_scan", got.float(), want.float())
+    rel = float((got.float() - want.float()).abs().max()) / (float(want.float().abs().max()) + 1e-6)
+    require(got.dtype == args[0].dtype and rel < SSD_TOL[dtype],
+            f"ssd_scan {shape} N {N} H {H} chunk {chunk} {dtype}: err {rel:.3g} of max |y|")
+    return rel
+
+
+def check_model_kernels(c: Ctx) -> None:
+    """flash_attention and ssd_scan against their plain versions on the
+    card: every case the model phases launch (from the run tables) and the
+    JAX suite's shapes, types and masks, at its bounds."""
+    gen = c.torch.Generator(device=c.dev).manual_seed(11)
+    flash, ssd = set(), set()
+    for r in _model_runs():
+        for k, (case, _) in model_cases(c.rt, r).items():
+            (flash if k == "flash_attention" else ssd).add(case)
+    worst = {"flash_attention": 0.0, "ssd_scan": 0.0}
+    for shape, T, dtype in sorted(flash):
+        worst["flash_attention"] = max(worst["flash_attention"],
+                                       _flash_check(c, gen, shape, T, dtype))
+    for BH, S, T, hd in FLASH_SUITE:
+        for dtype in ("float32", "bfloat16"):
+            worst["flash_attention"] = max(worst["flash_attention"],
+                                           _flash_check(c, gen, (BH, S, hd), T, dtype))
+    for mask in FLASH_MASKS:
+        worst["flash_attention"] = max(worst["flash_attention"],
+                                       _flash_check(c, gen, (2, 192, 64), 192, "float32", mask))
+    for shape, N, H, chunk, dtype in sorted(ssd):
+        worst["ssd_scan"] = max(worst["ssd_scan"], _ssd_check(c, gen, shape, N, H, chunk, dtype))
+    for BH, S, P, N, chunk in SSD_SUITE:
+        for dtype in ("float32", "bfloat16"):
+            worst["ssd_scan"] = max(worst["ssd_scan"],
+                                    _ssd_check(c, gen, (BH, S, P), N, 1, chunk, dtype))
+    log(f"phase 1: flash_attention at the model cases {sorted(flash)}, the suite's "
+        f"{len(FLASH_SUITE)} shapes x 2 types and {len(FLASH_MASKS)} masks: max abs err "
+        f"{worst['flash_attention']:.3g} (bounds {FLASH_TOL})")
+    log(f"phase 1: ssd_scan at the model cases {sorted(ssd)} and the suite's "
+        f"{len(SSD_SUITE)} shapes x 2 types: max err {worst['ssd_scan']:.3g} of max |y| "
+        f"(bounds {SSD_TOL})")
+
+
+class ModelParams:
+    """``init_params(PRNGKey(0))`` on the card for one configuration at a
+    time (llama3.2-1b's float32 weights are 5 GB), and its CPU copy."""
+
+    def __init__(self):
+        self.key, self.card, self.cpu = None, None, None
+
+    def get(self, c: Ctx, cfg, cpu: bool = False):
+        key = (cfg.name, cfg.n_layers)
+        if key != self.key:
+            self.key, self.card, self.cpu = key, None, None
+            self.card = c.rt.T.init_params(c.rt.prng.PRNGKey(0, c.dev), cfg)
+        if cpu and self.cpu is None:
+            self.cpu = c.rt.T.tree_map(lambda t: t.cpu(), self.card)
+        return self.cpu if cpu else self.card
+
+
+PARAMS = ModelParams()
+
+
+def _prompt(c: Ctx, cfg, batch: int, seq: int, device):
+    prng = c.rt.prng
+    return prng.randint(prng.fold_in(prng.PRNGKey(0, device), 2), (batch, seq), 0, cfg.vocab)
+
+
+def _device_rows(c: Ctx, prof):
+    rows = [(e.device_time_total, e.key, e.count) for e in prof.key_averages()
+            if e.device_type == c.torch.autograd.DeviceType.CUDA]
+    return sorted(rows, reverse=True)
+
+
+def profile_decode(c: Ctx, cfg, params, batch: int, prompt_len: int, steps: int = 8) -> dict:
+    """Device time and idle share of greedy decode steps after a
+    cache-filling prefill: ``steps`` steps timed on the host clock, then
+    ``steps`` more under torch.profiler (its own wall is not used)."""
     torch, rt = c.torch, c.rt
+    from torch.profiler import ProfilerActivity, profile
+    p = rt.steps._cast_params(params, cfg)
+    state = rt.T.init_decode_state(cfg, batch, prompt_len + 2 * steps + 4, c.dev)
+    prng = rt.prng
+    prompt = prng.randint(prng.fold_in(prng.PRNGKey(0, c.dev), 1), (batch, prompt_len),
+                          0, cfg.vocab)
+    logits, state = rt.steps.make_prefill_decode(cfg)(p, state, {"tokens": prompt})
+    step = rt.steps.make_decode_step(cfg)
+    box = [logits, state]
+
+    def run(n):
+        for _ in range(n):
+            tok = torch.argmax(box[0][:, :cfg.vocab], dim=-1)[:, None]
+            box[0], box[1] = step(p, box[1], {"tokens": tok})
+
+    run(2)
+    c.sync()
+    t0 = time.perf_counter()
+    run(steps)
+    c.sync()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        run(steps)
+        c.sync()
+    rows = _device_rows(c, prof)
+    busy = sum(r[0] for r in rows) / 1e3 / steps
+    return {"wall_ms_per_token": wall, "device_busy_ms_per_token": busy,
+            "device_idle_share": (1.0 - busy / wall) if rows else None,
+            "device_launches_per_token": sum(r[2] for r in rows) / steps,
+            "top": [{"name": k[:90], "device_ms": t / 1e3, "count": n}
+                    for t, k, n in rows[:4]]}
+
+
+def _want_model_counts(c: Ctx, r: ModelRun) -> dict[str, int]:
+    want = {k: n for k, (_, n) in model_cases(c.rt, r).items()}
+    return {k: want.get(k, 0) for k in KERNELS}
+
+
+def _check_logits(c: Ctx, cfg, logits, batch: int, label: str) -> None:
+    torch = c.torch
+    require(tuple(logits.shape) == (batch, cfg.padded_vocab) and logits.dtype == torch.float32,
+            f"{label}: logits {tuple(logits.shape)} {logits.dtype}")
+    require(bool(torch.isfinite(logits[:, :cfg.vocab]).all()), f"{label}: non-finite logits")
+    require(bool((logits[:, cfg.vocab:] <= -1e8).all()), f"{label}: vocab padding not masked")
+
+
+def _model_main(c: Ctx, phase: int, r: ModelRun) -> dict:
+    """One warm-up call, then the counters set to 0, the measured call, and
+    the counters read; the launches must be the run's kernel once per layer
+    per prefill. A serve run is then profiled over further decode steps."""
+    torch, rt = c.torch, c.rt
+    cfg = model_cfg(rt, r)
+    params = PARAMS.get(c, cfg)
+    if r.entry == "prefill":
+        step = rt.steps.make_prefill_step(cfg)
+        batch = {"tokens": _prompt(c, cfg, r.batch, r.seq, c.dev)}
+        step(params, batch)
+        c.sync()
+        c.reset()
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        c.sync()
+        wall = time.perf_counter() - t0
+        counts = c.counts()
+        _check_logits(c, cfg, logits, r.batch, r.label)
+        out = {"prefill_ms": wall * 1e3, "prefill_tok_per_s": r.batch * r.seq / wall}
+    else:
+        rt.serve.serve(cfg, r.batch, r.seq, 2, device=c.dev, params=params)
+        c.sync()
+        c.reset()
+        toks, tp, td = rt.serve.serve(cfg, r.batch, r.seq, r.decode_steps, device=c.dev,
+                                      params=params)
+        counts = c.counts()
+        require(tuple(toks.shape) == (r.batch, r.decode_steps)
+                and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+                f"{r.label}: tokens {tuple(toks.shape)} out of range")
+        out = {"prefill_ms": tp * 1e3, "prefill_tok_per_s": r.batch * r.seq / tp,
+               "decode_ms_per_token": td / r.decode_steps * 1e3,
+               "decode_tok_per_s": r.batch * r.decode_steps / td,
+               "sample_row": toks[0, :8].tolist()}
+    want = _want_model_counts(c, r)
+    require(counts == want, f"{r.label}: launches {counts}, expected {want}")
+    c.add_launches(counts)
+    out["launches_per_prefill"] = {k: v for k, v in counts.items() if v}
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase {phase}: {r.label} (batch {r.batch}, seq {r.seq}, layers {cfg.n_layers}, "
+        f"{cfg.compute_dtype}): {json.dumps(out)}")
+    if r.entry == "serve":
+        prof = profile_decode(c, cfg, params, r.batch, r.seq)
+        log(f"phase {phase}: {r.label} decode profile: {json.dumps(prof)}")
+        out["decode_profile"] = prof
+    return out
+
+
+def run_model_phase(phase: int):
+    def run(c: Ctx) -> dict:
+        return {r.label: _model_main(c, phase, r) for r in MODEL_RUNS[phase]}
+    return run
+
+
+def _logit_err(torch, got, want, vocab: int) -> tuple[float, float]:
+    """(max |got - want|, max |want|) over the real vocab."""
+    g, w = got[:, :vocab].double().cpu(), want[:, :vocab].double().cpu()
+    return float((g - w).abs().max()), float(w.abs().max())
+
+
+def _model_card_vs_cpu(c: Ctx, phase: int, r: ModelRun) -> None:
+    """Run ``r`` on the card and on the CPU on the same weights. Prefill:
+    last-position logits within MODEL_TOL of the CPU's largest |logit|.
+    Serve: the CPU's greedy tokens teacher-force both devices' decode, whose
+    logits must agree at every step within the same bound and whose argmax
+    must agree wherever the CPU's top-2 gap clears it; the two ``serve``
+    runs must give the same tokens up to the first step where it does not."""
+    torch, rt = c.torch, c.rt
+    cfg = model_cfg(rt, r)
+    p_card = PARAMS.get(c, cfg)
+    p_cpu = PARAMS.get(c, cfg, cpu=True)
+    c.reset()
+    if r.entry == "prefill":
+        step = rt.steps.make_prefill_step(cfg)
+        toks = _prompt(c, cfg, r.batch, r.seq, "cpu")
+        got = step(p_card, {"tokens": toks.to(c.dev)})
+        counts = c.counts()
+        want = step(p_cpu, {"tokens": toks})
+        err, scale = _logit_err(torch, got, want, cfg.vocab)
+        require(err < MODEL_TOL * scale,
+                f"card vs cpu {r.label}: logits differ by {err:.3g} (max |logit| {scale:.3g})")
+        detail = f"logit err {err:.3g} of max |logit| {scale:.3g} ({err / scale:.3g})"
+    else:
+        got_toks, _, _ = rt.serve.serve(cfg, r.batch, r.seq, r.decode_steps, device=c.dev,
+                                        params=p_card)
+        counts = c.counts()
+        want_toks, _, _ = rt.serve.serve(cfg, r.batch, r.seq, r.decode_steps, device="cpu",
+                                         params=p_cpu)
+        worst, clear_steps = 0.0, r.decode_steps
+        logits = []     # per device (card, cpu): the logits of each step
+        for dev, p in ((c.dev, p_card), ("cpu", p_cpu)):
+            prng = rt.prng
+            prompt = prng.randint(prng.fold_in(prng.PRNGKey(0, dev), 1), (r.batch, r.seq),
+                                  0, cfg.vocab)
+            pc = rt.steps._cast_params(p, cfg)
+            st = rt.T.init_decode_state(cfg, r.batch, r.seq + r.decode_steps + 1, dev)
+            lg, st = rt.steps.make_prefill_decode(cfg)(pc, st, {"tokens": prompt})
+            seq = [lg]
+            step = rt.steps.make_decode_step(cfg)
+            for i in range(r.decode_steps - 1):
+                lg, st = step(pc, st, {"tokens": want_toks[:, i:i + 1].to(dev)})
+                seq.append(lg)
+            logits.append(seq)
+        for i, (lg_card, lg_cpu) in enumerate(zip(*logits)):
+            err, scale = _logit_err(torch, lg_card, lg_cpu, cfg.vocab)
+            worst = max(worst, err / scale)
+            require(err < MODEL_TOL * scale,
+                    f"card vs cpu {r.label}: step {i} logits differ by {err:.3g} of {scale:.3g}")
+            top2 = torch.topk(lg_cpu[:, :cfg.vocab], 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * MODEL_TOL * scale
+            same = torch.argmax(lg_card[:, :cfg.vocab].cpu(), -1) == torch.argmax(
+                lg_cpu[:, :cfg.vocab], -1)
+            require(bool(same[clear].all()), f"card vs cpu {r.label}: step {i} argmax differs "
+                    "on a row whose top-2 gap clears the bound")
+            if not bool(clear.all()):
+                clear_steps = min(clear_steps, i)
+        require(torch.equal(got_toks[:, :clear_steps].cpu(), want_toks[:, :clear_steps]),
+                f"card vs cpu {r.label}: serve tokens differ within the first {clear_steps} "
+                "clear steps")
+        detail = (f"{r.decode_steps} greedy steps teacher-forced: max logit err {worst:.3g} of "
+                  f"max |logit|; serve tokens equal: {torch.equal(got_toks.cpu(), want_toks)} "
+                  f"(required for the first {clear_steps} steps, whose top-2 gaps clear the bound)")
+    want = _want_model_counts(c, r)
+    require(counts == want, f"card vs cpu {r.label}: launches {counts}, expected {want}")
+    log(f"phase {phase}: card vs cpu {r.label}: {detail}; card launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+
+
+def model_card_vs_cpu_phase(phase: int):
+    def run(c: Ctx) -> None:
+        for r in CARD_VS_CPU_MODEL_RUNS[phase]:
+            _model_card_vs_cpu(c, phase, r)
+    return run
+
+
+def kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
+    """Time each kernel and its plain version at its main path's shape and
+    work out its bound from this run's inputs."""
+    torch, rt = c.torch, c.rt
+    bw, flops = rates["bytes"], rates["float32"]
     be, ds = rt.bench_eval, rt.de_step
     gen = torch.Generator().manual_seed(1)
     P, D = 800, 1000
@@ -919,16 +1336,70 @@ def kernel_timings(c: Ctx, bw: float, flops: float) -> None:
     n_mut = float((um < 0.1).sum())
     bound("ga_step", 4 * 6 * N * D + 4 * (2 * N + D) + 8 * N + 4 * N + N,
           15 * N * D + 2 * n_mut + N)
-    for name in KERNELS:
+    for name in POP_KERNELS:
         k = c.kern[name]
         shape = (N, D) if name == "ga_step" else (P, D)
         log(f"timing {name} at {shape}: kernel {k['ms']:.4f} ms, plain "
             f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
+    model_kernel_timings(c, rates)
+
+
+def model_kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
+    """flash_attention at llama3.2-1b's serve prefill (batch 4 x 2048, 32
+    heads of 64, bf16) and ssd_scan at mamba2-370m's prefill (batch 4 x
+    2048, 32 heads, P 64, N 128, chunk 256, bf16 x/B/C): kernel, plain
+    version, bound, and for flash attention the library call
+    ``scaled_dot_product_attention(q, k, v, is_causal=True)``."""
+    torch, rt = c.torch, c.rt
+    fa, ss = rt.flash_attention, rt.ssd_scan
+    gen = torch.Generator(device=c.dev).manual_seed(3)
+    bf16 = torch.bfloat16
+
+    def bound(name: str, nbytes: float, nops: float, peak: float) -> None:
+        c.kern[name].update(
+            bound_ms=max(nbytes / rates["bytes"], nops / peak) * 1e3,
+            bound_by="bytes" if nbytes / rates["bytes"] >= nops / peak else "operations")
+
+    B, H, S, hd = 4, 32, 2048, 64
+    q, k, v = (torch.randn((B * H, S, hd), generator=gen, device=c.dev).to(bf16)
+               for _ in range(3))
+    kf = c.kern["flash_attention"]
+    kf["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=True), reps=20)
+    kf["plain_ms"] = time_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True), reps=5)
+    q4, k4, v4 = (t.view(B, H, S, hd) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kf["library_ms"] = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), reps=20)
+    # q, k, v read and the output written once, bf16; 4 flops per (query,
+    # key, dim) for the two products, the causal half of the pairs.
+    bound("flash_attention", 2 * 4 * B * H * S * hd, 4 * B * H * S * S * hd / 2,
+          rates["bfloat16"])
+    del q, k, v, q4, k4, v4
+
+    BH, P, N, Q = B * H, 64, 128, 256
+    args = _ssd_inputs(c, gen, (BH, S, P), N, H, "bfloat16")
+    ks = c.kern["ssd_scan"]
+    ks["ms"] = time_ms(lambda: ss.ssd_scan(*args, chunk=Q), reps=20)
+    ks["plain_ms"] = time_ms(lambda: ss.ssd_ref(*args), reps=2, warmup=1)
+    ks["library_ms"] = None
+    # x read and y written (bf16), B and C once per batch row (bf16), dt
+    # and A (f32). Operations of the chunked form per chunk and row: C B^T
+    # and its decay-weighted product with x dt on the causal half of the
+    # (Q, Q) tile, C times the carried state and the state update.
+    n_chunks = S // Q
+    nbytes = 2 * 2 * BH * S * P + 2 * 2 * B * S * N + 4 * BH * S + 4 * BH
+    nops = BH * n_chunks * (Q * (Q + 1) * (N + P) + 4 * Q * N * P)
+    bound("ssd_scan", nbytes, nops, rates["bfloat16"])
+    for name, shape in (("flash_attention", (B * H, S, hd)), ("ssd_scan", (BH, S, P))):
+        k_ = c.kern[name]
+        lib = k_.get("library_ms")
+        log(f"timing {name} at {shape} bf16: kernel {k_['ms']:.4f} ms, plain "
+            f"{k_['plain_ms']:.4f} ms, bound {k_['bound_ms']:.4f} ms ({k_['bound_by']}), "
+            f"library {'none' if lib is None else f'{lib:.4f} ms'}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -945,7 +1416,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     smi_line = smi[0] if smi else "nvidia-smi: no output"
     kind = torch.cuda.get_device_name(0)
-    bw, flops = card_rates(kind)
+    rates = card_rates(kind)
     log(f"card: {smi_line} | torch {torch.__version__} cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -964,7 +1435,9 @@ def main() -> int:
     record_launch_shapes(c)
     steps = {1: phase_kernels, 2: phase_prng,
              **{n: run_main_phase(n) for n in MAIN_RUNS},
-             **{n: card_vs_cpu_phase(n) for n in CARD_VS_CPU_RUNS}}
+             **{n: card_vs_cpu_phase(n) for n in CARD_VS_CPU_RUNS},
+             **{n: run_model_phase(n) for n in MODEL_RUNS},
+             **{n: model_card_vs_cpu_phase(n) for n in CARD_VS_CPU_MODEL_RUNS}}
     for num in sorted(steps):
         if num not in phases:
             continue
@@ -978,7 +1451,7 @@ def main() -> int:
         log(f"phase {num}: {time.perf_counter() - t0:.1f} s")
     c.phase = None
     if 1 in phases:
-        kernel_timings(c, bw, flops)
+        kernel_timings(c, rates)
         # Every shape a later phase launched a kernel at was checked in phase 1.
         checked = c.shapes.get(1, set())
         for num in sorted(phases - {1}):
@@ -1003,7 +1476,7 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "max_rel_err": k["max_rel_err"],
             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"),
             "bound_ms": k.get("bound_ms"), "bound_by": k.get("bound_by"),
-            "library_ms": None})
+            "library_ms": k.get("library_ms")})
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     if not ok:

@@ -6,6 +6,11 @@ The two packages share a state layout (``pop``, ``fit``, ``best_arg``,
 except that this port always keeps the island axis: a JAX single-island
 state, which has none, gains one on the way in. With these a test starts
 both engines from one state.
+
+For the model stack, :func:`params_from_numpy` and
+:func:`decode_state_from_numpy` carry a JAX parameter pytree or decode state
+(after ``jax.tree.map(np.asarray, ...)``) across leaf by leaf, dtype for
+dtype, so both packages run on identical weights.
 """
 from __future__ import annotations
 
@@ -70,3 +75,26 @@ def function_from_numpy(name: str, shift: np.ndarray | None = None,
     return Function(name, fn, base.lo, base.hi, f_star=base.f_star + bias,
                     smooth=base.smooth, shift=o, bias=float(bias),
                     _shift_copies=copies)
+
+
+def _tensor(a: Any, device: str | torch.device) -> torch.Tensor:
+    """A numpy array (bfloat16 included) as a tensor of the same dtype."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def params_from_numpy(tree: Any, device: str | torch.device) -> Any:
+    """Nested dicts of numpy arrays -> the same dicts of tensors on
+    ``device``, each leaf keeping its dtype and shape."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def decode_state_from_numpy(d: dict[str, Any], device: str | torch.device) -> dict:
+    """A decode state's numpy arrays -> the port's state: caches as tensors
+    on ``device``, ``pos`` as a host integer."""
+    return {k: int(np.asarray(v)) if k == "pos" else _tensor(v, device)
+            for k, v in d.items()}

@@ -39,6 +39,9 @@ SIGNATURES = {
                  (*(_P,) * 13, _I, _I, _I, _I, *(_F,) * 7, _P)),
     "ga_step": ("ga_step_launch",
                 (*(_P,) * 12, _I, _I, _I, *(_F,) * 6, _P)),
+    "flash_attention": ("flash_attention_launch",
+                        (*(_P,) * 4, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P)),
+    "ssd_scan": ("ssd_scan_launch", (*(_P,) * 6, *(_I,) * 6, _P)),
 }
 
 _LOCK = threading.Lock()
@@ -136,16 +139,16 @@ def on_card(name: str, x: torch.Tensor, dims: tuple[int, ...] = (2, 3)) -> bool:
     return True
 
 
-def check_inputs(device, *specs) -> None:
-    """Raise unless each ``(name, tensor, shape)`` is a contiguous float32
+def check_inputs(device, *specs, dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless each ``(name, tensor, shape)`` is a contiguous ``dtype``
     tensor of that shape on ``device``; a ``None`` tensor is skipped."""
     for name, t, shape in specs:
         if t is None:
             continue
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():

@@ -1,0 +1,74 @@
+"""Streaming-softmax attention: the ``flash_attention`` CUDA kernel and its
+plain version.
+
+Counterpart of ``repro.kernels.flash_attention`` (the Pallas kernel) and of
+``repro.kernels.ref.flash_attention_ref``: causal, sliding-window and
+softcapped attention of q ``(BH, S, hd)`` over k, v ``(BH, T, hd)`` with the
+KV heads already expanded, computed in float32 and returned in q's type.
+A CPU tensor goes to :func:`flash_attention_ref`; a CUDA tensor to the
+kernel in ``csrc/flash_attention.cu``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+# Kernel launches in this process (plain-version calls are not counted).
+LAUNCHES = 0
+
+# Element types the kernel takes, by the code its C entry expects.
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128
+NEG_INF = -1e30
+
+
+def scale_of(hd: int) -> float:
+    """``1 / sqrt(hd)`` as the float32 the reference multiplies by."""
+    return float(np.float32(1.0 / (hd ** 0.5)))
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """Plain PyTorch version: one float32 softmax over all T keys."""
+    S, T = q.shape[1], k.shape[1]
+    s = torch.einsum("bsh,bth->bst", q.float(), k.float()) * scale_of(q.shape[-1])
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(T, device=q.device)[None, :]
+    ok = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= qp >= kp
+    if window > 0:
+        ok &= (qp - kp) < window
+    s = torch.where(ok, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bst,bth->bsh", p, v.float()).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """q ``(BH, S, hd)``; k, v ``(BH, T, hd)``, float32 or bfloat16.
+    Returns ``(BH, S, hd)`` in q's type."""
+    if not _build.on_card("flash_attention", q, dims=(3,)):
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+    BH, S, hd = q.shape
+    T = k.shape[1] if k.dim() == 3 else -1
+    if q.dtype not in DTYPES:
+        raise ValueError(f"flash_attention takes {list(DTYPES)}, got {q.dtype}")
+    if not 1 <= hd <= MAX_HEAD_DIM or T < 1:
+        raise ValueError(f"flash_attention: head dim {hd} (at most "
+                         f"{MAX_HEAD_DIM}) and key length {T} (at least 1)")
+    dev = q.device
+    _build.check_inputs(dev, ("q", q, (BH, S, hd)), ("k", k, (BH, T, hd)),
+                        ("v", v, (BH, T, hd)), dtype=q.dtype)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _build.launch("flash_attention", dev, q, k, v, out, BH, S, T, hd,
+                  DTYPES[q.dtype], scale_of(hd), int(bool(causal)),
+                  max(int(window), 0), float(softcap))
+    global LAUNCHES
+    LAUNCHES += 1
+    return out

@@ -173,15 +173,20 @@ def normal(key: torch.Tensor, shape: tuple[int, ...], scale: float = 1.0,
     return e * c if loc is None else f32.fma(e, c, loc)
 
 
+def gumbel(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """float32 standard Gumbel draws ``(..., *shape)``, as
+    ``jax.random.gumbel``: ``-log(-log(u))`` for ``u`` uniform on
+    ``[tiny, 1)``, each ``log`` rounded once from float64."""
+    return -f32.log(-f32.log(uniform(key, shape, _TINY, 1.0)))
+
+
 def categorical(key: torch.Tensor, logits: torch.Tensor,
                 shape: tuple[int, ...]) -> torch.Tensor:
     """int64 samples ``(..., *shape)`` from ``softmax(logits)`` over its last
     axis, as ``jax.random.categorical(key, logits, shape=shape)`` (with
-    replacement): the argmax of ``gumbel + logits``, with
-    ``gumbel = -log(-log(u))`` for ``u`` uniform on ``[tiny, 1)``. ``logits``
-    is ``(..., n)``: one distribution per key."""
+    replacement): the argmax of ``gumbel + logits``. ``logits`` is
+    ``(..., n)``: one distribution per key."""
     n = logits.shape[-1]
-    u = uniform(key, (*shape, n), _TINY, 1.0)
-    g = -f32.log(-f32.log(u))
+    g = gumbel(key, (*shape, n))
     lg = logits.reshape(logits.shape[:-1] + (1,) * len(shape) + (n,))
     return torch.argmax(g + lg, dim=-1)

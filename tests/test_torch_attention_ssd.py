@@ -1,0 +1,196 @@
+"""The port's ``flash_attention`` and ``ssd_scan`` against the JAX package's.
+
+On the CPU each wrapper runs its plain PyTorch version; those are held
+against the Pallas kernels (interpret mode, through ``repro.kernels.ops``)
+and against ``repro.kernels.ref`` on ``tests/test_kernels.py``'s shapes,
+masks and bounds: flash attention within 2e-6 absolute in float32 and 2e-2
+in bfloat16 (the bf16 outputs round to 8 bits of mantissa), the SSD scan
+within 1e-4 (float32) and 3e-2 (bfloat16) of the reference's largest |y|
+(the Pallas kernel's chunked form sums in another order than the
+recurrence). Inputs come from numpy with fixed seeds; bfloat16 inputs are
+the same float32 values rounded to nearest even in both packages.
+
+The CUDA kernels are compared with the plain versions on the card by the
+``gpu`` tests, which skip without a Hopper GPU. They need no JAX, so the
+file also runs where JAX is not installed (the JAX comparisons skip there):
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_attention_ssd.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
+
+try:
+    import jax.numpy as jnp
+
+    from repro.kernels import ops, ref
+except ImportError:     # a machine with the card but without JAX
+    jnp = ops = ref = None
+
+FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def _normal(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+@pytest.fixture
+def needs_jax():
+    if jnp is None:
+        pytest.skip("the comparison with the JAX package needs JAX")
+
+
+def _pair(a, dtype):
+    """The same values as a JAX array (None without JAX) and a torch tensor
+    of ``dtype``."""
+    return (None if jnp is None else jnp.asarray(a).astype(getattr(jnp, dtype)),
+            torch.from_numpy(a).to(getattr(torch, dtype)))
+
+
+def _f64(a):
+    if isinstance(a, torch.Tensor):
+        return a.double().numpy()
+    return np.asarray(jnp.asarray(a).astype(jnp.float32), np.float64)
+
+
+def _flash_inputs(BH, S, T, hd, dtype, seed=0):
+    return [_pair(_normal(sh, seed + i), dtype)
+            for i, sh in enumerate(((BH, S, hd), (BH, T, hd), (BH, T, hd)))]
+
+
+@pytest.mark.parametrize("S,T,hd", [(128, 128, 64), (256, 256, 64),
+                                    (128, 256, 128), (100, 200, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_shapes(needs_jax, S, T, hd, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _flash_inputs(2, S, T, hd, dtype)
+    got = fa.flash_attention(tq, tk, tv, causal=True)
+    assert got.shape == (2, S, hd) and got.dtype == tq.dtype
+    for want in (ops.flash_attention(jq, jk, jv, causal=True),
+                 ref.flash_attention_ref(jq, jk, jv, causal=True)):
+        assert np.max(np.abs(_f64(got) - _f64(want))) < FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("window,softcap,causal", [(0, 0.0, True), (64, 0.0, True),
+                                                   (0, 50.0, True), (0, 0.0, False),
+                                                   (32, 30.0, True)])
+def test_flash_attention_masks(needs_jax, window, softcap, causal):
+    (jq, tq), (jk, tk), (jv, tv) = _flash_inputs(2, 192, 192, 64, "float32", seed=3)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = fa.flash_attention(tq, tk, tv, **kw)
+    for want in (ops.flash_attention(jq, jk, jv, **kw),
+                 ref.flash_attention_ref(jq, jk, jv, **kw)):
+        assert np.max(np.abs(_f64(got) - _f64(want))) < 2e-6
+
+
+def _ssd_inputs(BH, S, P, N, dtype, seed=0):
+    """(jax args, torch args) with dt = softplus(normal), A = -exp(normal)
+    as in ``tests/test_kernels.py``; dt and A stay float32."""
+    x, b, c = (_normal(sh, seed + i) for i, sh in enumerate(((BH, S, P), (BH, S, N),
+                                                              (BH, S, N))))
+    dt = np.log1p(np.exp(_normal((BH, S), seed + 3).astype(np.float64))).astype(np.float32)
+    A = -np.exp(_normal((BH,), seed + 4).astype(np.float64)).astype(np.float32)
+    (jx, tx), (jb, tb), (jc, tc) = (_pair(a, dtype) for a in (x, b, c))
+    jargs = None if jnp is None else (jx, jnp.asarray(dt), jnp.asarray(A), jb, jc)
+    return jargs, (tx, torch.from_numpy(dt), torch.from_numpy(A), tb, tc)
+
+
+def _rel_to_max(got, want):
+    w = _f64(want)
+    return float(np.max(np.abs(_f64(got) - w))) / (float(np.max(np.abs(w))) + 1e-6)
+
+
+@pytest.mark.parametrize("S,P,N,chunk", [(128, 32, 16, 32), (256, 64, 64, 64),
+                                         (256, 64, 128, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan(needs_jax, S, P, N, chunk, dtype):
+    jargs, targs = _ssd_inputs(3, S, P, N, dtype)
+    got = ss.ssd_scan(*targs, chunk=chunk)
+    assert got.shape == (3, S, P) and got.dtype == targs[0].dtype
+    for want in (ops.ssd_scan(*jargs, chunk=chunk), ref.ssd_ref(*jargs)):
+        assert _rel_to_max(got, want) < SSD_TOL[dtype]
+
+
+def test_ssd_scan_shared_bc_rows_match_expanded():
+    """B/C given once per batch row, shared by H heads, is the scan of the
+    expanded (BH, S, N) form: row bh reads row bh // H."""
+    B, H = 2, 3
+    _, (x, dt, A, b, c) = _ssd_inputs(B * H, 64, 16, 16, "float32", seed=5)
+    bg, cg = b[::H].contiguous(), c[::H].contiguous()
+    want = ss.ssd_scan(x, dt, A, bg.repeat_interleave(H, 0), cg.repeat_interleave(H, 0), chunk=16)
+    got = ss.ssd_scan(x, dt, A, bg, cg, chunk=16)
+    assert torch.equal(got, want)
+
+
+def test_ssd_scan_needs_whole_chunks():
+    _, targs = _ssd_inputs(2, 48, 16, 16, "float32")
+    with pytest.raises(ValueError, match="chunk"):
+        ss.ssd_scan(*targs, chunk=32)
+
+
+# -- on the card ------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    if torch.cuda.get_device_capability() < (9, 0):
+        pytest.skip("the kernels are built for sm_90a (Hopper)")
+    return torch.device("cuda")
+
+
+def _card(t, dev):
+    return t.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("BH,S,T,hd", [(2, 128, 128, 64), (2, 100, 200, 64), (3, 77, 77, 16),
+                                       (2, 130, 130, 112), (2, 128, 256, 128), (64, 1, 1, 64),
+                                       (8, 300, 300, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,softcap,causal", [(0, 0.0, True), (32, 30.0, True),
+                                                   (0, 0.0, False), (64, 0.0, False)])
+def test_flash_attention_kernel_matches_plain(cuda_dev, BH, S, T, hd, dtype, window,
+                                              softcap, causal):
+    q, k, v = (_card(t, cuda_dev) for _, t in _flash_inputs(BH, S, T, hd, dtype, seed=BH))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    n = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.LAUNCHES == n + 1
+    want = fa.flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == q.dtype
+    assert float((got.float() - want.float()).abs().max()) < FLASH_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("BH,S,P,N,H", [(3, 128, 32, 16, 1), (3, 256, 64, 128, 1),
+                                        (8, 96, 64, 64, 4), (4, 64, 20, 32, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_kernel_matches_plain(cuda_dev, BH, S, P, N, H, dtype):
+    _, (x, dt, A, b, c) = _ssd_inputs(BH, S, P, N, dtype, seed=BH)
+    x, dt, A = (_card(t, cuda_dev) for t in (x, dt, A))
+    b, c = (_card(t[::H].contiguous(), cuda_dev) for t in (b, c))
+    n = ss.LAUNCHES
+    got = ss.ssd_scan(x, dt, A, b, c, chunk=32)
+    assert ss.LAUNCHES == n + 1
+    want = ss.ssd_ref(x, dt, A, b, c)
+    assert _rel_to_max(got.cpu(), want.cpu()) < SSD_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_card_wrappers_raise_on_what_the_kernels_do_not_take(cuda_dev):
+    q = torch.zeros((2, 8, 64), dtype=torch.float16, device=cuda_dev)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((2, 8, 256), device=cuda_dev)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)
+    x = torch.zeros((2, 32, 16), device=cuda_dev)
+    dt, A = torch.zeros((2, 32), device=cuda_dev), torch.zeros(2, device=cuda_dev)
+    b = torch.zeros((2, 32, 48), device=cuda_dev)
+    with pytest.raises(ValueError):
+        ss.ssd_scan(x, dt, A, b, b, chunk=32)
