@@ -36,9 +36,15 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      batch 4 x 2048 (ssd_scan once per layer: 48), then ``serve`` with
      batch 4, a 64-token prompt and 32 decode steps (the recurrent
      cache-filling prefill launches no kernel);
- 12. both at full width with 2 layers in float32, on the card against the
-     plain path on the CPU on the same weights: prefill logits, and greedy
-     decoding teacher-forced by the CPU's tokens.
+ 12. both at full width with 2 layers in float32 and in bfloat16, on the
+     card against the plain path on the CPU on the same weights: prefill
+     logits, and greedy decoding teacher-forced by the CPU's tokens.
+
+flash_attention and ssd_scan take two routes by the input's type: bfloat16
+runs the tensor-core kernels (``csrc/*_tc.cu``), float32 the CUDA-core
+kernels. After the phases, the kernel timings put the CUDA-core design
+(through its C entry at bf16) beside each tensor-core kernel, and count the tensor-core
+instructions in the tensor-core kernels' SASS (``cuobjdump``).
 
 Phases 3-5, 7, 8, 10 and 11 are the main path: each run resets the kernels'
 launch counters, drives its entry point (``IslandOptimizer.minimize``,
@@ -197,9 +203,9 @@ MODEL_RUNS = {
     11: (ModelRun("mamba2-370m prefill", "mamba2-370m", "prefill", 4, 2048),
          ModelRun("mamba2-370m serve", "mamba2-370m", "serve", 4, 64, 32)),
 }
-# Full width, 2 layers, float32: the card with its kernels against the
-# plain path on the CPU, on the same weights (phase 12). Mamba2's prefill
-# spans two 256-token chunks.
+# Full width, 2 layers, float32 and bfloat16: the card with its kernels
+# against the plain path on the CPU, on the same weights (phase 12).
+# Mamba2's prefill spans two 256-token chunks.
 CARD_VS_CPU_MODEL_RUNS = {
     12: (ModelRun("llama3.2-1b prefill, 2 layers, f32", "llama3.2-1b", "prefill", 2, 256,
                   n_layers=2, compute_dtype="float32"),
@@ -208,7 +214,15 @@ CARD_VS_CPU_MODEL_RUNS = {
          ModelRun("mamba2-370m prefill, 2 layers, f32", "mamba2-370m", "prefill", 2, 512,
                   n_layers=2, compute_dtype="float32"),
          ModelRun("mamba2-370m serve, 2 layers, f32", "mamba2-370m", "serve", 2, 64, 8,
-                  n_layers=2, compute_dtype="float32")),
+                  n_layers=2, compute_dtype="float32"),
+         ModelRun("llama3.2-1b prefill, 2 layers, bf16", "llama3.2-1b", "prefill", 2, 256,
+                  n_layers=2),
+         ModelRun("llama3.2-1b serve, 2 layers, bf16", "llama3.2-1b", "serve", 2, 256, 8,
+                  n_layers=2),
+         ModelRun("mamba2-370m prefill, 2 layers, bf16", "mamba2-370m", "prefill", 2, 512,
+                  n_layers=2),
+         ModelRun("mamba2-370m serve, 2 layers, bf16", "mamba2-370m", "serve", 2, 64, 8,
+                  n_layers=2)),
 }
 
 
@@ -279,6 +293,10 @@ PALLAS_SITES = {
 }
 KERNELS = tuple(PALLAS_SITES)
 POP_KERNELS = KERNELS[:5]      # the population kernels of phases 1-9
+# The kernels whose bfloat16 route runs on the tensor cores: the library it
+# builds, and the tensor-core instructions that library's SASS must hold.
+TC_LIBRARY = {"flash_attention": "flash_attention_tc", "ssd_scan": "ssd_scan_tc"}
+TC_OPCODES = {"flash_attention": ("HGMMA",), "ssd_scan": ("HGMMA", "HMMA")}
 
 
 class PhaseFailed(Exception):
@@ -406,6 +424,8 @@ class Ctx:
     def reset(self) -> None:
         for k in KERNELS:
             getattr(self.rt, k).LAUNCHES = 0
+        for k in TC_LIBRARY:
+            getattr(self.rt, k).TC_LAUNCHES = 0
 
     def counts(self) -> dict[str, int]:
         return {k: getattr(self.rt, k).LAUNCHES for k in KERNELS}
@@ -922,8 +942,15 @@ SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 FLASH_SUITE = ((2, 128, 128, 64), (2, 256, 256, 64), (2, 128, 256, 128), (2, 100, 200, 64))
 FLASH_MASKS = ((64, 0.0, True), (0, 50.0, True), (0, 0.0, False), (32, 30.0, True))
 SSD_SUITE = ((3, 128, 32, 16, 32), (3, 256, 64, 64, 64), (3, 256, 64, 128, 128))
-# Logits of the card within this share of the CPU's largest |logit|.
-MODEL_TOL = 1e-4
+# Logits of the card within this share of the CPU's largest |logit|. In
+# bfloat16: a value keeps 8 significant bits, so one rounding moves it by up
+# to 2^-9 (2e-3) of itself; the card and the CPU round at different points
+# (cuBLAS and the CPU sum in other orders, the tensor-core kernels round P,
+# C B^T o L and the state, the plain versions do not), and a 2-layer model
+# has about ten roundings in series from the embedding to the logits (per
+# layer two norms, the attention or SSD block, its output projection, the
+# MLP's products; then the final norm and the head): 2e-2.
+MODEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def model_cfg(rt, r: ModelRun):
@@ -1017,8 +1044,9 @@ def check_model_kernels(c: Ctx) -> None:
             worst["flash_attention"] = max(worst["flash_attention"],
                                            _flash_check(c, gen, (BH, S, hd), T, dtype))
     for mask in FLASH_MASKS:
-        worst["flash_attention"] = max(worst["flash_attention"],
-                                       _flash_check(c, gen, (2, 192, 64), 192, "float32", mask))
+        for dtype in ("float32", "bfloat16"):
+            worst["flash_attention"] = max(worst["flash_attention"],
+                                           _flash_check(c, gen, (2, 192, 64), 192, dtype, mask))
     for shape, N, H, chunk, dtype in sorted(ssd):
         worst["ssd_scan"] = max(worst["ssd_scan"], _ssd_check(c, gen, shape, N, H, chunk, dtype))
     for BH, S, P, N, chunk in SSD_SUITE:
@@ -1026,7 +1054,7 @@ def check_model_kernels(c: Ctx) -> None:
             worst["ssd_scan"] = max(worst["ssd_scan"],
                                     _ssd_check(c, gen, (BH, S, P), N, 1, chunk, dtype))
     log(f"phase 1: flash_attention at the model cases {sorted(flash)}, the suite's "
-        f"{len(FLASH_SUITE)} shapes x 2 types and {len(FLASH_MASKS)} masks: max abs err "
+        f"{len(FLASH_SUITE)} shapes and {len(FLASH_MASKS)} masks x 2 types: max abs err "
         f"{worst['flash_attention']:.3g} (bounds {FLASH_TOL})")
     log(f"phase 1: ssd_scan at the model cases {sorted(ssd)} and the suite's "
         f"{len(SSD_SUITE)} shapes x 2 types: max err {worst['ssd_scan']:.3g} of max |y| "
@@ -1152,8 +1180,13 @@ def _model_main(c: Ctx, phase: int, r: ModelRun) -> dict:
                "sample_row": toks[0, :8].tolist()}
     want = _want_model_counts(c, r)
     require(counts == want, f"{r.label}: launches {counts}, expected {want}")
+    # bfloat16 runs the tensor-core route of both model kernels, every launch.
+    tc = {k: getattr(rt, k).TC_LAUNCHES for k in TC_LIBRARY}
+    require(all(tc[k] == (counts[k] if r.compute_dtype == "bfloat16" else 0) for k in tc),
+            f"{r.label}: tensor-core launches {tc} of {counts}")
     c.add_launches(counts)
     out["launches_per_prefill"] = {k: v for k, v in counts.items() if v}
+    out["tensor_core_launches_per_prefill"] = {k: v for k, v in tc.items() if v}
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"phase {phase}: {r.label} (batch {r.batch}, seq {r.seq}, layers {cfg.n_layers}, "
         f"{cfg.compute_dtype}): {json.dumps(out)}")
@@ -1178,7 +1211,8 @@ def _logit_err(torch, got, want, vocab: int) -> tuple[float, float]:
 
 def _model_card_vs_cpu(c: Ctx, phase: int, r: ModelRun) -> None:
     """Run ``r`` on the card and on the CPU on the same weights. Prefill:
-    last-position logits within MODEL_TOL of the CPU's largest |logit|.
+    last-position logits within MODEL_TOL (of ``r``'s type) of the CPU's
+    largest |logit|.
     Serve: the CPU's greedy tokens teacher-force both devices' decode, whose
     logits must agree at every step within the same bound and whose argmax
     must agree wherever the CPU's top-2 gap clears it; the two ``serve``
@@ -1187,6 +1221,7 @@ def _model_card_vs_cpu(c: Ctx, phase: int, r: ModelRun) -> None:
     cfg = model_cfg(rt, r)
     p_card = PARAMS.get(c, cfg)
     p_cpu = PARAMS.get(c, cfg, cpu=True)
+    tol = MODEL_TOL[r.compute_dtype]
     c.reset()
     if r.entry == "prefill":
         step = rt.steps.make_prefill_step(cfg)
@@ -1195,7 +1230,7 @@ def _model_card_vs_cpu(c: Ctx, phase: int, r: ModelRun) -> None:
         counts = c.counts()
         want = step(p_cpu, {"tokens": toks})
         err, scale = _logit_err(torch, got, want, cfg.vocab)
-        require(err < MODEL_TOL * scale,
+        require(err < tol * scale,
                 f"card vs cpu {r.label}: logits differ by {err:.3g} (max |logit| {scale:.3g})")
         detail = f"logit err {err:.3g} of max |logit| {scale:.3g} ({err / scale:.3g})"
     else:
@@ -1222,10 +1257,10 @@ def _model_card_vs_cpu(c: Ctx, phase: int, r: ModelRun) -> None:
         for i, (lg_card, lg_cpu) in enumerate(zip(*logits)):
             err, scale = _logit_err(torch, lg_card, lg_cpu, cfg.vocab)
             worst = max(worst, err / scale)
-            require(err < MODEL_TOL * scale,
+            require(err < tol * scale,
                     f"card vs cpu {r.label}: step {i} logits differ by {err:.3g} of {scale:.3g}")
             top2 = torch.topk(lg_cpu[:, :cfg.vocab], 2, dim=-1).values
-            clear = (top2[:, 0] - top2[:, 1]) > 2 * MODEL_TOL * scale
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * tol * scale
             same = torch.argmax(lg_card[:, :cfg.vocab].cpu(), -1) == torch.argmax(
                 lg_cpu[:, :cfg.vocab], -1)
             require(bool(same[clear].all()), f"card vs cpu {r.label}: step {i} argmax differs "
@@ -1344,14 +1379,46 @@ def kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
     model_kernel_timings(c, rates)
 
 
+def _alternate(old, new, reps: int) -> tuple[float, float, list[float]]:
+    """Time ``old`` and ``new`` in turns (old, new, new, old): the mean of
+    the two ``new`` readings, of the two ``old`` ones, and all four in
+    order."""
+    t = [time_ms(old, reps=reps), time_ms(new, reps=reps), time_ms(new, reps=reps),
+         time_ms(old, reps=reps)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+
+def sass_counts(c: Ctx) -> None:
+    """Count the tensor-core instructions in the SASS of each redesigned
+    kernel's library (cuobjdump -sass); fail if the tool is missing, if
+    flash attention has no HGMMA or the SSD scan no HGMMA or HMMA."""
+    import re
+    b = c.rt._build
+    try:
+        tool = b.cuda_tool("cuobjdump")
+    except RuntimeError as e:
+        raise PhaseFailed(str(e)) from e
+    for name, ops in TC_OPCODES.items():
+        lib = b.library_path(TC_LIBRARY[name])
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                              timeout=300)
+        require(sass.returncode == 0, f"cuobjdump -sass {lib.name} exited {sass.returncode}")
+        counts = {op: len(re.findall(rf"\b{op}\.", sass.stdout)) for op in ops}
+        c.kern[name]["sass"] = counts
+        log(f"sass {lib.name}: {counts}")
+        need = counts["HGMMA"] if name == "flash_attention" else sum(counts.values())
+        require(need > 0, f"{lib.name}: no tensor-core instruction ({counts}) in its SASS")
+
+
 def model_kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
     """flash_attention at llama3.2-1b's serve prefill (batch 4 x 2048, 32
     heads of 64, bf16) and ssd_scan at mamba2-370m's prefill (batch 4 x
-    2048, 32 heads, P 64, N 128, chunk 256, bf16 x/B/C): kernel, plain
-    version, bound, and for flash attention the library call
-    ``scaled_dot_product_attention(q, k, v, is_causal=True)``."""
+    2048, 32 heads, P 64, N 128, chunk 256, bf16 x/B/C): kernel, the
+    CUDA-core design through its C entry at bf16 (in turns with the kernel:
+    old, new, new, old), plain version, bound, and for flash attention the
+    library call ``scaled_dot_product_attention(q, k, v, is_causal=True)``."""
     torch, rt = c.torch, c.rt
-    fa, ss = rt.flash_attention, rt.ssd_scan
+    fa, ss, b = rt.flash_attention, rt.ssd_scan, rt._build
     gen = torch.Generator(device=c.dev).manual_seed(3)
     bf16 = torch.bfloat16
 
@@ -1364,7 +1431,15 @@ def model_kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
     q, k, v = (torch.randn((B * H, S, hd), generator=gen, device=c.dev).to(bf16)
                for _ in range(3))
     kf = c.kern["flash_attention"]
-    kf["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=True), reps=20)
+    old_out = torch.empty_like(q)
+
+    def flash_cuda_cores():
+        b.launch("flash_attention", c.dev, q, k, v, old_out, B * H, S, S, hd,
+                 fa.DTYPES[bf16], fa.scale_of(hd), 1, 0, 0.0)
+
+    kf["ms"], kf["cuda_core_ms"], turns = _alternate(
+        flash_cuda_cores, lambda: fa.flash_attention(q, k, v, causal=True), reps=20)
+    log(f"timing flash_attention CUDA-core design / tensor-core / tensor-core / CUDA-core: {turns}")
     kf["plain_ms"] = time_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True), reps=5)
     q4, k4, v4 = (t.view(B, H, S, hd) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1373,28 +1448,39 @@ def model_kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
     # key, dim) for the two products, the causal half of the pairs.
     bound("flash_attention", 2 * 4 * B * H * S * hd, 4 * B * H * S * S * hd / 2,
           rates["bfloat16"])
-    del q, k, v, q4, k4, v4
+    del q, k, v, q4, k4, v4, old_out
 
     BH, P, N, Q = B * H, 64, 128, 256
     args = _ssd_inputs(c, gen, (BH, S, P), N, H, "bfloat16")
     ks = c.kern["ssd_scan"]
-    ks["ms"] = time_ms(lambda: ss.ssd_scan(*args, chunk=Q), reps=20)
+    y_old = torch.empty_like(args[0])
+
+    def ssd_cuda_cores():
+        b.launch("ssd_scan", c.dev, *args, y_old, BH, S, P, N, H, ss.DTYPES[bf16])
+
+    ks["ms"], ks["cuda_core_ms"], turns = _alternate(
+        ssd_cuda_cores, lambda: ss.ssd_scan(*args, chunk=Q), reps=20)
+    log(f"timing ssd_scan CUDA-core design / tensor-core / tensor-core / CUDA-core: {turns}")
     ks["plain_ms"] = time_ms(lambda: ss.ssd_ref(*args), reps=2, warmup=1)
     ks["library_ms"] = None
     # x read and y written (bf16), B and C once per batch row (bf16), dt
-    # and A (f32). Operations of the chunked form per chunk and row: C B^T
-    # and its decay-weighted product with x dt on the causal half of the
-    # (Q, Q) tile, C times the carried state and the state update.
-    n_chunks = S // Q
+    # and A (f32). Operations of the chunked form at the kernel's chunk
+    # (64 steps): C B^T on the causal half of each (64, 64) tile once per
+    # batch row (the heads share it), its decay-weighted product with x dt
+    # per head, C times the carried state and the state update per head.
+    Qk = ss.TC_CHUNK
+    n_chunks = -(-S // Qk)
     nbytes = 2 * 2 * BH * S * P + 2 * 2 * B * S * N + 4 * BH * S + 4 * BH
-    nops = BH * n_chunks * (Q * (Q + 1) * (N + P) + 4 * Q * N * P)
+    nops = n_chunks * Qk * (Qk + 1) * (B * N + BH * P) + BH * n_chunks * 4 * Qk * N * P
     bound("ssd_scan", nbytes, nops, rates["bfloat16"])
     for name, shape in (("flash_attention", (B * H, S, hd)), ("ssd_scan", (BH, S, P))):
         k_ = c.kern[name]
         lib = k_.get("library_ms")
-        log(f"timing {name} at {shape} bf16: kernel {k_['ms']:.4f} ms, plain "
-            f"{k_['plain_ms']:.4f} ms, bound {k_['bound_ms']:.4f} ms ({k_['bound_by']}), "
+        log(f"timing {name} at {shape} bf16: kernel {k_['ms']:.4f} ms, CUDA-core design "
+            f"{k_['cuda_core_ms']:.4f} ms, plain {k_['plain_ms']:.4f} ms, bound "
+            f"{k_['bound_ms']:.4f} ms ({k_['bound_by']}), "
             f"library {'none' if lib is None else f'{lib:.4f} ms'}")
+    sass_counts(c)
 
 
 def main() -> int:
@@ -1426,7 +1512,7 @@ def main() -> int:
     for name in KERNELS:               # the first builds every source at once
         _build.library(name)
     log(f"build: {time.perf_counter() - t_build:.1f} s into {_build.build_dir()}")
-    for name in KERNELS:
+    for name in (*KERNELS, *TC_LIBRARY.values()):
         regs = [ln.strip() for ln in _build.ptxas_report(name).splitlines()
                 if "registers" in ln]
         log(f"ptxas {name}: " + " | ".join(regs[:3]) + (" ..." if len(regs) > 3 else ""))
@@ -1451,7 +1537,11 @@ def main() -> int:
         log(f"phase {num}: {time.perf_counter() - t0:.1f} s")
     c.phase = None
     if 1 in phases:
-        kernel_timings(c, rates)
+        try:
+            kernel_timings(c, rates)
+        except PhaseFailed as e:
+            ok = False
+            log(f"kernel timings FAILED: {e}")
         # Every shape a later phase launched a kernel at was checked in phase 1.
         checked = c.shapes.get(1, set())
         for num in sorted(phases - {1}):
@@ -1469,14 +1559,20 @@ def main() -> int:
     rows = []
     for name in KERNELS:
         k = c.kern[name]
-        rows.append({
+        row = {
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/csrc/{TC_LIBRARY.get(name, name)}.cu",
             "replaces": PALLAS_SITES[name], "launches": k["launches"],
             "max_abs_err": k["max_abs_err"], "max_rel_err": k["max_rel_err"],
             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"),
             "bound_ms": k.get("bound_ms"), "bound_by": k.get("bound_by"),
-            "library_ms": k.get("library_ms")})
+            "library_ms": k.get("library_ms")}
+        if name in TC_LIBRARY:
+            # The CUDA-core design at the same shape (the float32 route), and
+            # the tensor-core instructions in the bf16 route's SASS.
+            row.update(cuda_core_ms=k.get("cuda_core_ms"), float32_source=f"src/repro_torch/kernels/"
+                       f"csrc/{name}.cu", sass=k.get("sass"))
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     if not ok:

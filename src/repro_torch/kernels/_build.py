@@ -42,20 +42,23 @@ SIGNATURES = {
     "flash_attention": ("flash_attention_launch",
                         (*(_P,) * 4, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P)),
     "ssd_scan": ("ssd_scan_launch", (*(_P,) * 6, *(_I,) * 6, _P)),
+    "flash_attention_tc": ("flash_attention_tc_launch",
+                           (*(_P,) * 4, _I, _I, _I, _I, _F, _I, _I, _F, _P)),
+    "ssd_scan_tc": ("ssd_scan_tc_launch", (*(_P,) * 7, *(_I,) * 5, _P)),
 }
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    exe = shutil.which("nvcc")
-    if exe is None and Path("/usr/local/cuda/bin/nvcc").exists():
-        exe = "/usr/local/cuda/bin/nvcc"
+def cuda_tool(name: str) -> str:
+    """Path of the CUDA toolkit program ``name`` (``nvcc``, ``cuobjdump``):
+    on PATH or under /usr/local/cuda/bin; RuntimeError if neither has it."""
+    exe = shutil.which(name)
+    if exe is None and Path(f"/usr/local/cuda/bin/{name}").exists():
+        exe = f"/usr/local/cuda/bin/{name}"
     if exe is None:
-        raise RuntimeError(
-            "nvcc was not found on PATH or under /usr/local/cuda/bin; the "
-            "CUDA kernels cannot be built")
+        raise RuntimeError(f"{name} was not found on PATH or under /usr/local/cuda/bin")
     return exe
 
 
@@ -73,7 +76,7 @@ def _build_all(out: Path) -> None:
     written under a temporary name and renamed, so a reader never sees a
     partial file. The ptxas report goes to ``<name>.log``."""
     out.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     jobs = []
     for src in sorted(CSRC.glob("*.cu")):
         lib = out / f"lib{src.stem}.so"
@@ -116,6 +119,13 @@ def library(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _LIBS[name] = lib
         return lib
+
+
+def library_path(name: str) -> Path:
+    """The built shared library of kernel library ``name`` (built on first
+    use)."""
+    library(name)
+    return build_dir() / f"lib{name}.so"
 
 
 def ptxas_report(name: str) -> str:

@@ -5,8 +5,11 @@ Counterpart of ``repro.kernels.flash_attention`` (the Pallas kernel) and of
 ``repro.kernels.ref.flash_attention_ref``: causal, sliding-window and
 softcapped attention of q ``(BH, S, hd)`` over k, v ``(BH, T, hd)`` with the
 KV heads already expanded, computed in float32 and returned in q's type.
-A CPU tensor goes to :func:`flash_attention_ref`; a CUDA tensor to the
-kernel in ``csrc/flash_attention.cu``.
+A CPU tensor goes to :func:`flash_attention_ref`. A CUDA tensor goes to a
+kernel chosen by its type: bfloat16 to the tensor-core kernel in
+``csrc/flash_attention_tc.cu`` (wgmma; P enters P V as bfloat16), float32
+to the CUDA-core kernel in ``csrc/flash_attention.cu``, whose float32
+arithmetic the float32 bound of 2e-6 needs.
 """
 from __future__ import annotations
 
@@ -15,8 +18,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-# Kernel launches in this process (plain-version calls are not counted).
+# Kernel launches in this process (plain-version calls are not counted), and
+# those of them that went to the tensor-core (bfloat16) kernel.
 LAUNCHES = 0
+TC_LAUNCHES = 0
 
 # Element types the kernel takes, by the code its C entry expects.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -66,9 +71,14 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    _build.launch("flash_attention", dev, q, k, v, out, BH, S, T, hd,
-                  DTYPES[q.dtype], scale_of(hd), int(bool(causal)),
-                  max(int(window), 0), float(softcap))
-    global LAUNCHES
+    mask = (int(bool(causal)), max(int(window), 0), float(softcap))
+    global LAUNCHES, TC_LAUNCHES
+    if q.dtype == torch.bfloat16:
+        _build.launch("flash_attention_tc", dev, q, k, v, out, BH, S, T, hd,
+                      scale_of(hd), *mask)
+        TC_LAUNCHES += 1
+    else:
+        _build.launch("flash_attention", dev, q, k, v, out, BH, S, T, hd,
+                      DTYPES[q.dtype], scale_of(hd), *mask)
     LAUNCHES += 1
     return out

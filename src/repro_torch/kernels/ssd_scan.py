@@ -10,7 +10,12 @@ with ``BH = R * H``: row ``bh`` then reads row ``bh // H``, as Mamba2's one
 B/C group is shared by the H heads of a batch row. The model passes them so;
 expanding them to ``(BH, S, N)`` first would write and read H copies of
 each, more memory traffic than the scan's own. A CPU tensor goes to
-:func:`ssd_ref`; a CUDA tensor to the kernel in ``csrc/ssd_scan.cu``.
+:func:`ssd_ref`. A CUDA tensor goes to a kernel chosen by its type:
+bfloat16 to the chunked form on the tensor cores in ``csrc/ssd_scan_tc.cu``
+(its own chunk of 64 steps, whatever ``chunk`` says; C B^T once per B/C row
+and chunk into float32 scratch), float32 to the recurrence on the CUDA
+cores in ``csrc/ssd_scan.cu``, whose float32 arithmetic the float32 bound
+of 1e-4 needs.
 """
 from __future__ import annotations
 
@@ -18,11 +23,14 @@ import torch
 
 from repro_torch.kernels import _build
 
-# Kernel launches in this process (plain-version calls are not counted).
+# Kernel launches in this process (plain-version calls are not counted), and
+# those of them that went to the tensor-core (bfloat16) kernel.
 LAUNCHES = 0
+TC_LAUNCHES = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-STATE_SIZES = (16, 32, 64, 128)   # N the kernel is built for
+STATE_SIZES = (16, 32, 64, 128)   # N the kernels are built for
+TC_CHUNK = 64                      # steps per chunk of the tensor-core kernel
 
 
 def per_row(m: torch.Tensor, BH: int) -> torch.Tensor:
@@ -76,8 +84,15 @@ def ssd_scan(xh, dt, A, Bm, Cm, chunk=128):
     y = torch.empty_like(xh)
     if y.numel() == 0:
         return y
-    _build.launch("ssd_scan", dev, xh, dt, A, Bm, Cm, y, BH, S, P, N, BH // R,
-                  DTYPES[xh.dtype])
-    global LAUNCHES
+    global LAUNCHES, TC_LAUNCHES
+    if xh.dtype == torch.bfloat16:
+        cb = torch.empty((R, -(-S // TC_CHUNK), TC_CHUNK, TC_CHUNK),
+                         dtype=torch.float32, device=dev)
+        _build.launch("ssd_scan_tc", dev, xh, dt, A, Bm, Cm, y, cb, BH, S, P, N,
+                      BH // R)
+        TC_LAUNCHES += 1
+    else:
+        _build.launch("ssd_scan", dev, xh, dt, A, Bm, Cm, y, BH, S, P, N, BH // R,
+                      DTYPES[xh.dtype])
     LAUNCHES += 1
     return y

@@ -150,35 +150,71 @@ def _card(t, dev):
 @pytest.mark.gpu
 @pytest.mark.parametrize("BH,S,T,hd", [(2, 128, 128, 64), (2, 100, 200, 64), (3, 77, 77, 16),
                                        (2, 130, 130, 112), (2, 128, 256, 128), (64, 1, 1, 64),
-                                       (8, 300, 300, 64)])
+                                       (8, 300, 300, 64), (2, 50, 70, 20)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window,softcap,causal", [(0, 0.0, True), (32, 30.0, True),
                                                    (0, 0.0, False), (64, 0.0, False)])
 def test_flash_attention_kernel_matches_plain(cuda_dev, BH, S, T, hd, dtype, window,
                                               softcap, causal):
+    """hd 20 is not a multiple of 8: its rows are copied without 16-byte
+    copies."""
     q, k, v = (_card(t, cuda_dev) for _, t in _flash_inputs(BH, S, T, hd, dtype, seed=BH))
     kw = dict(causal=causal, window=window, softcap=softcap)
-    n = fa.LAUNCHES
+    n, tc = fa.LAUNCHES, fa.TC_LAUNCHES
     got = fa.flash_attention(q, k, v, **kw)
     assert fa.LAUNCHES == n + 1
+    # bfloat16 goes to the tensor-core kernel, float32 to the CUDA-core one.
+    assert fa.TC_LAUNCHES == tc + (dtype == "bfloat16")
     want = fa.flash_attention_ref(q, k, v, **kw)
     assert got.dtype == q.dtype
     assert float((got.float() - want.float()).abs().max()) < FLASH_TOL[dtype]
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("BH,S,hd", [(128, 2048, 64), (32, 4096, 64)])
+def test_flash_attention_kernel_main_path_shapes(cuda_dev, BH, S, hd):
+    """llama3.2-1b's prefills (batch 4 x 2048 and 1 x 4096, 32 heads of
+    64), bfloat16 and causal, through the tensor-core kernel."""
+    q, k, v = (_card(t, cuda_dev) for _, t in _flash_inputs(BH, S, S, hd, "bfloat16"))
+    tc = fa.TC_LAUNCHES
+    got = fa.flash_attention(q, k, v, causal=True)
+    assert fa.TC_LAUNCHES == tc + 1
+    want = fa.flash_attention_ref(q, k, v, causal=True)
+    assert float((got.float() - want.float()).abs().max()) < FLASH_TOL["bfloat16"]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("BH,S,P,N,H", [(3, 128, 32, 16, 1), (3, 256, 64, 128, 1),
-                                        (8, 96, 64, 64, 4), (4, 64, 20, 32, 2)])
+                                        (8, 96, 64, 64, 4), (4, 64, 20, 32, 2),
+                                        (4, 160, 72, 128, 4)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_scan_kernel_matches_plain(cuda_dev, BH, S, P, N, H, dtype):
+    """S 96 and 160 are not multiples of the tensor-core kernel's 64-step
+    chunk; P 72 spans two of its 64-column tiles."""
     _, (x, dt, A, b, c) = _ssd_inputs(BH, S, P, N, dtype, seed=BH)
     x, dt, A = (_card(t, cuda_dev) for t in (x, dt, A))
     b, c = (_card(t[::H].contiguous(), cuda_dev) for t in (b, c))
-    n = ss.LAUNCHES
+    n, tc = ss.LAUNCHES, ss.TC_LAUNCHES
     got = ss.ssd_scan(x, dt, A, b, c, chunk=32)
     assert ss.LAUNCHES == n + 1
+    assert ss.TC_LAUNCHES == tc + (dtype == "bfloat16")
     want = ss.ssd_ref(x, dt, A, b, c)
     assert _rel_to_max(got.cpu(), want.cpu()) < SSD_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_main_path_shape(cuda_dev):
+    """mamba2-370m's prefill (batch 4 x 2048, 32 heads sharing one B/C row,
+    P 64, N 128, chunk 256), bfloat16, through the tensor-core kernel."""
+    B, H = 4, 32
+    _, (x, dt, A, b, c) = _ssd_inputs(B * H, 2048, 64, 128, "bfloat16", seed=9)
+    x, dt, A = (_card(t, cuda_dev) for t in (x, dt, A))
+    b, c = (_card(t[::H].contiguous(), cuda_dev) for t in (b, c))
+    tc = ss.TC_LAUNCHES
+    got = ss.ssd_scan(x, dt, A, b, c, chunk=256)
+    assert ss.TC_LAUNCHES == tc + 1
+    want = ss.ssd_ref(x, dt, A, b, c)
+    assert _rel_to_max(got.cpu(), want.cpu()) < SSD_TOL["bfloat16"]
 
 
 @pytest.mark.gpu
