@@ -11,7 +11,9 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
 
   1. each kernel against its plain PyTorch version on the card, at every
      shape a later phase launches it at (derived from the run tables
-     below) and at odd sizes;
+     below) and at odd sizes; bench_eval also on a row view and an
+     unaligned view of Table I's population, and de_step past the staging
+     cap of csrc/eval_row.cuh (its two-pass kernel);
   2. the draws on the card against the CPU: threefry, uniform, randint
      bitwise; normal and categorical to the last bit or ulp;
   3. Table I fused: 1 island, pop 800, shifted Rosenbrock-1000, 200 gens;
@@ -44,7 +46,12 @@ flash_attention and ssd_scan take two routes by the input's type: bfloat16
 runs the tensor-core kernels (``csrc/*_tc.cu``), float32 the CUDA-core
 kernels. After the phases, the kernel timings put the CUDA-core design
 (through its C entry at bf16) beside each tensor-core kernel, and count the tensor-core
-instructions in the tensor-core kernels' SASS (``cuobjdump``).
+instructions in the tensor-core kernels' SASS (``cuobjdump``). bench_eval
+and de_step are timed at Table I's population and at the other shape the
+main path gives them (the chunked path's 100 x 1000, phase 5's 8 x 800 x
+1000), each with its bound and the launch geometry its wrapper chose, and
+the compiler's registers, shared memory and spills for their libraries
+are printed.
 
 Phases 3-5, 7, 8, 10 and 11 are the main path: each run resets the kernels'
 launch counters, drives its entry point (``IslandOptimizer.minimize``,
@@ -67,6 +74,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -281,6 +289,9 @@ FUSED_SHAPES = tuple(sorted(set(_derived({"eval_select", "pso_step", "ga_step"})
                             | {(800, 1000), (200, 1000), (130, 1000), (37, 100),
                                (5, 1), (8, 800, 1000)}))
 DE_SHAPES = _derived({"de_step"})
+# Rows past eval_row.cuh's staging cap (4096 lanes of 16-byte slots, 1024
+# of scalar ones), which de_step walks in two passes, and D = 1001.
+DE_EXTRA_SHAPES = ((16, 4100), (16, 1027), (100, 1001))
 
 PALLAS_SITES = {
     "bench_eval": "src/repro/kernels/bench_eval.py:136",
@@ -339,7 +350,7 @@ def time_ms(fn, reps: int = 50, warmup: int = 3) -> float:
 
 
 def profile_rounds(c: "Ctx", make_opt, f, seed: int, timed: int = 2,
-                   profiled: int = 2) -> dict:
+                   profiled: int = 1) -> dict:
     """Device time by kernel and the device's idle share over the rounds of
     one run, init excluded. ``make_opt(gens, round_callback)`` builds the
     engine; its host-stepped driver synchronises once per round before the
@@ -377,7 +388,7 @@ def profile_rounds(c: "Ctx", make_opt, f, seed: int, timed: int = 2,
     gens = profiled * every
     busy_ms = sum(r[0] for r in rows) / 1e3 / gens
     wall_ms = (marks["profiled"] - marks["timed"]) * 1e3 / (timed * every)
-    ours = {name: sum(t for t, k, _ in rows if f"{name}_kernel" in k) / 1e3 / gens
+    ours = {name: sum(t for t, k, _ in rows if f"{name}_" in k) / 1e3 / gens
             for name in KERNELS}
     return {"timed_gens": timed * every, "profiled_gens": gens,
             "wall_ms_per_gen": wall_ms,
@@ -491,13 +502,20 @@ def _check_eval(c: Ctx, pop, fn: str, shift, bias: float, label: str) -> None:
 
 def _eval_inputs(c: Ctx, gen, shape, lo, hi):
     """(label, tensor) pairs for one shape; at Table I's shape also rows
-    100:200 of it, a view with a storage offset as the chunked path passes."""
+    100:200 of it, a view with a storage offset as the chunked path passes,
+    and the same values one float past an aligned start (scalar loads)."""
     pop = _uniform(c.torch, gen, shape, lo, hi, c.dev)
     out = [(str(tuple(shape)), pop)]
     if tuple(shape) == (POP, DIM):
         view = pop[100:200]
         require(view.storage_offset() > 0, "row slice has no storage offset")
         out.append((f"rows 100:200 of {tuple(shape)}", view))
+        flat = c.torch.empty(pop.numel() + 1, device=c.dev)
+        shifted = flat[1:].view(shape)
+        shifted.copy_(pop)
+        require(c.dev.type != "cuda" or not c.rt.bench_eval.geometry_for(*shape, shifted).vec,
+                "a view one float past an aligned start took 16-byte loads")
+        out.append((f"unaligned view of {tuple(shape)}", shifted))
     return out
 
 
@@ -515,12 +533,15 @@ def phase_kernels(c: Ctx) -> None:
     for shape in ((POP, DIM), (8 * POP, DIM)):
         for label, pop in _eval_inputs(c, gen, shape, -100.0, 100.0):
             _check_eval(c, pop, "shifted_rosenbrock", shift, 390.0, label)
-    log(f"phase 1: bench_eval 10 tags x {len(EVAL_SHAPES)} shapes + a row view, "
-        f"shifted at 800 and 6400 rows + a row view: max rel err "
-        f"{c.kern['bench_eval']['max_rel_err']:.3g}")
+    for shape in DE_EXTRA_SHAPES:
+        for label, pop in _eval_inputs(c, gen, shape, -5.0, 5.0):
+            _check_eval(c, pop, "rosenbrock", None, 0.0, label)
+    log(f"phase 1: bench_eval 10 tags x {len(EVAL_SHAPES)} shapes + a row view and an "
+        f"unaligned view, shifted at 800 and 6400 rows + both views, rosenbrock at "
+        f"{DE_EXTRA_SHAPES}: max rel err {c.kern['bench_eval']['max_rel_err']:.3g}")
 
     cases = (("shifted_rosenbrock", (800, 1000)), ("rastrigin", (99, 333)),
-             *(("shifted_rosenbrock", shape) for shape in DE_SHAPES))
+             *(("shifted_rosenbrock", shape) for shape in DE_SHAPES + DE_EXTRA_SHAPES))
     for fn, shape in cases:
         *lead, D = shape
         P = lead[-1]
@@ -1286,45 +1307,84 @@ def model_card_vs_cpu_phase(phase: int):
     return run
 
 
+# Shapes the two kernels on eval_row.cuh are timed at: Table I's population
+# (the kernels line's ms), the chunked path's 100-row chunk for bench_eval,
+# and phase 5's 8-island stack for de_step.
+EVAL_TIMED = ((POP, DIM), (POP // 8, DIM))
+DE_TIMED = ((POP, DIM), (8, POP, DIM))
+
+
+def _bound(rates: dict[str, float], nbytes: float, nops: float) -> dict:
+    """The least time for ``nbytes`` moved and ``nops`` float32 operations,
+    and which of the two sets it."""
+    bw, flops = rates["bytes"], rates["float32"]
+    return {"bound_ms": max(nbytes / bw, nops / flops) * 1e3,
+            "bound_by": "bytes" if nbytes / bw >= nops / flops else "operations"}
+
+
+def _time_bench_eval(c: Ctx, rates, gen, shape) -> dict:
+    """bench_eval on shifted Rosenbrock at ``shape``: kernel, plain, bound
+    (the population and shift read once, the fitness written once; 12
+    operations a lane) and the geometry the wrapper chose."""
+    be = c.rt.bench_eval
+    P, D = shape
+    pop = _uniform(c.torch, gen, shape, -100.0, 100.0, c.dev)
+    ev = (pop, "shifted_rosenbrock", c.rt.bm.shift_vector(D, device=c.dev), 390.0)
+    return {"shape": list(shape), "ms": time_ms(lambda: be.bench_eval(*ev)),
+            "plain_ms": time_ms(lambda: be.bench_eval_ref(*ev)),
+            **_bound(rates, 4 * (P * D + D + P), 12 * P * D),
+            "geometry": be.geometry_for(P, D, pop, ev[2])._asdict()}
+
+
+def _time_de_step(c: Ctx, rates, gen, shape) -> dict:
+    """de_step on shifted Rosenbrock at ``shape`` (``[I,] P, D``) with Table
+    I's w and px: kernel, plain, bound and geometry. Bytes: pop and u read,
+    the new population written; fit, idx, jrand, shift read; the new
+    fitness written. Operations: the evaluation's 12 a lane, and 4 on each
+    lane this run's draws cross over."""
+    torch, be, ds = c.torch, c.rt.bench_eval, c.rt.de_step
+    *lead, P, D = shape
+    R = math.prod(lead) * P
+    shift = c.rt.bm.shift_vector(D, device=c.dev)
+    pop = _uniform(torch, gen, shape, -100.0, 100.0, c.dev)
+    fit = be.bench_eval_ref(pop, "shifted_rosenbrock", shift, 390.0)
+    u = torch.rand(shape, generator=gen).to(c.dev)
+    idx = ((torch.arange(P) + 1 + torch.randint(0, P - 1, (3, *lead, P), generator=gen))
+           % P).to(c.dev)
+    jr = torch.randint(0, D, (*lead, P), generator=gen).to(c.dev)
+    args = (pop, fit, idx, u, jr, "shifted_rosenbrock", shift, 390.0, 0.5, 0.2,
+            -100.0, 100.0)
+    n_cross = float((u < 0.2).sum()) + R
+    return {"shape": list(shape), "ms": time_ms(lambda: ds.de_step(*args)),
+            "plain_ms": time_ms(lambda: ds.de_step_ref(*args), reps=10),
+            **_bound(rates, 4 * 3 * R * D + 8 * 4 * R + 4 * (D + 2 * R),
+                     12 * R * D + 4 * n_cross),
+            "geometry": be.geometry_for(R, D, pop, u, shift)._asdict()}
+
+
 def kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
     """Time each kernel and its plain version at its main path's shape and
     work out its bound from this run's inputs."""
     torch, rt = c.torch, c.rt
-    bw, flops = rates["bytes"], rates["float32"]
-    be, ds = rt.bench_eval, rt.de_step
+    be = rt.bench_eval
     gen = torch.Generator().manual_seed(1)
-    P, D = 800, 1000
+    for name, timer, shapes in (("bench_eval", _time_bench_eval, EVAL_TIMED),
+                                ("de_step", _time_de_step, DE_TIMED)):
+        rows = [timer(c, rates, gen, shape) for shape in shapes]
+        c.kern[name].update({key: rows[0][key] for key in
+                             ("ms", "plain_ms", "bound_ms", "bound_by")}, shapes=rows)
+        for r in rows:
+            log(f"timing {name} at {tuple(r['shape'])}: kernel {r['ms']:.5f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+                f"geometry {r['geometry']}")
+
+    P, D = POP, DIM
     shift = rt.bm.shift_vector(D, device=c.dev)
     pop = _uniform(torch, gen, (P, D), -100.0, 100.0, c.dev)
-    ev = (pop, "shifted_rosenbrock", shift, 390.0)
-    k = c.kern["bench_eval"]
-    k["ms"] = time_ms(lambda: be.bench_eval(*ev))
-    k["plain_ms"] = time_ms(lambda: be.bench_eval_ref(*ev))
-    nbytes = 4 * (P * D + D + P)
-    nops = 12 * P * D      # sub shift, +1, x0*x0, sub, square, *100, 1-x0, square, 2 adds, sum
-    k.update(bound_ms=max(nbytes / bw, nops / flops) * 1e3,
-             bound_by="bytes" if nbytes / bw >= nops / flops else "operations")
-
-    fit = be.bench_eval_ref(*ev)
-    u = torch.rand((P, D), generator=gen).to(c.dev)
-    idx = ((torch.arange(P) + 1 + torch.randint(0, P - 1, (3, P), generator=gen)) % P).to(c.dev)
-    jr = torch.randint(0, D, (P,), generator=gen).to(c.dev)
-    args = (pop, fit, idx, u, jr, "shifted_rosenbrock", shift, 390.0, 0.5, 0.2,
-            -100.0, 100.0)
-    k = c.kern["de_step"]
-    k["ms"] = time_ms(lambda: ds.de_step(*args))
-    k["plain_ms"] = time_ms(lambda: ds.de_step_ref(*args))
-    # pop, u in; pop out; fit, idx, jrand, shift in; fit out.
-    nbytes = 4 * 3 * P * D + 8 * 4 * P + 4 * (D + 2 * P)
-    n_cross = float(((u < 0.2).sum() + P))  # lanes that build a mutant
-    nops = 12 * P * D + 4 * n_cross
-    k.update(bound_ms=max(nbytes / bw, nops / flops) * 1e3,
-             bound_by="bytes" if nbytes / bw >= nops / flops else "operations")
+    fit = be.bench_eval_ref(pop, "shifted_rosenbrock", shift, 390.0)
 
     def bound(name: str, nbytes: float, nops: float) -> None:
-        c.kern[name].update(
-            bound_ms=max(nbytes / bw, nops / flops) * 1e3,
-            bound_by="bytes" if nbytes / bw >= nops / flops else "operations")
+        c.kern[name].update(_bound(rates, nbytes, nops))
 
     # eval_select at SA's Table I shape, Metropolis thresholds.
     trial = _uniform(torch, gen, (P, D), -100.0, 100.0, c.dev)
@@ -1371,7 +1431,7 @@ def kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
     n_mut = float((um < 0.1).sum())
     bound("ga_step", 4 * 6 * N * D + 4 * (2 * N + D) + 8 * N + 4 * N + N,
           15 * N * D + 2 * n_mut + N)
-    for name in POP_KERNELS:
+    for name in POP_KERNELS[2:]:
         k = c.kern[name]
         shape = (N, D) if name == "ga_step" else (P, D)
         log(f"timing {name} at {shape}: kernel {k['ms']:.4f} ms, plain "
@@ -1392,7 +1452,6 @@ def sass_counts(c: Ctx) -> None:
     """Count the tensor-core instructions in the SASS of each redesigned
     kernel's library (cuobjdump -sass); fail if the tool is missing, if
     flash attention has no HGMMA or the SSD scan no HGMMA or HMMA."""
-    import re
     b = c.rt._build
     try:
         tool = b.cuda_tool("cuobjdump")
@@ -1483,6 +1542,64 @@ def model_kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
     sass_counts(c)
 
 
+# The kernels on csrc/eval_row.cuh, whose compiler reports the run prints.
+ROW_KERNELS = ("bench_eval", "de_step")
+
+
+def _demangled(sym: str) -> str:
+    """``kernel<1,2,...>`` from an Itanium-mangled kernel template taking
+    int arguments (the last name of ``_ZN...``), else ``sym``."""
+    if not sym.startswith("_ZN"):
+        return sym
+    i, name = 3, sym
+    while i < len(sym) and sym[i].isdigit():
+        j = i
+        while sym[j].isdigit():
+            j += 1
+        n = int(sym[i:j])
+        name, i = sym[j:j + n], j + n
+    if sym[i:i + 1] != "I":
+        return name
+    args = re.findall(r"Li(\d+)E", sym[i:sym.find("EE", i) + 1])
+    return f"{name}<{','.join(args)}>"
+
+
+def ptxas_entries(report: str) -> list[dict]:
+    """One entry per kernel of an ``nvcc -Xptxas -v`` report: its name with
+    its template arguments, registers, static shared memory bytes and
+    spill bytes (stores + loads)."""
+    out, cur = [], None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = {"name": _demangled(m.group(1)), "registers": None, "smem": 0, "spill": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def ptxas_summary(entries: list[dict]) -> dict:
+    """The kernels' count, register range, largest shared memory, total
+    spills, and each shifted-Rosenbrock instantiation (tag 4, the main
+    path's) in full."""
+    regs = [e["registers"] for e in entries if e["registers"] is not None]
+    return {"kernels": len(entries),
+            "registers": [min(regs), max(regs)] if regs else None,
+            "max_smem_bytes": max((e["smem"] for e in entries), default=0),
+            "spill_bytes": sum(e["spill"] for e in entries),
+            "shifted_rosenbrock": [e for e in entries if "<4," in e["name"]]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
@@ -1513,9 +1630,15 @@ def main() -> int:
         _build.library(name)
     log(f"build: {time.perf_counter() - t_build:.1f} s into {_build.build_dir()}")
     for name in (*KERNELS, *TC_LIBRARY.values()):
+        if name in ROW_KERNELS:
+            continue
         regs = [ln.strip() for ln in _build.ptxas_report(name).splitlines()
                 if "registers" in ln]
         log(f"ptxas {name}: " + " | ".join(regs[:3]) + (" ..." if len(regs) > 3 else ""))
+    for name in ROW_KERNELS:
+        entries = ptxas_entries(_build.ptxas_report(name))
+        c.kern[name]["ptxas"] = ptxas_summary(entries)
+        log(f"ptxas {name}: {json.dumps(c.kern[name]['ptxas'])}")
 
     ok = True
     record_launch_shapes(c)
@@ -1567,6 +1690,10 @@ def main() -> int:
             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"),
             "bound_ms": k.get("bound_ms"), "bound_by": k.get("bound_by"),
             "library_ms": k.get("library_ms")}
+        if name in ROW_KERNELS:
+            # Every timed shape with its bound and geometry, and the
+            # compiler's registers, shared memory and spills.
+            row.update(shapes=k.get("shapes"), ptxas=k.get("ptxas"))
         if name in TC_LIBRARY:
             # The CUDA-core design at the same shape (the float32 route), and
             # the tensor-core instructions in the bf16 route's SASS.

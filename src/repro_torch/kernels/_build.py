@@ -29,10 +29,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of each library's launch entry: (name, argtypes); restype int.
 SIGNATURES = {
-    "bench_eval": ("bench_eval_launch", (_P, _P, _P, _I, _I, _I, _F, _P)),
+    "bench_eval": ("bench_eval_launch", (_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P)),
     "de_step": ("de_step_launch",
                 (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                 _F, _F, _F, _F, _F, _P)),
+                 _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P)),
     "eval_select": ("eval_select_launch",
                     (*(_P,) * 8, _I, _I, _I, _F, _P)),
     "pso_step": ("pso_step_launch",

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch import f32
 from repro_torch.kernels import _build
-from repro_torch.kernels.bench_eval import bench_eval_ref, check_tag
+from repro_torch.kernels.bench_eval import bench_eval_ref, check_tag, geometry_for
 
 # Kernel launches in this process (plain-version calls are not counted).
 LAUNCHES = 0
@@ -77,8 +77,10 @@ def de_step(pop, fit, idx_abc, u, jrand, fn="sphere", shift=None, bias=0.0,
         return pop.clone(), fit.clone()
     npop = torch.empty_like(pop)
     nfit = torch.empty_like(fit)
+    g = geometry_for(R, D, pop, u, shift, npop)
     _build.launch("de_step", dev, pop, fit, idx, u, jr, shift, npop, nfit, R,
-                  P, D, tag, bias, w, px, lo, hi)
+                  P, D, tag, bias, w, px, lo, hi, int(g.vec), g.warps_per_row,
+                  g.rows_per_block, g.slots_per_thread, int(g.staged))
     global LAUNCHES
     LAUNCHES += 1
     return npop, nfit

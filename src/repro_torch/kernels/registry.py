@@ -4,7 +4,8 @@ Maps benchmark-function names (keys of ``functions.benchmarks.FUNCTIONS`` plus
 ``shifted_rosenbrock``) to the kernel specs that can evaluate them. The
 executor's ``cuda`` backend and the fused DE step both consult this table, so
 adding a kernel body for a new testbed function is one ``register()`` call
-(plus its device function in ``csrc/eval_tile.cuh``).
+(plus its device functions in ``csrc/eval_tile.cuh`` and
+``csrc/eval_row.cuh``).
 """
 from __future__ import annotations
 
@@ -15,9 +16,10 @@ import dataclasses
 class KernelSpec:
     """How the kernel layer evaluates one benchmark function.
 
-    ``eval_tag`` is the branch selector of ``csrc/eval_tile.cuh``; it is
-    usually the function name itself but kept separate so several registered
-    names can share one kernel body (e.g. shifted variants).  ``fused_de``
+    ``eval_tag`` is the branch selector of ``csrc/eval_tile.cuh`` and
+    ``csrc/eval_row.cuh``; it is usually the function name itself but kept
+    separate so several registered names can share one kernel body (e.g.
+    shifted variants).  ``fused_de``
     marks the objective as usable inside the fused whole-generation kernels
     (``de_step`` now; the name predates the non-DE kernels, which reuse the
     same row evaluation, so one flag gates the lot and every current tag

@@ -5,7 +5,10 @@ against ``repro.kernels.ref`` on ``tests/test_kernels.py``'s shapes and
 bounds, and against the Pallas kernels (interpret mode, through
 ``repro.kernels.ops``) at one shape each. The CUDA kernels themselves are
 compared with the plain versions by the ``gpu`` tests, which skip without a
-Hopper GPU.
+Hopper GPU. They need no JAX, so the file also runs where JAX is not
+installed (the JAX comparisons skip there):
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels.py
 """
 import shutil
 from pathlib import Path
@@ -15,21 +18,30 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
-
-from repro.functions import get as jget  # noqa: E402
-from repro.kernels import ops, ref  # noqa: E402
 from repro_torch.functions import benchmarks as tbm  # noqa: E402
 from repro_torch.kernels import _build, registry  # noqa: E402
 from repro_torch.kernels import bench_eval as be  # noqa: E402
 from repro_torch.kernels import de_step as ds  # noqa: E402
 
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from repro.functions import get as jget
+    from repro.kernels import ops, ref
+except ImportError:     # a machine with the card but without JAX
+    jax = None
+
 BENCH_FNS = [n for n in registry.registered() if n != "shifted_rosenbrock"]
 
 
 @pytest.fixture(autouse=True)
-def _partitionable():
+def _partitionable(request):
+    if jax is None:
+        if request.node.get_closest_marker("gpu") is None:
+            pytest.skip("the comparison with the JAX package needs JAX")
+        yield
+        return
     with jax.threefry_partitionable(True):
         yield
 
@@ -194,9 +206,17 @@ def cuda_dev():
     return torch.device("cuda")
 
 
+# Shapes the kernels are held at on the card: Table I's population and its
+# 100-row chunk, odd sizes, D = 333 and 1001 (scalar slots), and rows past
+# the staging cap of 4096 lanes (16-byte slots) or 1024 (scalar), which
+# de_step walks in two passes.
+STAGE_CAP_D = (4100, 1027)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("fn", list(be.EVAL_TAGS))
-@pytest.mark.parametrize("P,D", [(800, 1000), (37, 100), (5, 1)])
+@pytest.mark.parametrize("P,D", [(800, 1000), (37, 100), (5, 1), (100, 1000), (800, 333),
+                                 (100, 1001), (6, STAGE_CAP_D[0]), (6, STAGE_CAP_D[1])])
 def test_bench_eval_kernel_matches_plain(cuda_dev, fn, P, D):
     f = tbm.FUNCTIONS.get(fn, tbm.FUNCTIONS["rosenbrock"])
     x = np.random.default_rng(P).uniform(max(f.lo, -5.0), min(f.hi, 5.0), (P, D))
@@ -221,12 +241,35 @@ def test_bench_eval_kernel_row_views_and_many_waves(cuda_dev, P, rows):
     assert _rel(got.cpu(), want.cpu()) < 1e-5
 
 
+def _unaligned(x: np.ndarray, dev) -> torch.Tensor:
+    """``x`` on ``dev`` as a contiguous view one float past an aligned
+    start: every row pointer is 4-byte aligned only."""
+    flat = torch.zeros(x.size + 1, dtype=torch.float32, device=dev)
+    view = flat[1:].view(x.shape)
+    view.copy_(torch.from_numpy(x))
+    assert be.pointer_alignment(view) == 4
+    return view
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("lead,P,D", [((), 800, 1000), ((), 99, 333), ((4,), 64, 100)])
-def test_de_step_kernel_matches_plain(cuda_dev, lead, P, D):
-    pop, u, idx, jr = (torch.from_numpy(a).to(cuda_dev)
-                       for a in _de_inputs(P, D, lead, seed=P))
-    shift = tbm.shift_vector(D, device=cuda_dev)
+@pytest.mark.parametrize("fn", list(be.EVAL_TAGS))
+@pytest.mark.parametrize("P,D", [(800, 1000), (100, 333)])
+def test_bench_eval_kernel_unaligned_view(cuda_dev, fn, P, D):
+    """``pop.view(-1)[1:1 + P * D].view(P, D)``: scalar slots."""
+    f = tbm.FUNCTIONS.get(fn, tbm.FUNCTIONS["rosenbrock"])
+    x = np.random.default_rng(D).uniform(max(f.lo, -5.0), min(f.hi, 5.0), (P, D))
+    pop = _unaligned(x.astype(np.float32), cuda_dev)
+    assert not be.geometry_for(P, D, pop).vec
+    got = be.bench_eval(pop, fn)
+    want = be.bench_eval_ref(pop, fn)
+    assert _rel(got.cpu(), want.cpu()) < (1e-4 if fn == "michalewicz" else 1e-5)
+
+
+def _check_de_step(pop, u, idx, jr, D):
+    """One de_step launch against the plain version on shifted Rosenbrock:
+    identical selections on clear rows, the population within 1e-5 and the
+    fitness within 1e-5 relative where the selections agree."""
+    shift = tbm.shift_vector(D, device=pop.device)
     args = ("shifted_rosenbrock", shift, 390.0)
     fit = be.bench_eval_ref(pop, *args)
     n = ds.LAUNCHES
@@ -239,3 +282,25 @@ def test_de_step_kernel_matches_plain(cuda_dev, lead, P, D):
     assert bool(agree[clear].all())
     assert float((npop - rpop).abs()[agree].max()) < 1e-5
     assert _rel(nfit[agree].cpu(), rfit[agree].cpu()) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lead,P,D", [
+    ((), 800, 1000), ((), 99, 333), ((4,), 64, 100), ((8,), 800, 1000), ((), 100, 1001),
+    ((), 16, STAGE_CAP_D[0]), ((), 16, STAGE_CAP_D[1])])
+def test_de_step_kernel_matches_plain(cuda_dev, lead, P, D):
+    pop, u, idx, jr = (torch.from_numpy(a).to(cuda_dev)
+                       for a in _de_inputs(P, D, lead, seed=P))
+    staged = be.geometry_for(pop[..., 0].numel(), D, pop, u).staged
+    assert staged == (D not in STAGE_CAP_D)
+    _check_de_step(pop, u, idx, jr, D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,D", [(800, 1000), (99, 333)])
+def test_de_step_kernel_unaligned_views(cuda_dev, P, D):
+    pop, u, idx, jr = _de_inputs(P, D, seed=P)
+    pop, u = (_unaligned(a, cuda_dev) for a in (pop, u))
+    assert not be.geometry_for(P, D, pop, u).vec
+    _check_de_step(pop, u, torch.from_numpy(idx).to(cuda_dev),
+                   torch.from_numpy(jr).to(cuda_dev), D)
