@@ -12,8 +12,9 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
   1. each kernel against its plain PyTorch version on the card, at every
      shape a later phase launches it at (derived from the run tables
      below) and at odd sizes; bench_eval also on a row view and an
-     unaligned view of Table I's population, and de_step past the staging
-     cap of csrc/eval_row.cuh (its two-pass kernel);
+     unaligned view of Table I's population; de_step, ga_step and
+     eval_select past the staging cap of csrc/eval_row.cuh (their two-pass
+     kernels), ga_step and eval_select also on unaligned views;
   2. the draws on the card against the CPU: threefry, uniform, randint
      bitwise; normal and categorical to the last bit or ulp;
   3. Table I fused: 1 island, pop 800, shifted Rosenbrock-1000, 200 gens;
@@ -46,12 +47,15 @@ flash_attention and ssd_scan take two routes by the input's type: bfloat16
 runs the tensor-core kernels (``csrc/*_tc.cu``), float32 the CUDA-core
 kernels. After the phases, the kernel timings put the CUDA-core design
 (through its C entry at bf16) beside each tensor-core kernel, and count the tensor-core
-instructions in the tensor-core kernels' SASS (``cuobjdump``). bench_eval
-and de_step are timed at Table I's population and at the other shape the
-main path gives them (the chunked path's 100 x 1000, phase 5's 8 x 800 x
-1000), each with its bound and the launch geometry its wrapper chose, and
-the compiler's registers, shared memory and spills for their libraries
-are printed.
+instructions in the tensor-core kernels' SASS (``cuobjdump``). The four
+kernels on csrc/eval_row.cuh are timed at every shape the main path gives
+them (bench_eval at Table I's population and the chunked path's 100 x
+1000; de_step also at phase 5's 8 x 800 x 1000; ga_step at GA's 200-row
+wave, 8 islands of it and the 8-island steady state; eval_select at SA's
+800 x 1000), each with its bound, the launch geometry its wrapper chose
+and, for ga_step and eval_select, the share of rows taken or accepted; the compiler's registers, shared memory and spills
+for their libraries are printed. The main-path runs of GA and SA also
+report the share of rows their fused kernel took or accepted.
 
 Phases 3-5, 7, 8, 10 and 11 are the main path: each run resets the kernels'
 launch counters, drives its entry point (``IslandOptimizer.minimize``,
@@ -281,17 +285,19 @@ def _derived(kernels) -> tuple[tuple[int, ...], ...]:
 # Shapes phase 1 checks each kernel at against its plain version: every
 # shape a run of the tables above launches it at, plus Table I's rows as a
 # plain (P, D) tensor and odd sizes. The fused-generation kernels share one
-# list (GA's 200-row wave at pop 800 among them), and a row view at a
-# storage offset is added at (800, 1000).
+# list (GA's 200-row wave at pop 800 among them, and DE_EXTRA_SHAPES), and
+# a row view at a storage offset is added at (800, 1000), unaligned views
+# at (800, 1000) and (200, 1000).
 EVAL_SHAPES = tuple(sorted(set(_derived({"bench_eval"}))
                            | {(130, 1000), (37, 100), (5, 1)}))
-FUSED_SHAPES = tuple(sorted(set(_derived({"eval_select", "pso_step", "ga_step"}))
-                            | {(800, 1000), (200, 1000), (130, 1000), (37, 100),
-                               (5, 1), (8, 800, 1000)}))
 DE_SHAPES = _derived({"de_step"})
 # Rows past eval_row.cuh's staging cap (4096 lanes of 16-byte slots, 1024
-# of scalar ones), which de_step walks in two passes, and D = 1001.
+# of scalar ones), which de_step, ga_step and eval_select walk in two
+# passes, and D = 1001.
 DE_EXTRA_SHAPES = ((16, 4100), (16, 1027), (100, 1001))
+FUSED_SHAPES = tuple(sorted(set(_derived({"eval_select", "pso_step", "ga_step"}))
+                            | {(800, 1000), (200, 1000), (130, 1000), (37, 100),
+                               (5, 1), (8, 800, 1000), *DE_EXTRA_SHAPES}))
 
 PALLAS_SITES = {
     "bench_eval": "src/repro/kernels/bench_eval.py:136",
@@ -415,6 +421,7 @@ class Ctx:
                      for k in KERNELS}
         self.phase = None     # the phase running now
         self.shapes = {}      # phase -> {(kernel, shape of its first input)}
+        self.decided = {}     # kernel -> its take/accept outputs since reset
 
     def sync(self) -> None:
         if self.dev.type == "cuda":
@@ -433,6 +440,7 @@ class Ctx:
         return rel
 
     def reset(self) -> None:
+        self.decided = {}
         for k in KERNELS:
             getattr(self.rt, k).LAUNCHES = 0
         for k in TC_LIBRARY:
@@ -446,10 +454,15 @@ class Ctx:
             self.kern[k]["launches"] += v
 
 
+# The launch argument holding each deciding kernel's take/accept output.
+DECISION_ARG = {"ga_step": 11, "eval_select": 7}
+
+
 def record_launch_shapes(c: Ctx) -> None:
     """Wrap the kernels' shared launch step so that every launch records
     its kernel and the shape and type of its first input under the running
-    phase."""
+    phase, and keeps the take/accept output of ga_step and eval_select
+    (read after the run, so the run waits for nothing)."""
     b = c.rt._build
     launch = b.launch
 
@@ -457,6 +470,8 @@ def record_launch_shapes(c: Ctx) -> None:
         first = args[0]
         c.shapes.setdefault(c.phase, set()).add(
             (name, tuple(first.shape), str(first.dtype).replace("torch.", "")))
+        if name in DECISION_ARG:
+            c.decided.setdefault(name, []).append(args[DECISION_ARG[name]])
         return launch(name, device, *args)
 
     b.launch = recording
@@ -510,9 +525,7 @@ def _eval_inputs(c: Ctx, gen, shape, lo, hi):
         view = pop[100:200]
         require(view.storage_offset() > 0, "row slice has no storage offset")
         out.append((f"rows 100:200 of {tuple(shape)}", view))
-        flat = c.torch.empty(pop.numel() + 1, device=c.dev)
-        shifted = flat[1:].view(shape)
-        shifted.copy_(pop)
+        shifted = _unaligned(c, pop)
         require(c.dev.type != "cuda" or not c.rt.bench_eval.geometry_for(*shape, shifted).vec,
                 "a view one float past an aligned start took 16-byte loads")
         out.append((f"unaligned view of {tuple(shape)}", shifted))
@@ -619,23 +632,40 @@ def _fused_case(c: Ctx, gen, fn: str, shape):
     return shift, bias, lo, hi, U
 
 
-def _views(shape, arrays):
-    """(label, arrays) to check: the arrays, and at Table I's shape also
-    rows 100:300 of each (at pop 800), views with a storage offset."""
+def _unaligned(c: Ctx, a):
+    """A copy of ``a`` one float past an aligned start (every row pointer
+    4-byte aligned only)."""
+    flat = c.torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    view = flat[1:].view(a.shape)
+    view.copy_(a)
+    return view
+
+
+def _views(c: Ctx, shape, arrays):
+    """(label, arrays) to check: the arrays; at Table I's shape also rows
+    100:300 of each (at pop 800), views with a storage offset; and at Table
+    I's shape and GA's 200-row wave, the row arrays as unaligned views
+    (scalar slots in the kernels on eval_row.cuh)."""
     out = [(str(tuple(shape)), arrays)]
     if tuple(shape) == (POP, DIM):
         rows = slice(POP // 8, 3 * POP // 8)
         view = [a[rows] if a.dim() and a.shape[0] == POP else a for a in arrays]
         require(view[0].storage_offset() > 0, "row slice has no storage offset")
         out.append((f"rows {rows.start}:{rows.stop} of {tuple(shape)}", view))
+    if tuple(shape) in ((POP, DIM), (POP // 4, DIM)):
+        moved = [_unaligned(c, a) if tuple(a.shape) == tuple(shape) else a for a in arrays]
+        require(c.dev.type != "cuda" or not c.rt.bench_eval.geometry_for(*shape, moved[0]).vec,
+                "an unaligned view took 16-byte loads")
+        out.append((f"unaligned views of {tuple(shape)}", moved))
     return out
 
 
 def check_fused_kernels(c: Ctx) -> None:
     """eval_select, pso_step and ga_step against their plain versions on
-    the card: every tag at FUSED_SHAPES, plus a row view. Decisions must be
-    identical on clear rows; positions, velocities and placed children
-    carry no evaluation and must be bit-exact."""
+    the card: every tag at FUSED_SHAPES, plus a row view and unaligned
+    views. Decisions must be identical on clear rows; positions,
+    velocities and placed children carry no evaluation and must be
+    bit-exact."""
     torch, rt = c.torch, c.rt
     be, es, ps, gs = rt.bench_eval, rt.eval_select, rt.pso_step, rt.ga_step
     gen = torch.Generator(device=c.dev).manual_seed(5)
@@ -651,7 +681,7 @@ def check_fused_kernels(c: Ctx) -> None:
             u = torch.rand(lead, generator=gen, device=c.dev)
             u.view(-1)[0] = 0.0
             th = -(0.5 * dF.abs().median()) * torch.log(u)
-            for label, (a, b, d, t, fa) in _views(shape, (pop, trial, dF, th, fit)):
+            for label, (a, b, d, t, fa) in _views(c, shape, (pop, trial, dF, th, fit)):
                 got = es.eval_select(a, fa, b, t, fn, shift, bias)
                 want = es.eval_select_ref(a, fa, b, t, fn, shift, bias)
                 c.sync()
@@ -676,7 +706,7 @@ def check_fused_kernels(c: Ctx) -> None:
             g = torch.gather(pb, -2, pbf.argmin(-1)[..., None, None].expand(
                 *lead[:-1], 1, shape[-1])).squeeze(-2).contiguous()
             kw = dict(w=0.6, fp=1.0, fg=1.0, vmax=0.2 * (hi - lo), lo=lo, hi=hi)
-            for label, (a, vv, p_, f_, q1, q2) in _views(shape, (x, v, pb, pbf, r1, r2)):
+            for label, (a, vv, p_, f_, q1, q2) in _views(c, shape, (x, v, pb, pbf, r1, r2)):
                 args = (a, vv, p_, f_, q1, q2, g, fn, shift, bias)
                 got = ps.pso_step(*args, **kw)
                 want = ps.pso_step_ref(*args, **kw)
@@ -698,7 +728,7 @@ def check_fused_kernels(c: Ctx) -> None:
             um = torch.rand(shape, generator=gen, device=c.dev)
             nz = torch.randn(shape, generator=gen, device=c.dev)
             kw = dict(pc=0.7, pm=0.1, sigma_m=0.1 * (hi - lo), lo=lo, hi=hi)
-            for label, arrs in _views(shape, (p1, p2, slot, slot_f, cut, co, um, nz)):
+            for label, arrs in _views(c, shape, (p1, p2, slot, slot_f, cut, co, um, nz)):
                 got = gs.ga_step(*arrs, fn, shift, bias, **kw)
                 want = gs.ga_step_ref(*arrs, fn, shift, bias, **kw)
                 child = gs.crossover(arrs[0], arrs[1], arrs[4], arrs[5], kw["pc"])
@@ -717,7 +747,8 @@ def check_fused_kernels(c: Ctx) -> None:
                 require(label.startswith("rows") or bool(got[2][..., :2].all()),
                         f"ga_step {fn} {label}: dead slot not taken")
     for k, n in near.items():
-        log(f"phase 1: {k} 10 tags x {len(FUSED_SHAPES)} shapes + a row view: max rel err "
+        log(f"phase 1: {k} 10 tags x {len(FUSED_SHAPES)} shapes + a row view and unaligned "
+            f"views: max rel err "
             f"{c.kern[k]['max_rel_err']:.3g}, max abs err {c.kern[k]['max_abs_err']:.3g}, "
             f"near-tie rows deciding differently {n}")
 
@@ -879,6 +910,10 @@ def _run_main(c: Ctx, phase: int, r: Run) -> dict:
                for k, n in counts.items() if n}
     out = {"gens": g, "ms_per_gen": wall / g * 1e3, "best": res.value,
            "init_best": init_best, "launches_per_gen": per_gen, "launches": counts}
+    if c.decided:
+        # Rows ga_step took or eval_select accepted, over the run.
+        out["decided_share"] = {k: float(c.torch.cat([t.reshape(-1) for t in v]).float().mean())
+                                for k, v in c.decided.items()}
     if r.n_islands > 1:
         rounds = g // r.sync_every
         out["adopted_rows_per_round"] = _adoptions(c, r, seen, rounds)
@@ -1307,11 +1342,15 @@ def model_card_vs_cpu_phase(phase: int):
     return run
 
 
-# Shapes the two kernels on eval_row.cuh are timed at: Table I's population
-# (the kernels line's ms), the chunked path's 100-row chunk for bench_eval,
-# and phase 5's 8-island stack for de_step.
+# Shapes the kernels on eval_row.cuh are timed at, the first giving the
+# kernels line's ms: Table I's population, and the chunked path's 100-row
+# chunk for bench_eval and phase 5's 8-island stack for de_step; GA's wave
+# of pop / 4 offspring, 8 islands of it (phase 8) and the steady state's
+# one offspring on each of 8 islands; SA's population.
 EVAL_TIMED = ((POP, DIM), (POP // 8, DIM))
 DE_TIMED = ((POP, DIM), (8, POP, DIM))
+GA_TIMED = ((POP // 4, DIM), (8, POP // 4, DIM), (8, 1, DIM))
+ES_TIMED = ((POP, DIM),)
 
 
 def _bound(rates: dict[str, float], nbytes: float, nops: float) -> dict:
@@ -1362,6 +1401,54 @@ def _time_de_step(c: Ctx, rates, gen, shape) -> dict:
             "geometry": be.geometry_for(R, D, pop, u, shift)._asdict()}
 
 
+def _time_ga_step(c: Ctx, rates, gen, shape) -> dict:
+    """ga_step on shifted Rosenbrock at ``shape`` (``[I,] N, D``) with GA's
+    pc, pm and a sigma of a tenth of the box: kernel, plain, bound, the
+    share of rows taken and the geometry. Bound: of each lane the parent
+    the child takes, slot, um and noise read, the slots written; slot_f,
+    co, cut, shift read; slot_f and take written. Operations: crossover
+    select, clip (2) and evaluation (12) a lane; a product and a sum only
+    on the lanes this run mutates."""
+    torch, be, gs = c.torch, c.rt.bench_eval, c.rt.ga_step
+    *lead, N, D = shape
+    R = math.prod(lead) * N
+    shift = c.rt.bm.shift_vector(D, device=c.dev)
+    p1, p2, slot = (_uniform(torch, gen, shape, -100.0, 100.0, c.dev) for _ in range(3))
+    slot_f = be.bench_eval_ref(slot, "shifted_rosenbrock", shift, 390.0)
+    cut = torch.randint(1, D, (*lead, N), generator=gen).to(c.dev)
+    co = torch.rand((*lead, N), generator=gen).to(c.dev)
+    um = torch.rand(shape, generator=gen).to(c.dev)
+    nz = torch.randn(shape, generator=gen).to(c.dev)
+    args = (p1, p2, slot, slot_f, cut, co, um, nz, "shifted_rosenbrock", shift,
+            390.0, 0.7, 0.1, 20.0, -100.0, 100.0)
+    nbytes = 4 * 5 * R * D + 4 * (2 * R + D) + 8 * R + 4 * R + R
+    return {"shape": list(shape), "ms": time_ms(lambda: gs.ga_step(*args)),
+            "plain_ms": time_ms(lambda: gs.ga_step_ref(*args), reps=10),
+            **_bound(rates, nbytes, 15 * R * D + 2 * float((um < 0.1).sum()) + R),
+            "decided_share": float(gs.ga_step(*args)[2].float().mean()),
+            "geometry": be.geometry_for(R, D, p1, p2, slot, um, nz, shift)._asdict()}
+
+
+def _time_eval_select(c: Ctx, rates, gen, shape) -> dict:
+    """eval_select on shifted Rosenbrock at ``shape`` with Metropolis
+    thresholds (-100 ln u): kernel, plain, bound, the share of rows
+    accepted and the geometry. Bound: pop and trial read, the population
+    written; fit, thresh, shift read; fit and accepted written."""
+    torch, be, es = c.torch, c.rt.bench_eval, c.rt.eval_select
+    P, D = shape
+    shift = c.rt.bm.shift_vector(D, device=c.dev)
+    pop, trial = (_uniform(torch, gen, shape, -100.0, 100.0, c.dev) for _ in range(2))
+    fit = be.bench_eval_ref(pop, "shifted_rosenbrock", shift, 390.0)
+    th = -100.0 * torch.log(torch.rand(P, generator=gen)).to(c.dev)
+    args = (pop, fit, trial, th, "shifted_rosenbrock", shift, 390.0)
+    nbytes = 4 * 3 * P * D + 4 * (3 * P + D) + 4 * P + P
+    return {"shape": list(shape), "ms": time_ms(lambda: es.eval_select(*args)),
+            "plain_ms": time_ms(lambda: es.eval_select_ref(*args)),
+            **_bound(rates, nbytes, 12 * P * D + 3 * P),
+            "decided_share": float(es.eval_select(*args)[2].float().mean()),
+            "geometry": be.geometry_for(P, D, pop, trial, shift)._asdict()}
+
+
 def kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
     """Time each kernel and its plain version at its main path's shape and
     work out its bound from this run's inputs."""
@@ -1369,35 +1456,21 @@ def kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
     be = rt.bench_eval
     gen = torch.Generator().manual_seed(1)
     for name, timer, shapes in (("bench_eval", _time_bench_eval, EVAL_TIMED),
-                                ("de_step", _time_de_step, DE_TIMED)):
+                                ("de_step", _time_de_step, DE_TIMED),
+                                ("eval_select", _time_eval_select, ES_TIMED),
+                                ("ga_step", _time_ga_step, GA_TIMED)):
         rows = [timer(c, rates, gen, shape) for shape in shapes]
         c.kern[name].update({key: rows[0][key] for key in
                              ("ms", "plain_ms", "bound_ms", "bound_by")}, shapes=rows)
         for r in rows:
+            extra = f", decided_share {r['decided_share']:.6g}" if "decided_share" in r else ""
             log(f"timing {name} at {tuple(r['shape'])}: kernel {r['ms']:.5f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
-                f"geometry {r['geometry']}")
-
-    P, D = POP, DIM
-    shift = rt.bm.shift_vector(D, device=c.dev)
-    pop = _uniform(torch, gen, (P, D), -100.0, 100.0, c.dev)
-    fit = be.bench_eval_ref(pop, "shifted_rosenbrock", shift, 390.0)
-
-    def bound(name: str, nbytes: float, nops: float) -> None:
-        c.kern[name].update(_bound(rates, nbytes, nops))
-
-    # eval_select at SA's Table I shape, Metropolis thresholds.
-    trial = _uniform(torch, gen, (P, D), -100.0, 100.0, c.dev)
-    th = -100.0 * torch.log(torch.rand(P, generator=gen)).to(c.dev)
-    args = (pop, fit, trial, th, "shifted_rosenbrock", shift, 390.0)
-    k = c.kern["eval_select"]
-    k["ms"] = time_ms(lambda: rt.eval_select.eval_select(*args))
-    k["plain_ms"] = time_ms(lambda: rt.eval_select.eval_select_ref(*args))
-    # pop, trial in; pop out; fit, thresh, shift in; fit, accepted out.
-    bound("eval_select", 4 * 3 * P * D + 4 * (3 * P + D) + 4 * P + P,
-          12 * P * D + 3 * P)
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
+                f"{extra}, geometry {r['geometry']}")
 
     # pso_step at Table I's shape (Fig. 4's w, fp, fg; vmax 0.2 of the box).
+    P, D = POP, DIM
+    shift = rt.bm.shift_vector(D, device=c.dev)
     x, v, pb = (_uniform(torch, gen, (P, D), -100.0, 100.0, c.dev) for _ in range(3))
     r1, r2 = (torch.rand((P, D), generator=gen).to(c.dev) for _ in range(2))
     pbf = be.bench_eval_ref(pb, "shifted_rosenbrock", shift, 390.0)
@@ -1409,33 +1482,10 @@ def kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
     # x, v, pbest, r1, r2 in; x, v, pbest out; pbest_f, gbest, shift in;
     # fitness, pbest_f out. Per lane: 11 operations for the update (two of
     # them fused multiply-adds) and 12 for the evaluation.
-    bound("pso_step", 4 * 8 * P * D + 4 * (P + 2 * D) + 4 * 2 * P,
-          (13 + 12) * P * D + P)
-
-    # ga_step at GA's Table I wave: n_off = 200 offspring of pop 800.
-    N = P // 4
-    p1, p2, slot = (_uniform(torch, gen, (N, D), -100.0, 100.0, c.dev) for _ in range(3))
-    slot_f = be.bench_eval_ref(slot, "shifted_rosenbrock", shift, 390.0)
-    cut = torch.randint(1, D, (N,), generator=gen).to(c.dev)
-    co = torch.rand(N, generator=gen).to(c.dev)
-    um = torch.rand((N, D), generator=gen).to(c.dev)
-    nz = torch.randn((N, D), generator=gen).to(c.dev)
-    args = (p1, p2, slot, slot_f, cut, co, um, nz, "shifted_rosenbrock", shift,
-            390.0, 0.7, 0.1, 20.0, -100.0, 100.0)
-    k = c.kern["ga_step"]
-    k["ms"] = time_ms(lambda: rt.ga_step.ga_step(*args))
-    k["plain_ms"] = time_ms(lambda: rt.ga_step.ga_step_ref(*args))
-    # p1, p2, slot, um, noise in; slot out; slot_f, co, cut, shift in;
-    # slot_f, take out. Per lane: crossover select, clip (2) and evaluation
-    # (12); a product and a sum only on the lanes this run mutates.
-    n_mut = float((um < 0.1).sum())
-    bound("ga_step", 4 * 6 * N * D + 4 * (2 * N + D) + 8 * N + 4 * N + N,
-          15 * N * D + 2 * n_mut + N)
-    for name in POP_KERNELS[2:]:
-        k = c.kern[name]
-        shape = (N, D) if name == "ga_step" else (P, D)
-        log(f"timing {name} at {shape}: kernel {k['ms']:.4f} ms, plain "
-            f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
+    k.update(_bound(rates, 4 * 8 * P * D + 4 * (P + 2 * D) + 4 * 2 * P,
+                    (13 + 12) * P * D + P))
+    log(f"timing pso_step at {(P, D)}: kernel {k['ms']:.4f} ms, plain "
+        f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
     model_kernel_timings(c, rates)
 
 
@@ -1543,7 +1593,7 @@ def model_kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
 
 
 # The kernels on csrc/eval_row.cuh, whose compiler reports the run prints.
-ROW_KERNELS = ("bench_eval", "de_step")
+ROW_KERNELS = ("bench_eval", "de_step", "ga_step", "eval_select")
 
 
 def _demangled(sym: str) -> str:
@@ -1590,13 +1640,14 @@ def ptxas_entries(report: str) -> list[dict]:
 
 def ptxas_summary(entries: list[dict]) -> dict:
     """The kernels' count, register range, largest shared memory, total
-    spills, and each shifted-Rosenbrock instantiation (tag 4, the main
-    path's) in full."""
+    spills and the instantiations that spill, and each shifted-Rosenbrock
+    instantiation (tag 4, the main path's) in full."""
     regs = [e["registers"] for e in entries if e["registers"] is not None]
     return {"kernels": len(entries),
             "registers": [min(regs), max(regs)] if regs else None,
             "max_smem_bytes": max((e["smem"] for e in entries), default=0),
             "spill_bytes": sum(e["spill"] for e in entries),
+            "spilling": [f"{e['name']}: {e['spill']}" for e in entries if e["spill"]],
             "shifted_rosenbrock": [e for e in entries if "<4," in e["name"]]}
 
 

@@ -34,11 +34,11 @@ SIGNATURES = {
                 (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                  _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P)),
     "eval_select": ("eval_select_launch",
-                    (*(_P,) * 8, _I, _I, _I, _F, _P)),
+                    (*(_P,) * 8, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P)),
     "pso_step": ("pso_step_launch",
                  (*(_P,) * 13, _I, _I, _I, _I, *(_F,) * 7, _P)),
     "ga_step": ("ga_step_launch",
-                (*(_P,) * 12, _I, _I, _I, *(_F,) * 6, _P)),
+                (*(_P,) * 12, _I, _I, _I, *(_F,) * 6, _I, _I, _I, _I, _I, _P)),
     "flash_attention": ("flash_attention_launch",
                         (*(_P,) * 4, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P)),
     "ssd_scan": ("ssd_scan_launch", (*(_P,) * 6, *(_I,) * 6, _P)),

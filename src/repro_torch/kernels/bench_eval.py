@@ -6,9 +6,10 @@ tensor's device: a CPU tensor goes to :func:`bench_eval_ref`; a CUDA tensor
 goes to the kernel in ``csrc/bench_eval.cu``, which is built at first use —
 there is no fallback from the card to the plain version.
 
-:func:`launch_geometry` picks how ``bench_eval.cu`` and ``de_step.cu`` (both
-on ``csrc/eval_row.cuh``) lay a population over the card: warps per row,
-rows per block, register slots per thread, and 16-byte or scalar loads.
+:func:`launch_geometry` picks how the kernels on ``csrc/eval_row.cuh``
+(``bench_eval.cu``, ``de_step.cu``, ``ga_step.cu``, ``eval_select.cu``) lay a
+population over the card: warps per row, rows per block, register slots per
+thread, and 16-byte or scalar loads.
 """
 from __future__ import annotations
 
@@ -46,12 +47,13 @@ SMEM_BYTES = MAX_BLOCK_WARPS * (4 * 4 + 1)
 
 
 class Geometry(NamedTuple):
-    """A launch of ``bench_eval.cu`` or ``de_step.cu``.
+    """A launch of a kernel on ``eval_row.cuh``.
 
     ``vec``: 4-lane slots read as 16-byte loads (else one lane a slot);
     ``warps_per_row`` warps share a row, ``rows_per_block`` rows share a
     block; each thread holds ``slots_per_thread`` slots per batch;
-    ``staged``: the whole row fits one batch (de_step's one-pass kernel);
+    ``staged``: the whole row fits one batch (the one-pass kernels of
+    de_step, ga_step and eval_select);
     ``iters``: slot iterations a warp makes over its part of a row."""
 
     vec: bool
@@ -66,8 +68,8 @@ class Geometry(NamedTuple):
 
 
 def slots_per_thread(iters: int) -> int:
-    """The register slots (2 or 4; de_step.cu is built for these) that hold
-    ``iters`` iterations, or 4 for a row walked in batches."""
+    """The register slots (2 or 4; the staged kernels are built for these)
+    that hold ``iters`` iterations, or 4 for a row walked in batches."""
     return 2 if iters <= 2 else MAX_SLOTS
 
 
@@ -83,9 +85,10 @@ def launch_geometry(P: int, D: int, ptr_alignment: int, n_sms: int) -> Geometry:
     a block up to ``TARGET_BLOCK_WARPS`` warps, fewer while that would
     leave SMs without a block. (At D = 1000 this is 4 warps a row, 2 slots
     a thread and one row a block: on the H100, in the sweeps of
-    ``tools/eval_row_timings.py``, the fastest geometry for both kernels
-    at 800 rows and for de_step at 8 x 800 rows, and within 4% of the
-    fastest, 8 warps a row, at bench_eval's 100-row chunk.)"""
+    ``tools/eval_row_timings.py``, the fastest geometry for bench_eval and
+    de_step at 800 rows, de_step at 8 x 800 rows, ga_step at 8 x 200 rows
+    and eval_select at 800 rows, and within 4% of the fastest, 8 warps a
+    row, at bench_eval's 100-row chunk and ga_step's 200 and 8 x 1 rows.)"""
     vec = ptr_alignment % 16 == 0 and D % 4 == 0
     slots = D // 4 if vec else D
     W = 1

@@ -137,29 +137,6 @@ __device__ __forceinline__ void trial_batch(const Args& a, const Place& at, cons
     }
 }
 
-// Evaluates the trial slots t of batch kb (shift slots sh) into acc.
-template <int TAG, int V, int K>
-__device__ __forceinline__ void eval_batch(popt::row::Acc<TAG>& acc, const Args& a,
-                                           const Place& at, int kb, const Slot<V> (&t)[K],
-                                           const Slot<V> (&sh)[K]) {
-  Slot<V> z[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) z[k] = t[k];
-  prepare<TAG, V, K>(z, sh, a.shift != nullptr);
-  if (kb == 0) acc.head = z[0].v[0];
-  add_batch<TAG, V, K>(acc, z, at, kb, a.D);
-}
-
-// Writes batch kb of the new row: the trial t where it won, else the parent p.
-template <int V, int K>
-__device__ __forceinline__ void store_batch(float* __restrict__ out, const Place& at, int kb,
-                                            bool better, const Slot<V> (&t)[K],
-                                            const Slot<V> (&p)[K]) {
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    if (at.holds(kb, k)) store<V>(out, at.slot(kb, k), better ? t[k] : p[k]);
-}
-
 // The whole row in registers (at.iters <= K): one pass.
 template <int TAG, int V, int K>
 __global__ void __launch_bounds__(kBlockThreads)
@@ -170,7 +147,7 @@ de_step_staged(const Args a, int W) {
   Slot<V> p[K], sh[K], t[K];
   trial_batch<V, K>(a, at, h, off, 0, a.shift != nullptr, p, sh, t);
   popt::row::Acc<TAG> acc;
-  eval_batch<TAG, V, K>(acc, a, at, 0, t, sh);
+  eval_batch<TAG, V, K>(acc, at, 0, t, sh, a.shift != nullptr, a.D);
   const float tfit = fitness<TAG>(acc, W, at, a.D, a.bias, true);
   const bool better = tfit <= h.fit;
   if (!at.active) return;
@@ -191,7 +168,7 @@ de_step_stream(const Args a, int W) {
   popt::row::Acc<TAG> acc;
   for (int kb = 0; kb < at.iters; kb += K) {
     trial_batch<V, K>(a, at, h, off, kb, a.shift != nullptr, p, sh, t);
-    eval_batch<TAG, V, K>(acc, a, at, kb, t, sh);
+    eval_batch<TAG, V, K>(acc, at, kb, t, sh, a.shift != nullptr, a.D);
   }
   const float tfit = fitness<TAG>(acc, W, at, a.D, a.bias, true);
   const bool better = tfit <= h.fit;

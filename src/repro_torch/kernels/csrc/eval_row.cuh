@@ -1,10 +1,10 @@
-// Row evaluation of the §V testbed functions for bench_eval and de_step,
-// designed for the H100.
+// Row evaluation of the §V testbed functions for bench_eval, de_step,
+// ga_step and eval_select, designed for the H100.
 //
-// Replaces, for those two kernels, eval_tile.cuh (the first row
-// evaluation, which eval_select, ga_step and pso_step still use); both
-// stand for `_eval_tile` of src/repro/kernels/bench_eval.py, which
-// evaluates a (pop_block, dim_pad) VMEM tile with a lane mask.
+// Replaces, for those four kernels, eval_tile.cuh (the first row
+// evaluation, which pso_step still uses); both stand for `_eval_tile` of
+// src/repro/kernels/bench_eval.py, which evaluates a (pop_block, dim_pad)
+// VMEM tile with a lane mask.
 //
 // Bound: memory. A row of D float32 lanes is read once. At Table I's shapes
 // the arithmetic (about 12 operations a lane for Rosenbrock) is a few percent
@@ -38,7 +38,7 @@
 // - Reduction: a shuffle butterfly in each warp; with W > 1 one barrier,
 //   after which the combining warp reads the W partials from shared memory
 //   and runs one more butterfly. Every lane of a combining warp ends with the
-//   fitness, so de_step needs no broadcast barrier.
+//   fitness, so the kernels that write the row need no broadcast barrier.
 // - A row longer than one batch (more than 8 * 32 * K slots) is walked in
 //   batches by eight warps; the carry crosses batches.
 //
@@ -300,6 +300,30 @@ __device__ __forceinline__ float fitness(const Acc<TAG>& acc, int W, const Place
   a = butterfly<false>(a);
   if constexpr (kHasB) b = butterfly<kProdB>(b);
   return finish<TAG>(a, b, D, bias);
+}
+
+// Evaluates the slots x of batch kb (shift slots sh where `shifted`) into
+// acc; x is left as it is, for the kernel to write.
+template <int TAG, int V, int K>
+__device__ __forceinline__ void eval_batch(Acc<TAG>& acc, const Place& at, int kb,
+                                           const Slot<V> (&x)[K], const Slot<V> (&sh)[K],
+                                           bool shifted, int D) {
+  Slot<V> z[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) z[k] = x[k];
+  prepare<TAG, V, K>(z, sh, shifted);
+  if (kb == 0) acc.head = z[0].v[0];
+  add_batch<TAG, V, K>(acc, z, at, kb, D);
+}
+
+// Writes this thread's slots of batch kb of `out`: x where `first`, else y.
+template <int V, int K>
+__device__ __forceinline__ void store_batch(float* __restrict__ out, const Place& at, int kb,
+                                            bool first, const Slot<V> (&x)[K],
+                                            const Slot<V> (&y)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (at.holds(kb, k)) store<V>(out, at.slot(kb, k), first ? x[k] : y[k]);
 }
 
 }  // namespace row

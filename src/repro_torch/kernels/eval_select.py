@@ -6,7 +6,9 @@ Counterpart of ``repro.kernels.eval_select`` (the Pallas kernel) and of
 each on ``(dF <= 0) | (dF < thresh)``, with ``dF = f(trial) - fit``. A
 threshold of 0 (or ``None``) is greedy selection; ``-T * ln(u)`` is SA's
 Metropolis rule. Shapes keep the JAX signature — ``(P, D)`` — and also take
-a leading island axis, ``(I, P, D)``, in one launch.
+a leading island axis, ``(I, P, D)``, in one launch. The kernel
+(``csrc/eval_select.cu``, on ``csrc/eval_row.cuh``) takes its geometry from
+:func:`~repro_torch.kernels.bench_eval.launch_geometry`.
 A CPU tensor goes to :func:`eval_select_ref`; a CUDA tensor to the kernel.
 """
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.bench_eval import bench_eval_ref, check_tag
+from repro_torch.kernels.bench_eval import bench_eval_ref, check_tag, geometry_for
 
 # Kernel launches in this process (plain-version calls are not counted).
 LAUNCHES = 0
@@ -52,8 +54,10 @@ def eval_select(pop, fit, trial, thresh=None, fn="sphere", shift=None,
     npop = torch.empty_like(pop)
     nfit = torch.empty_like(fit)
     acc = torch.empty_like(fit, dtype=torch.bool)
+    g = geometry_for(R, D, pop, trial, shift, npop)
     _build.launch("eval_select", dev, pop, fit, trial, thresh, shift, npop,
-                  nfit, acc, R, D, tag, bias)
+                  nfit, acc, R, D, tag, bias, int(g.vec), g.warps_per_row,
+                  g.rows_per_block, g.slots_per_thread, int(g.staged))
     global LAUNCHES
     LAUNCHES += 1
     return npop, nfit, acc

@@ -8,7 +8,9 @@ sampling and the worst-slot sort stay with the caller.
 
 Rows are independent (the parents are gathered by the caller), so the
 offspring of every island — ``(I, N, D)`` — go through one launch as well
-as the JAX signature's ``(N, D)``.
+as the JAX signature's ``(N, D)``. The kernel (``csrc/ga_step.cu``, on
+``csrc/eval_row.cuh``) takes its geometry from
+:func:`~repro_torch.kernels.bench_eval.launch_geometry`.
 A CPU tensor goes to :func:`ga_step_ref`; a CUDA tensor to the kernel.
 """
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.bench_eval import bench_eval_ref, check_tag
+from repro_torch.kernels.bench_eval import bench_eval_ref, check_tag, geometry_for
 
 # Kernel launches in this process (plain-version calls are not counted).
 LAUNCHES = 0
@@ -69,9 +71,11 @@ def ga_step(p1, p2, slot_pop, slot_f, cut, co, um, noise, fn="sphere",
     nslot = torch.empty_like(slot_pop)
     nslot_f = torch.empty_like(slot_f)
     take = torch.empty_like(slot_f, dtype=torch.bool)
+    g = geometry_for(N, D, p1, p2, slot_pop, um, noise, shift, nslot)
     _build.launch("ga_step", dev, p1, p2, slot_pop, slot_f, ct, co, um, noise,
                   shift, nslot, nslot_f, take, N, D, tag, bias, pc, pm, sigma_m,
-                  lo, hi)
+                  lo, hi, int(g.vec), g.warps_per_row, g.rows_per_block,
+                  g.slots_per_thread, int(g.staged))
     global LAUNCHES
     LAUNCHES += 1
     return nslot, nslot_f, take

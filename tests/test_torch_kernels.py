@@ -10,6 +10,7 @@ installed (the JAX comparisons skip there):
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels.py
 """
+import math
 import shutil
 from pathlib import Path
 
@@ -22,6 +23,8 @@ from repro_torch.functions import benchmarks as tbm  # noqa: E402
 from repro_torch.kernels import _build, registry  # noqa: E402
 from repro_torch.kernels import bench_eval as be  # noqa: E402
 from repro_torch.kernels import de_step as ds  # noqa: E402
+from repro_torch.kernels import eval_select as es  # noqa: E402
+from repro_torch.kernels import ga_step as gs  # noqa: E402
 
 try:
     import jax
@@ -304,3 +307,129 @@ def test_de_step_kernel_unaligned_views(cuda_dev, P, D):
     assert not be.geometry_for(P, D, pop, u).vec
     _check_de_step(pop, u, torch.from_numpy(idx).to(cuda_dev),
                    torch.from_numpy(jr).to(cuda_dev), D)
+
+
+# ga_step and eval_select on eval_row.cuh: at the shapes the fused GA and SA
+# generations launch them at ((8, 1, 1000) is the steady state over 8
+# islands), odd sizes and rows past the staging cap, on shifted Rosenbrock.
+FUSED_ROW_SHAPES = [(200, 1000), (8, 200, 1000), (8, 1, 1000), (1, 800, 1000), (800, 1000),
+                    (37, 100), (5, 1), (100, 1001), (16, STAGE_CAP_D[0]),
+                    (16, STAGE_CAP_D[1])]
+FUSED_TOL = 1e-4    # tests/test_kernels.py's bound for the fused kernels
+
+
+def _clear(cand, comp):
+    """Rows whose candidate is clear of its comparand by FUSED_TOL (a NaN
+    candidate or an infinite comparand always is)."""
+    return ~((cand.double() - comp.double()).abs() <= FUSED_TOL * (comp.double().abs() + 1.0))
+
+
+def _check_decided(got, want, clear, label):
+    """Decisions identical on clear rows; where they agree, rows bit-exact
+    and the new fitness within FUSED_TOL."""
+    agree = got[2] == want[2]
+    assert bool(agree[clear].all()), (label, int((~agree & clear).sum()))
+    a, b = got[0][agree], want[0][agree]
+    assert bool(((a == b) | (a.isnan() & b.isnan())).all()), label
+    f, g = got[1][agree].double(), want[1][agree].double()
+    same = (f == g) | (f.isnan() & g.isnan())
+    assert bool((same | ((f - g).abs() / (g.abs() + 1.0) < FUSED_TOL)).all()), label
+
+
+def _ga_on_card(shape, dev, seed, unaligned=False):
+    """ga_step inputs: two dead slots per island (any child with a finite
+    fitness takes them) and, in the first row, a NaN parent lane that the
+    child takes (no crossover; a NaN fitness never takes, even a dead
+    slot)."""
+    rng = np.random.default_rng(seed)
+    *lead, N, D = shape
+    p1, p2, slot = (rng.uniform(-100.0, 100.0, shape).astype(np.float32) for _ in range(3))
+    p1.reshape(-1, D)[0, 0] = np.nan
+    co = rng.uniform(0, 1, (*lead, N)).astype(np.float32)
+    co.reshape(-1)[0] = 1.0
+    cut = rng.integers(0, D + 2, (*lead, N))
+    um = rng.uniform(0, 1, shape).astype(np.float32)
+    nz = rng.normal(size=shape).astype(np.float32)
+    put = _unaligned if unaligned else (lambda a, d: torch.from_numpy(a).to(d))
+    p1, p2, slot, um, nz = (put(a, dev) for a in (p1, p2, slot, um, nz))
+    shift = tbm.shift_vector(D, device=dev)
+    slot_f = be.bench_eval_ref(slot, "shifted_rosenbrock", shift, 390.0)
+    slot_f[..., :2] = torch.inf
+    return (p1, p2, slot, slot_f, torch.from_numpy(cut).to(dev), torch.from_numpy(co).to(dev),
+            um, nz), shift
+
+
+def _check_ga_step(arrs, shift, label):
+    kw = dict(pc=0.7, pm=0.1, sigma_m=20.0, lo=-100.0, hi=100.0)
+    n = gs.LAUNCHES
+    got = gs.ga_step(*arrs, "shifted_rosenbrock", shift, 390.0, **kw)
+    assert gs.LAUNCHES == n + 1
+    want = gs.ga_step_ref(*arrs, "shifted_rosenbrock", shift, 390.0, **kw)
+    child = torch.clamp(gs.crossover(*arrs[:2], arrs[4], arrs[5], kw["pc"])
+                        + torch.where(arrs[6] < kw["pm"], kw["sigma_m"] * arrs[7], 0.0),
+                        kw["lo"], kw["hi"])
+    cfit = be.bench_eval_ref(child, "shifted_rosenbrock", shift, 390.0)
+    _check_decided(got, want, _clear(cfit, arrs[3]), label)
+    if arrs[0].shape[-1] > 1:   # (at D = 1 Rosenbrock has no pair to carry a NaN)
+        assert not bool(got[2].reshape(-1)[0]), label      # the NaN child
+    assert bool(got[2][..., :2].reshape(-1)[1:].all()), label  # dead slots
+
+
+def _es_on_card(shape, dev, seed, unaligned=False):
+    """eval_select inputs, Metropolis thresholds: +inf on the first two
+    rows, whose first trial holds a NaN (never accepted)."""
+    rng = np.random.default_rng(seed)
+    *lead, P, D = shape
+    pop, trial = (rng.uniform(-100.0, 100.0, shape).astype(np.float32) for _ in range(2))
+    trial.reshape(-1, D)[0, D // 2] = np.nan
+    put = _unaligned if unaligned else (lambda a, d: torch.from_numpy(a).to(d))
+    pop, trial = put(pop, dev), put(trial, dev)
+    shift = tbm.shift_vector(D, device=dev)
+    fit = be.bench_eval_ref(pop, "shifted_rosenbrock", shift, 390.0)
+    dF = be.bench_eval_ref(trial, "shifted_rosenbrock", shift, 390.0) - fit
+    u = torch.from_numpy(rng.uniform(0, 1, (*lead, P)).astype(np.float32)).to(dev)
+    th = -(0.5 * dF.abs().nanmedian()) * torch.log(u)
+    th.view(-1)[:2] = torch.inf
+    return (pop, fit, trial, th), shift, dF
+
+
+def _check_eval_select(arrs, shift, dF, label):
+    pop, fit, trial, th = arrs
+    for thresh in (None, th):
+        n = es.LAUNCHES
+        got = es.eval_select(pop, fit, trial, thresh, "shifted_rosenbrock", shift, 390.0)
+        assert es.LAUNCHES == n + 1
+        want = es.eval_select_ref(pop, fit, trial, thresh, "shifted_rosenbrock", shift, 390.0)
+        t = torch.zeros_like(fit) if thresh is None else thresh
+        clear = _clear(dF + fit, fit) & (_clear(dF, t) | ~torch.isfinite(t))
+        _check_decided(got, want, clear, label)
+        if trial.shape[-1] > 1:
+            assert not bool(got[2].reshape(-1)[0]), label
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FUSED_ROW_SHAPES)
+def test_ga_step_kernel_matches_plain(cuda_dev, shape):
+    arrs, shift = _ga_on_card(shape, cuda_dev, seed=shape[-1])
+    *lead, N, D = shape
+    assert be.geometry_for(math.prod(lead) * N, D, *arrs[:3]).staged == (D not in STAGE_CAP_D)
+    _check_ga_step(arrs, shift, shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FUSED_ROW_SHAPES)
+def test_eval_select_kernel_matches_plain(cuda_dev, shape):
+    arrs, shift, dF = _es_on_card(shape, cuda_dev, seed=shape[-1])
+    _check_eval_select(arrs, shift, dF, shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(200, 1000), (800, 1000), (99, 333), (16, STAGE_CAP_D[0])])
+def test_ga_step_and_eval_select_kernels_unaligned_views(cuda_dev, shape):
+    """Every row input one float past an aligned start: scalar slots."""
+    arrs, shift = _ga_on_card(shape, cuda_dev, seed=1, unaligned=True)
+    assert not be.geometry_for(shape[0], shape[1], *arrs[:3]).vec
+    _check_ga_step(arrs, shift, shape)
+    arrs, shift, dF = _es_on_card(shape, cuda_dev, seed=2, unaligned=True)
+    assert not be.geometry_for(shape[0], shape[1], arrs[0], arrs[2]).vec
+    _check_eval_select(arrs, shift, dF, shape)
