@@ -14,7 +14,10 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      below) and at odd sizes; bench_eval also on a row view and an
      unaligned view of Table I's population; de_step, ga_step and
      eval_select past the staging cap of csrc/eval_row.cuh (their two-pass
-     kernels), ga_step and eval_select also on unaligned views;
+     kernels), ga_step and eval_select also on unaligned views; de_step and
+     pso_step on a NaN lane (a NaN DE trial must keep its parent, a NaN PSO
+     velocity stay NaN), as their plain versions clip; bench_eval also at
+     128,000 rows;
   2. the draws on the card against the CPU: threefry, uniform, randint
      bitwise; normal and categorical to the last bit or ulp;
   3. Table I fused: 1 island, pop 800, shifted Rosenbrock-1000, 200 gens;
@@ -41,7 +44,19 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      cache-filling prefill launches no kernel);
  12. both at full width with 2 layers in float32 and in bfloat16, on the
      card against the plain path on the CPU on the same weights: prefill
-     logits, and greedy decoding teacher-forced by the CPU's tokens.
+     logits, and greedy decoding teacher-forced by the CPU's tokens;
+ 13. EA, FA, BH and MC at Table I's objective and width (1 island, pop 800,
+     dim 1000, unfused on the cuda backend), 20-30 generations each; then
+     8 EA islands with ring migration, which must adopt migrants;
+ 14. small EA, FA, BH and MC runs and DE with each polish method (asd, fcg,
+     avd, bfgs) on the card against the same runs on the CPU (4 islands,
+     pop 64, dim 100); a polish run also on the CPU with the card's
+     objective values (see _card_vs_cpu);
+ 15. Table I's hybrid (configs/popt_bench.py HYBRID_CONFIG: chunked DE,
+     asd polish of the top 2 every 8 rounds) for 8 rounds through
+     ``explore_then_polish``, whose stage 2 polishes the incumbent: ms/gen,
+     ms and bench_eval launches per polish event, n_evals against the
+     reference's accounting.
 
 flash_attention and ssd_scan take two routes by the input's type: bfloat16
 runs the tensor-core kernels (``csrc/*_tc.cu``), float32 the CUDA-core
@@ -50,16 +65,18 @@ kernels. After the phases, the kernel timings put the CUDA-core design
 instructions in the tensor-core kernels' SASS (``cuobjdump``). The four
 kernels on csrc/eval_row.cuh are timed at every shape the main path gives
 them (bench_eval at Table I's population and the chunked path's 100 x
-1000; de_step also at phase 5's 8 x 800 x 1000; ga_step at GA's 200-row
+1000 and phase 15's polish batches; de_step also at phase 5's 8 x 800 x
+1000; ga_step at GA's 200-row
 wave, 8 islands of it and the 8-island steady state; eval_select at SA's
 800 x 1000), each with its bound, the launch geometry its wrapper chose
 and, for ga_step and eval_select, the share of rows taken or accepted; the compiler's registers, shared memory and spills
 for their libraries are printed. The main-path runs of GA and SA also
 report the share of rows their fused kernel took or accepted.
 
-Phases 3-5, 7, 8, 10 and 11 are the main path: each run resets the kernels'
-launch counters, drives its entry point (``IslandOptimizer.minimize``,
-``serve``, a prefill step) and reads the counters right after. Each engine configuration is then profiled over a few rounds of a
+Phases 3-5, 7, 8, 10, 11, 13 and 15 are the main path: each run resets the
+kernels' launch counters, drives its entry point
+(``IslandOptimizer.minimize``, ``explore_then_polish``, ``serve``, a prefill
+step) and reads the counters right after. Each engine configuration is then profiled over a few rounds of a
 further run, init excluded, and each serve run over a few further decode
 steps, for the device's busy time and idle share.
 Every launch records its kernel and input shape; the run fails if a phase
@@ -117,10 +134,23 @@ class Run:
     sync_every: int = SYNC_EVERY
     profile: bool = True
     adopts: bool = False     # migrants must be adopted in at least one round
+    polish: dict = dataclasses.field(default_factory=dict)  # IslandConfig.polish*
 
 
 # Table I's DE parameters (benchmarks/table1_de_scaling.py).
 DE_TABLE1 = {"w": 0.5, "px": 0.2}
+# FA in a box 200 wide: Fig. 4's gamma = 200 (the paper's 50 fireflies in
+# small boxes) makes every attraction exp(-gamma r^2) underflow at these
+# distances (r^2 near D w^2 / 6), leaving a random walk whose incumbent may
+# never move. gamma = 1e-7 puts gamma r^2 near 1; beta0 = 1e-3 keeps the sum
+# over hundreds of brighter fireflies a step toward their centroid; alpha0
+# = 1e-3 keeps the walk's step alpha / sqrt(gamma) at about 3 per lane.
+FA_WIDE = {"gamma": 1e-7, "beta0": 1e-3, "alpha0": 1e-3}
+# BH in the same box: the default kick of a quarter of the box (50 per lane)
+# and probes of a twentieth leave every walker far uphill, so nothing is
+# ever accepted; a kick and first probe of 1e-3 of the box (0.2 per lane)
+# descend.
+BH_WIDE = {"perturb_frac": 1e-3, "ls_frac": 1e-3}
 # GA aging in the DGA runs: Gaussian age limits, mean 6 and sd 2 generations.
 AGING = {"age_mean": 6.0, "age_sd": 2.0}
 # A steady-state DGA: one offspring per island and generation and short,
@@ -161,7 +191,25 @@ MAIN_RUNS = {
             migration="starvation", profile=False, adopts=True),
         Run("8 islands pso fused ring", "pso", 50, {"fused": True}, seed=2,
             n_islands=8, adopts=True)),
+    # The remaining engines at Table I's objective and width; then 8 EA
+    # islands with ring migration, which must adopt migrants.
+    13: (Run(f"ea {POP} x {DIM}", "ea", 30),
+         Run(f"fa {POP} x {DIM}", "fa", 20, FA_WIDE),
+         Run(f"bh {POP} x {DIM}", "bh", 20, BH_WIDE),
+         Run(f"mc {POP} x {DIM}", "mc", 30),
+         Run("8 islands ea ring", "ea", 30, seed=3, n_islands=8, adopts=True)),
 }
+
+# The polish defaults of optim.descent.PolishConfig that set batch shapes.
+N_LADDER = 8
+# Table I's hybrid (configs/popt_bench.py HYBRID_CONFIG, checked against the
+# port's copy in phase 15): chunked DE with asd polish of the top 2 every 8
+# rounds, 2 steps; 8 rounds, so one polish event fires. Then
+# explore_then_polish's stage 2 (its default, 12 asd steps) on the incumbent.
+HYBRID_POLISH = {"polish": "asd", "polish_every": 8, "polish_topk": 2, "polish_steps": 2}
+HYBRID_RUN = Run("Table I hybrid", "de", 80, {**DE_TABLE1, "barrier_mode": "chunked"},
+                 profile=False, polish=HYBRID_POLISH)
+STAGE2_STEPS = 12
 
 # Small runs on the card against the same runs on the CPU: DE (phase 6;
 # pop 60 makes chunks of 7 rows, so the ninth chunk is clamped onto the
@@ -179,6 +227,16 @@ CARD_VS_CPU_RUNS = {
                                          ("ga", "starvation", STARVING, 2),
                                          ("sa", "ring", {}, SYNC_EVERY))
              for fz in (True, False)),
+    # Phase 14: EA, FA, BH and MC; DE with each polish method, polishing the
+    # top 2 of each island every 2 rounds, 2 steps.
+    14: tuple(Run(f"{a} ring", a, 40, FA_WIDE if a == "fa" else {}, seed=11,
+                  n_islands=4, pop=64, dim=100, adopts=True)
+              for a in ("ea", "fa", "bh", "mc"))
+        + tuple(Run(f"de ring, {m} polish", "de", 40, {**DE_TABLE1}, seed=11,
+                    n_islands=4, pop=64, dim=100,
+                    polish={"polish": m, "polish_every": 2, "polish_topk": 2,
+                            "polish_steps": 2})
+                for m in ("asd", "fcg", "avd", "bfgs")),
 }
 
 FUSED_KERNEL = {"de": "de_step", "pso": "pso_step", "ga": "ga_step",
@@ -245,34 +303,79 @@ def _chunks(pop: int) -> tuple[int, int]:
     return csz, -(-pop // csz)
 
 
+def _eval_calls(algo: str, pop: int, params: dict) -> tuple[int, int]:
+    """(rows per evaluator call, calls per generation) of one island: GA's
+    offspring wave, chunked DE's chunks, EA's lambda offspring, BH's kick and
+    its n_ls probes; one call of the population otherwise."""
+    if algo == "ga":
+        return params.get("n_offspring") or max(1, pop // 4), 1
+    if algo == "de" and params.get("barrier_mode") == "chunked":
+        return _chunks(pop)
+    if algo == "ea":
+        return params.get("lam") or pop, 1
+    if algo == "bh":
+        return pop, 1 + params.get("n_ls", 5)
+    return pop, 1
+
+
 def _evals_per_gen(algo: str, pop: int, params: dict) -> int:
     """Evaluations one generation charges (the engine's evals_per_gen)."""
-    if algo == "ga":
-        return params.get("n_offspring") or max(1, pop // 4)
-    if algo == "de" and params.get("barrier_mode") == "chunked":
-        csz, n = _chunks(pop)
-        return csz * n
-    return pop
+    rows, calls = _eval_calls(algo, pop, params)
+    return rows * calls
+
+
+def _polish_batches(r: Run, points: int, steps: int) -> list[tuple[int, int]]:
+    """(rows, D) of each evaluator call of one polish of ``points`` points:
+    per step, a gradient's 4·D probes each and a ladder of N_LADDER steps
+    each, or AVD's ±ladder on every coordinate (optim.descent.make_polish)."""
+    D = r.dim
+    if r.polish["polish"] == "avd":
+        return [(points * D * 2 * N_LADDER, D)] * steps
+    return [(points * 4 * D, D), (points * N_LADDER, D)] * steps
+
+
+def _polish_events(r: Run, gens: int) -> int:
+    if not r.polish:
+        return 0
+    return gens // r.sync_every // r.polish["polish_every"]
+
+
+def _event_batches(r: Run) -> list[tuple[int, int]]:
+    """The evaluator calls of one in-run polish event: every island's top-k
+    in one batch."""
+    k = min(r.polish["polish_topk"], r.pop)
+    return _polish_batches(r, r.n_islands * k, r.polish["polish_steps"])
+
+
+def _polish_per_point(r: Run, steps: int) -> int:
+    """Evaluations one polished point costs (polish_evals_per_point)."""
+    D = r.dim
+    if r.polish["polish"] == "avd":
+        return steps * 2 * D * N_LADDER
+    return steps * (4 * D + N_LADDER)
 
 
 def launch_shapes(r: Run) -> dict[str, set[tuple[int, ...]]]:
     """The shapes run ``r`` launches each kernel at: bench_eval on the
     flattened ``(islands * rows, D)`` batch the executor evaluates (init;
-    unfused, every generation's batch or chunk); a fused kernel on the
-    island-stacked ``(I, rows, D)`` state, also for one island."""
+    unfused, every generation's batch or chunk; every polish batch); a fused
+    kernel on the island-stacked ``(I, rows, D)`` state, also for one
+    island."""
     I, P, D = r.n_islands, r.pop, r.dim
     out = {"bench_eval": {(I * P, D)}}
     if r.params.get("fused"):
         out[FUSED_KERNEL[r.algo]] = {(I, _evals_per_gen(r.algo, P, r.params), D)}
-    elif r.params.get("barrier_mode") == "chunked":
-        out["bench_eval"].add((I * _chunks(P)[0], D))
     else:
-        out["bench_eval"].add((I * _evals_per_gen(r.algo, P, r.params), D))
+        out["bench_eval"].add((I * _eval_calls(r.algo, P, r.params)[0], D))
+    if r.polish:
+        out["bench_eval"].update(_event_batches(r))
+    if r is HYBRID_RUN:
+        out["bench_eval"].update(_polish_batches(r, 1, STAGE2_STEPS))
     return out
 
 
 def _all_runs():
-    for table in (MAIN_RUNS, CARD_VS_CPU_RUNS):
+    for table in (MAIN_RUNS, CARD_VS_CPU_RUNS, {15: (HYBRID_RUN,)}):
         for runs in table.values():
             yield from runs
 
@@ -289,7 +392,7 @@ def _derived(kernels) -> tuple[tuple[int, ...], ...]:
 # a row view at a storage offset is added at (800, 1000), unaligned views
 # at (800, 1000) and (200, 1000).
 EVAL_SHAPES = tuple(sorted(set(_derived({"bench_eval"}))
-                           | {(130, 1000), (37, 100), (5, 1)}))
+                           | {(130, 1000), (37, 100), (5, 1), (128_000, 100)}))
 DE_SHAPES = _derived({"de_step"})
 # Rows past eval_row.cuh's staging cap (4096 lanes of 16-byte slots, 1024
 # of scalar ones), which de_step, ga_step and eval_select walk in two
@@ -485,8 +588,11 @@ def port_modules() -> types.SimpleNamespace:
     """The port's modules the phases use, imported from ``src/``."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import prng
+    from repro_torch.configs import popt_bench
     from repro_torch.core import (ALGORITHMS, ExecutorConfig, IslandConfig,
-                                  IslandOptimizer, de, migration)
+                                  IslandOptimizer, de, explore_then_polish,
+                                  migration)
+    from repro_torch.optim import descent
     from repro_torch.functions import benchmarks as bm
     from repro_torch.configs import get_config
     from repro_torch.kernels import (_build, bench_eval, de_step, eval_select,
@@ -501,7 +607,8 @@ def port_modules() -> types.SimpleNamespace:
         ALGORITHMS=ALGORITHMS, migration=migration,
         _build=_build, ExecutorConfig=ExecutorConfig, IslandConfig=IslandConfig,
         IslandOptimizer=IslandOptimizer, get_config=get_config, serve=serve,
-        steps=steps, T=transformer)
+        steps=steps, T=transformer, popt_bench=popt_bench, descent=descent,
+        explore_then_polish=explore_then_polish)
 
 
 def _check_eval(c: Ctx, pop, fn: str, shift, bias: float, label: str) -> None:
@@ -591,7 +698,72 @@ def phase_kernels(c: Ctx) -> None:
             f"{took_k.numel()}, pop abs err {pe:.3g}, fit rel err {rel:.3g}, "
             f"near-tie rows deciding differently {n_close}")
     check_fused_kernels(c)
+    check_nan_lanes(c)
     check_model_kernels(c)
+
+
+def _same(torch, a, b) -> bool:
+    """Equal, NaN where NaN."""
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+def check_nan_lanes(c: Ctx) -> None:
+    """de_step and pso_step on a NaN lane at Table I's shape, against their
+    plain versions (which clip as jnp.clip does): a DE trial row holding the
+    NaN never wins and keeps its parent, no finite parent turns NaN; a NaN
+    PSO velocity stays NaN with its position and fitness, and its personal
+    best stays."""
+    torch, rt = c.torch, c.rt
+    be, ds, ps = rt.bench_eval, rt.de_step, rt.pso_step
+    gen = torch.Generator().manual_seed(9)
+    P, D, row, lane = POP, DIM, 5, 17
+    shift = rt.bm.shift_vector(D, device=c.dev)
+    pop = _uniform(torch, gen, (P, D), -100.0, 100.0, c.dev)
+    pop[row, lane] = torch.nan
+    u = torch.rand((P, D), generator=gen).to(c.dev)
+    u[:, lane] = 0.0                      # every row crosses over at the NaN lane
+    idx = ((torch.arange(P) + 1 + torch.randint(0, P - 1, (3, P), generator=gen)) % P)
+    idx[1, :64] = row                     # 64 rows draw the NaN row as a donor
+    idx[1, row] = row + 1
+    idx = idx.to(c.dev)
+    jr = torch.randint(0, D, (P,), generator=gen).to(c.dev)
+    fit = be.bench_eval_ref(pop, "shifted_rosenbrock", shift, 390.0)
+    fit = fit * (0.5 + torch.rand(P, generator=gen)).to(c.dev)
+    args = (pop, fit, idx, u, jr, "shifted_rosenbrock", shift, 390.0, 0.5, 0.2, -100.0, 100.0)
+    npop, nfit = ds.de_step(*args)
+    rpop, rfit = ds.de_step_ref(*args)
+    nan_trial = torch.isnan(ds.trial_ref(pop, idx, u, jr)).any(dim=-1)
+    c.sync()
+    require(int(nan_trial.sum()) >= 64 and _same(torch, npop[nan_trial], pop[nan_trial])
+            and _same(torch, nfit[nan_trial], fit[nan_trial])
+            and not bool(torch.isnan(nfit[~torch.isnan(fit)]).any()),
+            "de_step: a NaN trial won, or a finite parent turned NaN")
+    require(_same(torch, npop, rpop), "de_step NaN lane: population differs from plain")
+    ok = ~torch.isnan(rfit)
+    rel = c.err("de_step", nfit[ok], rfit[ok], absolute=False)
+    require(_same(torch, torch.isnan(nfit), ~ok) and rel < 1e-5,
+            f"de_step NaN lane: fitness rel err {rel:.3g}")
+    x, pb = (_uniform(torch, gen, (P, D), -100.0, 100.0, c.dev) for _ in range(2))
+    v = _uniform(torch, gen, (P, D), -20.0, 20.0, c.dev)
+    v[row, lane] = torch.nan
+    r1, r2 = (torch.rand((P, D), generator=gen).to(c.dev) for _ in range(2))
+    pbf = be.bench_eval_ref(pb, "shifted_rosenbrock", shift, 390.0)
+    g = pb[int(pbf.argmin())].contiguous()
+    pargs = (x, v, pb, pbf, r1, r2, g, "shifted_rosenbrock", shift, 390.0, 0.6, 1.0, 1.0,
+             40.0, -100.0, 100.0)
+    got, want = ps.pso_step(*pargs), ps.pso_step_ref(*pargs)
+    c.sync()
+    require(all(_same(torch, got[k], want[k]) for k in (0, 1, 3)),
+            "pso_step NaN lane: positions, velocities or pbest differ from plain")
+    require(bool(torch.isnan(got[1][row, lane]) and torch.isnan(got[2][row]))
+            and int(torch.isnan(got[2]).sum()) == 1 and float(got[4][row]) == float(pbf[row]),
+            "pso_step: a NaN velocity lane did not stay NaN, or replaced a personal best")
+    ok = ~torch.isnan(want[2])
+    rel = c.err("pso_step", got[2][ok], want[2][ok], absolute=False)
+    require(rel < FUSED_TOL, f"pso_step NaN lane: fitness rel err {rel:.3g}")
+    log(f"phase 1: NaN lane at {(P, D)}: de_step kept the parent of all "
+        f"{int(nan_trial.sum())} NaN trials, pso_step kept the NaN velocity, both as plain")
 
 
 # Bound of tests/test_kernels.py for the fused-generation kernels:
@@ -830,10 +1002,12 @@ def _algo_opt(c: Ctx, r: Run, gens: int | None = None, round_callback=None,
     rt = c.rt
     gens = r.gens if gens is None else gens
     per_gen = _evals_per_gen(r.algo, r.pop, r.params)
+    polish = (_polish_events(r, gens) * r.n_islands * min(r.polish["polish_topk"], r.pop)
+              * _polish_per_point(r, r.polish["polish_steps"]) if r.polish else 0)
     cfg = rt.IslandConfig(
         n_islands=r.n_islands, pop=r.pop, dim=r.dim, sync_every=r.sync_every,
         migration=r.migration or ("ring" if r.n_islands > 1 else "none"),
-        max_evals=r.n_islands * (r.pop + per_gen * gens))
+        max_evals=r.n_islands * (r.pop + per_gen * gens) + polish, **r.polish)
     return rt.IslandOptimizer(rt.ALGORITHMS[r.algo], cfg, params=dict(r.params),
                               exec_cfg=rt.ExecutorConfig(backend="cuda"),
                               round_callback=round_callback,
@@ -853,30 +1027,37 @@ def _init_best(c: Ctx, opt, f, seed: int) -> float:
 def _want_counts(r: Run, gens: int) -> dict:
     """Launches one run must make: the fused kernel once per generation
     (all islands in one launch) and bench_eval twice at init; unfused, the
-    executor's two bench_eval launches per evaluation (chunked DE evaluates
-    once per chunk, the last chunk clamped onto the one before)."""
+    executor's two bench_eval launches per evaluator call (chunked DE calls
+    once per chunk, the last chunk clamped onto the one before; BH once for
+    the kick and once per probe); two per evaluator call of each polish
+    event."""
     if r.params.get("fused"):
         want = {FUSED_KERNEL[r.algo]: gens, "bench_eval": 2}
     else:
-        chunked = r.params.get("barrier_mode") == "chunked"
-        evals = _chunks(r.pop)[1] if chunked else 1
-        want = {"bench_eval": 2 + 2 * evals * gens}
+        calls = _eval_calls(r.algo, r.pop, r.params)[1]
+        want = {"bench_eval": 2 + 2 * calls * gens}
+    if r.polish:
+        want["bench_eval"] += 2 * len(_event_batches(r)) * _polish_events(r, gens)
     return {k: want.get(k, 0) for k in KERNELS}
 
 
 def _count_adoptions(c: Ctx):
-    """Wrap the engine's migrant adoption to record, per migration round,
-    how many rows adopted a migrant (device tensors, read at the end)."""
-    pf = sys.modules["repro_torch.core.portfolio"]
-    orig = pf.adopt_native
+    """Wrap the engine's migration to record, per migration round, how
+    many rows adopted a migrant: rows whose position or fitness migration
+    changed, the mask ``portfolio.adopt_native`` takes (device tensors, read
+    at the end). Policies without per-individual state (ea, fa, bh, mc)
+    adopt with no re-initialisation, so the migration is where to count."""
+    mig = sys.modules["repro_torch.core.migration"]
+    orig = mig.migrate
     seen = []
 
-    def counting(name, state, mask):
-        seen.append(mask.sum())
-        return orig(name, state, mask)
+    def counting(policy, pop, fit, k=2, alive=None):
+        new_pop, new_fit = orig(policy, pop, fit, k, alive)
+        seen.append((c.torch.any(new_pop != pop, dim=-1) | (new_fit != fit)).sum())
+        return new_pop, new_fit
 
-    pf.adopt_native = counting
-    return seen, lambda: setattr(pf, "adopt_native", orig)
+    mig.migrate = counting
+    return seen, lambda: setattr(mig, "migrate", orig)
 
 
 def _adoptions(c: Ctx, r: Run, seen: list, rounds: int) -> list[int]:
@@ -936,6 +1117,7 @@ def main_path_phases() -> dict[str, set[int]]:
     for phase, runs in MODEL_RUNS.items():
         for r in runs:
             out[MODEL_KERNEL[r.arch]].add(phase)
+    out["bench_eval"].add(15)
     return out
 
 
@@ -945,38 +1127,157 @@ def run_main_phase(phase: int):
     return run
 
 
+def phase_hybrid(c: Ctx) -> dict:
+    """Table I's hybrid: ``explore_then_polish`` on HYBRID_RUN's engine,
+    host-stepped so each round's end is timed (the host-stepped loop
+    synchronises there): its in-run polish event at round 8, then stage 2 on the
+    incumbent. Holds the launches to _want_counts plus stage 2's, n_evals to
+    the reference's accounting, the history non-increasing and the result
+    no worse than the run's incumbent."""
+    rt, r = c.rt, HYBRID_RUN
+    hc = rt.popt_bench.HYBRID_CONFIG
+    require((hc.pop, hc.dim, hc.w, hc.px, hc.barrier_mode, hc.function)
+            == (r.pop, r.dim, DE_TABLE1["w"], DE_TABLE1["px"], "chunked", r.fn)
+            and {k: getattr(hc, k) for k in HYBRID_POLISH} == HYBRID_POLISH,
+            "HYBRID_RUN is not configs.popt_bench.HYBRID_CONFIG")
+    f = _objective(c, r)
+    pcfg = rt.descent.PolishConfig(steps=STAGE2_STEPS)
+    # Warm up every launch shape: one round with a polish event, and stage 2.
+    warm = dataclasses.replace(r, polish={**r.polish, "polish_every": 1})
+    rt.explore_then_polish(_algo_opt(c, warm, gens=r.sync_every), f,
+                           rt.prng.PRNGKey(r.seed), pcfg)
+    c.sync()
+    c.reset()
+    marks = []
+
+    def at_round_end(rnd, best_arg, best_val):
+        marks.append((time.perf_counter(), c.rt.bench_eval.LAUNCHES))
+
+    opt = _algo_opt(c, r, round_callback=at_round_end)
+    events = []
+    polish_of = opt._polish
+
+    def timed_polish(f_):
+        """The engine's polish pass, timed between two synchronisations."""
+        pass_fn, per_point = polish_of(f_)
+
+        def timed(state):
+            c.sync()
+            t, n = time.perf_counter(), c.rt.bench_eval.LAUNCHES
+            state = pass_fn(state)
+            c.sync()
+            events.append((time.perf_counter() - t, c.rt.bench_eval.LAUNCHES - n))
+            return state
+
+        return timed, per_point
+
+    opt._polish = timed_polish
+    t0 = time.perf_counter()
+    res = rt.explore_then_polish(opt, f, rt.prng.PRNGKey(r.seed), pcfg)
+    c.sync()
+    t_end = time.perf_counter()
+    counts = c.counts()
+    c.add_launches(counts)
+    gens, every = r.gens, r.polish["polish_every"]
+    n_events = _polish_events(r, gens)
+    stage2 = 2 * len(_polish_batches(r, 1, STAGE2_STEPS))
+    want = _want_counts(r, gens)
+    want["bench_eval"] += stage2
+    require(counts == want, f"{r.label}: launches {counts}, expected {want}")
+    k = min(r.polish["polish_topk"], r.pop)
+    n_evals = (r.pop + gens * _evals_per_gen(r.algo, r.pop, r.params)
+               + n_events * k * _polish_per_point(r, r.polish["polish_steps"])
+               + _polish_per_point(r, STAGE2_STEPS))
+    require(n_events >= 1 and res.n_evals == n_evals,
+            f"{r.label}: n_evals {res.n_evals}, the reference's accounting {n_evals}")
+    hist = res.history       # stage 1's, carried into the result
+    require(math.isfinite(res.value) and res.value <= float(hist[-1])
+            and bool((hist[1:] <= hist[:-1]).all()),
+            f"{r.label}: result {res.value} or history {hist.tolist()} out of order")
+    # Rounds 1..7 (round 0 holds init), the polish event timed alone.
+    ts = [t0] + [m[0] for m in marks]
+    plain_s = sum(ts[i + 1] - ts[i] for i in range(1, len(marks)) if (i + 1) % every)
+    require(len(events) == n_events, f"{r.label}: {len(events)} polish events ran")
+    out = {"gens": res.n_gens, "n_evals": res.n_evals, "polish_events": n_events,
+           "ms_per_gen": plain_s * 1e3 / ((len(marks) - 1 - n_events) * r.sync_every),
+           "ms_per_polish_event": sum(t for t, _ in events) / n_events * 1e3,
+           "bench_eval_launches_per_polish_event": events[0][1] if events else None,
+           "stage2_ms": (t_end - ts[-1]) * 1e3,
+           "stage2_bench_eval_launches": counts["bench_eval"] - marks[-1][1],
+           "best_before_polish": float(hist[every - 2]), "best_after_polish": float(hist[every - 1]),
+           "best_stage1": float(hist[-1]), "best": res.value, "launches": counts}
+    require(out["bench_eval_launches_per_polish_event"] == 2 * len(_event_batches(r))
+            and out["stage2_bench_eval_launches"] == stage2,
+            f"{r.label}: polish launches {out}")
+    log(f"phase 15: {r.label} + explore_then_polish: {json.dumps(out)}")
+    return out
+
+
+def _card_values(c: Ctx):
+    """Make the engine's evaluators take each CPU batch to the card, run
+    the bench_eval kernel there and bring the fitness back: a CPU run then
+    sees the card run's objective values for the same rows (the kernel's
+    result for a row does not depend on its batch). Returns the undo."""
+    isl = sys.modules["repro_torch.core.islands"]
+    orig = isl.make_batch_evaluator
+
+    def maker(f, cfg):
+        ev = orig(f, cfg)
+        return lambda x: ev(x.to(c.dev)).cpu()
+
+    isl.make_batch_evaluator = maker
+    return lambda: setattr(isl, "make_batch_evaluator", orig)
+
+
+def _history_diff(a, b) -> float:
+    import numpy as np
+    return float(np.max(np.abs(a.history - b.history) / np.abs(b.history)))
+
+
 def _card_vs_cpu(c: Ctx, phase: int, r: Run) -> None:
     """Run ``r`` on the card and on the CPU from the same seed: the
     incumbent histories within rtol 1e-4, the same accounting and the same
     migrant adoptions per round, and the card run's launches as
-    _want_counts says."""
-    import numpy as np
+    _want_counts says.
+
+    A gradient polish (asd, fcg, bfgs) takes Richardson differences at
+    h = 1e-4, which amplify an ulp of the objective by about f / (2h |g|):
+    the CPU's plain objective and the card's kernel sum in other orders, so
+    there the two runs part by more than 1e-4 after the first polish event
+    (the run prints by how much). For a polish run the CPU is run a second
+    time on the card's objective values (``_card_values``) and that run is
+    held to rtol 1e-4: it checks every other step of the card's path."""
     f = _objective(c, r)
+    sides = [(c.dev, False), ("cpu", False)] + ([("cpu", True)] if r.polish else [])
     res, adopted = {}, {}
-    for dev in (c.dev, "cpu"):
+    for dev, card_values in sides:
         opt = _algo_opt(c, r, device=dev)
         seen, restore = _count_adoptions(c)
+        undo = _card_values(c) if card_values else (lambda: None)
         c.reset()
         try:
-            res[dev] = opt.minimize(f, c.rt.prng.PRNGKey(r.seed))
+            res[dev, card_values] = opt.minimize(f, c.rt.prng.PRNGKey(r.seed))
         finally:
             restore()
+            undo()
         if dev == c.dev:
             counts = c.counts()
-        adopted[dev] = _adoptions(c, r, seen, res[dev].n_gens // r.sync_every)
-    a, b = res[c.dev], res["cpu"]
-    rel = float(np.max(np.abs(a.history - b.history) / np.abs(b.history)))
+        adopted[dev, card_values] = _adoptions(c, r, seen, r.gens // r.sync_every)
+    a, b = res[c.dev, False], res[sides[-1]]
+    rel = _history_diff(a, b)
     want = _want_counts(r, r.gens)
     require(rel < 1e-4, f"card vs cpu {r.label}: history rel diff {rel:.3g}")
-    require(a.n_evals == b.n_evals and a.n_gens == b.n_gens == r.gens,
+    require(all(x.n_evals == a.n_evals and x.n_gens == r.gens for x in res.values()),
             f"card vs cpu {r.label}: accounting differs")
-    require(adopted[c.dev] == adopted["cpu"],
+    require(adopted[c.dev, False] == adopted[sides[-1]],
             f"card vs cpu {r.label}: adoptions per round differ: "
-            f"{adopted[c.dev]} vs {adopted['cpu']}")
+            f"{adopted[c.dev, False]} vs {adopted[sides[-1]]}")
     require(counts == want, f"card vs cpu {r.label}: launches {counts}, expected {want}")
-    log(f"phase {phase}: card vs cpu {r.label} {r.params}: history rel diff {rel:.3g}, "
-        f"n_gens {a.n_gens}, n_evals {a.n_evals}, adopted rows per round "
-        f"{adopted[c.dev]}, card launches { {k: v for k, v in counts.items() if v} }")
+    extra = (f" (on the card's values; on the CPU's own {_history_diff(a, res['cpu', False]):.3g})"
+             if r.polish else "")
+    log(f"phase {phase}: card vs cpu {r.label} {r.params} {r.polish}: history rel diff "
+        f"{rel:.3g}{extra}, n_gens {a.n_gens}, n_evals {a.n_evals}, adopted rows per round "
+        f"{adopted[c.dev, False]}, card launches { {k: v for k, v in counts.items() if v} }")
 
 
 def card_vs_cpu_phase(phase: int):
@@ -1344,10 +1645,14 @@ def model_card_vs_cpu_phase(phase: int):
 
 # Shapes the kernels on eval_row.cuh are timed at, the first giving the
 # kernels line's ms: Table I's population, and the chunked path's 100-row
-# chunk for bench_eval and phase 5's 8-island stack for de_step; GA's wave
+# chunk for bench_eval, with phase 15's polish batches (the gradient probes
+# and ladders of the top 2 and of stage 2's one point), and phase 5's
+# 8-island stack for de_step; GA's wave
 # of pop / 4 offspring, 8 islands of it (phase 8) and the steady state's
 # one offspring on each of 8 islands; SA's population.
-EVAL_TIMED = ((POP, DIM), (POP // 8, DIM))
+EVAL_TIMED = ((POP, DIM), (POP // 8, DIM),
+              *sorted(set(_polish_batches(HYBRID_RUN, HYBRID_POLISH["polish_topk"], 1))
+                      | set(_polish_batches(HYBRID_RUN, 1, 1)), reverse=True))
 DE_TIMED = ((POP, DIM), (8, POP, DIM))
 GA_TIMED = ((POP // 4, DIM), (8, POP // 4, DIM), (8, 1, DIM))
 ES_TIMED = ((POP, DIM),)
@@ -1653,7 +1958,7 @@ def ptxas_summary(entries: list[dict]) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -1697,7 +2002,8 @@ def main() -> int:
              **{n: run_main_phase(n) for n in MAIN_RUNS},
              **{n: card_vs_cpu_phase(n) for n in CARD_VS_CPU_RUNS},
              **{n: run_model_phase(n) for n in MODEL_RUNS},
-             **{n: model_card_vs_cpu_phase(n) for n in CARD_VS_CPU_MODEL_RUNS}}
+             **{n: model_card_vs_cpu_phase(n) for n in CARD_VS_CPU_MODEL_RUNS},
+             15: phase_hybrid}
     for num in sorted(steps):
         if num not in phases:
             continue

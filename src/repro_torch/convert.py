@@ -2,7 +2,8 @@
 
 The two packages share a state layout (``pop``, ``fit``, ``best_arg``,
 ``best_val``, and each policy's own keys: PSO's ``vel``, ``pbest``,
-``pbest_f``; GA's ``age``, ``age_limit``, ``alive``; SA's step ``t``),
+``pbest_f``; GA's ``age``, ``age_limit``, ``alive``; SA's step ``t``; EA's
+``sigma``; FA's ``alpha``),
 except that this port always keeps the island axis: a JAX single-island
 state, which has none, gains one on the way in. With these a test starts
 both engines from one state.
@@ -26,7 +27,7 @@ STATE_KEYS = ("pop", "fit", "best_arg", "best_val")
 # Rank of each state key with the island axis.
 _RANK = {"pop": 3, "fit": 2, "best_arg": 2, "best_val": 1, "vel": 3,
          "pbest": 3, "pbest_f": 2, "age": 2, "age_limit": 2, "alive": 2,
-         "t": 1}
+         "t": 1, "sigma": 1, "alpha": 1}
 
 
 def state_from_numpy(d: dict[str, Any], device: str | torch.device) -> dict:

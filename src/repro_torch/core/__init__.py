@@ -1,14 +1,23 @@
-"""The paper's engine in PyTorch: island DE, GA, PSO and SA with their
-executor and migration."""
-from repro_torch.core import de, ga, pso, sa  # noqa: F401
-from repro_torch.core.api import OptimizeResult, Optimizer, lexi_min  # noqa: F401
+"""The paper's engine in PyTorch: island DE, GA, PSO, SA, EA, FA, BH and MC
+with their executor, migration, the memetic polish layer and the coupling
+of optimizers."""
+from repro_torch.core import bh, de, ea, fa, ga, mc, pso, sa  # noqa: F401
+from repro_torch.core import portfolio  # noqa: F401
+from repro_torch.core.api import (  # noqa: F401
+    ObserverHub, OptimizeResult, Optimizer, lexi_min)
 from repro_torch.core.executor import ExecutorConfig, make_batch_evaluator  # noqa: F401
 from repro_torch.core.islands import (  # noqa: F401
     IslandConfig, IslandOptimizer, MetaHeuristic)
+from repro_torch.core.pipeline import (  # noqa: F401
+    explore_then_polish, explore_then_polish_many)
 
 ALGORITHMS = {
     "de": de.make,
     "ga": ga.make,
     "pso": pso.make,
     "sa": sa.make,
+    "fa": fa.make,
+    "ea": ea.make,
+    "bh": bh.make,
+    "mc": mc.make,
 }

@@ -3,13 +3,15 @@
   OptimizerIntf.minimize(f)  -> Optimizer.minimize(f, key) -> OptimizeResult
   PairObjDouble              -> OptimizeResult(arg, value, ...)
 
-The service types (``OptRequest``/``OptResponse``) and ``ObserverHub`` come
-with the service layer in a later slice.
+  SubjectIntf/ObserverIntf    -> ObserverHub
+
+The service types (``OptRequest``/``OptResponse``) come with the service
+layer in a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Protocol
+from typing import Any, Callable, Protocol
 
 import torch
 
@@ -34,6 +36,36 @@ class Optimizer(Protocol):
     def minimize(self, f: Function, key: torch.Tensor) -> OptimizeResult:
         """Minimize objective ``f`` from PRNG ``key``; reproducible."""
         ...
+
+
+class ObserverHub:
+    """Observer design pattern (popt4jlib SubjectIntf/ObserverIntf).
+
+    Incumbent sharing between islands happens inside the engine; *this*
+    class is the host-side coupling between different optimizers (e.g. a
+    DGA subject notifying an FCG local-search observer whenever a new
+    incumbent appears — the paper's §IV.B coupling).
+    """
+
+    def __init__(self) -> None:
+        self._observers: list[Callable[[Any, float], tuple[Any, float] | None]] = []
+        self.best_arg: Any = None
+        self.best_val: float = float("inf")
+
+    def register(self, fn: Callable[[Any, float], tuple[Any, float] | None]) -> None:
+        """Attach an observer; it may return a refined (arg, value) or None."""
+        self._observers.append(fn)
+
+    def notify(self, arg: Any, value: float) -> tuple[Any, float]:
+        """Called by a subject when it finds a new incumbent. Observers may
+        refine it (local search) and return an improved (arg, value)."""
+        if value < self.best_val:
+            self.best_arg, self.best_val = arg, float(value)
+            for obs in self._observers:
+                out = obs(arg, value)
+                if out is not None and float(out[1]) < self.best_val:
+                    self.best_arg, self.best_val = out[0], float(out[1])
+        return self.best_arg, self.best_val
 
 
 def lexi_min(val_a: torch.Tensor, arg_a: torch.Tensor, val_b: torch.Tensor,

@@ -20,8 +20,19 @@ same trajectory in both packages up to float32 rounding of the fitness.
 This slice carries barrier islands with ring, starvation and none
 migration, and the adoption of migrants into policies with per-individual
 state (``core.portfolio.adopt_native``: ga revives and zeroes the age, pso
-restarts velocity and personal best). Polish, portfolios, async islands,
-warm starts, meshes and the jobs axis raise ``NotImplementedError``.
+restarts velocity and personal best).
+
+``IslandConfig.polish`` turns any meta-heuristic into a *memetic hybrid*:
+every ``polish_every`` rounds, each island's ``polish_topk`` best candidates
+pass through a batched fixed-shape local descent
+(``optim.descent.make_polish`` — the paper's ``LocalOptimizerIntf``), with
+polish evaluations charged to ``max_evals``. Every island's candidates are
+polished in one batch through the engine's own evaluator, so on the card
+each probe batch is one ``bench_eval`` launch pair. The pass draws nothing,
+so it leaves the key chain as it was.
+
+Portfolios, async islands, warm starts, meshes and the jobs axis raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -57,10 +68,10 @@ class IslandConfig:
     max_evals: int = 100_000      # Fig.4 budget unit: function evaluations
     island_axes: tuple[str, ...] = ("data",)  # mesh axes (later slice)
     pop_axes: tuple[str, ...] | None = None   # mesh axes (later slice)
-    polish: str = "none"          # memetic polish (later slice)
-    polish_every: int = 1
-    polish_topk: int = 4
-    polish_steps: int = 3
+    polish: str = "none"          # none | asd | fcg | avd | bfgs
+    polish_every: int = 1         # sync rounds between polish events
+    polish_topk: int = 4          # per-island candidates polished per event
+    polish_steps: int = 3         # descent iterations per polish event
     portfolio: tuple[str, ...] = ()  # heterogeneous islands (later slice)
     sync_policy: str = "barrier"  # barrier (async: later slice)
     max_staleness: int = 0
@@ -111,8 +122,6 @@ class IslandOptimizer:
     ) -> None:
         if cfg.migration not in mig.POLICIES:
             raise ValueError(f"unknown migration policy {cfg.migration!r}")
-        if cfg.polish != "none":
-            raise _later("memetic polish (IslandConfig.polish)")
         if cfg.portfolio:
             raise _later("the algorithm portfolio (IslandConfig.portfolio)")
         if cfg.sync_policy == "async":
@@ -185,11 +194,62 @@ class IslandOptimizer:
         """Fresh island-stacked state from init key ``ik``."""
         return algo.init(self._island_keys(ik))
 
-    def _budget(self, per_gen_total: int, init_total: int) -> tuple[int, int]:
-        """(n_rounds, per_round_evals) from the evaluation budget."""
-        per_round = per_gen_total * self.cfg.sync_every
-        budget = self.cfg.max_evals - init_total
-        return max(1, budget // max(per_round, 1)), per_round
+    def _polish(self, f: Function) -> tuple[Callable[[State], State] | None, int]:
+        """(state -> state polish pass, evaluations per polished point), or
+        ``(None, 0)`` when ``cfg.polish`` is off. The pass takes each
+        island's ``polish_topk`` best candidates (lowest fitness, the lower
+        index first on ties, as ``lax.top_k``) through one batched
+        ``make_polish`` call over every island and writes improvements back
+        into the population and the incumbent."""
+        cfg = self.cfg
+        if cfg.polish == "none":
+            return None, 0
+        from repro_torch.optim import descent  # late: optim.descent imports core.api
+
+        pcfg = descent.PolishConfig(method=cfg.polish, steps=cfg.polish_steps)
+        polish = descent.make_polish(f, self._evaluator(f), cfg.dim, pcfg)
+        k = min(cfg.polish_topk, cfg.pop)
+
+        def polish_pass(state: State) -> State:
+            pop, fit = state["pop"], state["fit"]
+            n_isl, _, dim = pop.shape
+            idx = torch.argsort(fit, dim=-1, stable=True)[:, :k]        # (I, k)
+            rows = idx[..., None].expand(n_isl, k, dim)
+            xs, fs = torch.gather(pop, 1, rows), torch.gather(fit, 1, idx)
+            xs2, fs2 = polish(xs.reshape(n_isl * k, dim), fs.reshape(-1))
+            xs2, fs2 = xs2.reshape(n_isl, k, dim), fs2.reshape(n_isl, k)
+            better = fs2 < fs                      # polish is monotone; guard anyway
+            pop = pop.scatter(1, rows, torch.where(better[..., None], xs2, xs))
+            fit = fit.scatter(1, idx, torch.where(better, fs2, fs))
+            return track_best(state, pop, fit)
+
+        return polish_pass, descent.polish_evals_per_point(cfg.dim, pcfg)
+
+    def _budget(self, per_gen_total: int, init_total: int,
+                polish_per_point: int = 0) -> tuple[int, int, int, int]:
+        """(n_rounds, per_round_evals, n_polish, per_polish_evals) from the
+        evaluation budget: the largest number of rounds whose generations
+        and polish events (every ``polish_every`` rounds, ``polish_topk *
+        polish_per_point`` evaluations per island) fit in ``max_evals``."""
+        cfg = self.cfg
+        per_round = per_gen_total * cfg.sync_every
+        budget = cfg.max_evals - init_total
+        if polish_per_point <= 0 or cfg.polish == "none":
+            return max(1, budget // max(per_round, 1)), per_round, 0, 0
+        per_polish = polish_per_point * min(cfg.polish_topk, cfg.pop) * cfg.n_islands
+        every = max(1, cfg.polish_every)
+
+        def cost(n: int) -> int:
+            return n * per_round + (n // every) * per_polish
+
+        lo, hi = 1, max(1, budget // max(per_round, 1))
+        while lo < hi:                      # largest n_rounds with cost <= budget
+            mid = (lo + hi + 1) // 2
+            if cost(mid) <= budget:
+                lo = mid
+            else:
+                hi = mid - 1
+        return lo, per_round, lo // every, per_polish
 
     def minimize(self, f: Function, key: Tensor,
                  warm: Any = None) -> OptimizeResult:
@@ -198,9 +258,18 @@ class IslandOptimizer:
             raise _later("warm-start immigrants")
         cfg = self.cfg
         algo = self._build(f)
+        polish_pass, pp = self._polish(f)
         per_gen_total, init_total = self._eval_totals(algo)
-        n_rounds, per_round = self._budget(per_gen_total, init_total)
+        n_rounds, per_round, n_polish, per_polish = self._budget(
+            per_gen_total, init_total, pp)
         round_fn = self._round_fn(algo)
+        every = max(1, cfg.polish_every)
+
+        def round_and_polish(state: State, r: int) -> State:
+            state = round_fn(state, round_keys[r])
+            if polish_pass is not None and (r + 1) % every == 0:
+                state = polish_pass(state)
+            return state
 
         ks = prng.split(key.to(self.device))
         key, ik = ks[0], ks[1]
@@ -211,7 +280,7 @@ class IslandOptimizer:
             history = torch.empty(n_rounds, dtype=torch.float32,
                                   device=self.device)
             for r in range(n_rounds):
-                state = round_fn(state, round_keys[r])
+                state = round_and_polish(state, r)
                 history[r] = torch.amin(state["best_val"])
             arg, val = _select_best(state)
             # The one device-to-host transfer of the run.
@@ -220,7 +289,7 @@ class IslandOptimizer:
         else:
             hist = []
             for r in range(n_rounds):
-                state = round_fn(state, round_keys[r])
+                state = round_and_polish(state, r)
                 hist.append(float(torch.amin(state["best_val"])))
                 ba, bv = state["best_arg"], state["best_val"]
                 if cfg.n_islands == 1:
@@ -230,7 +299,7 @@ class IslandOptimizer:
             arg = arg.cpu().numpy()
             history = np.asarray(hist, dtype=np.float32)
 
-        n_evals = init_total + n_rounds * per_round
+        n_evals = init_total + n_rounds * per_round + n_polish * per_polish
         return OptimizeResult(arg=arg, value=float(val), n_evals=n_evals,
                               n_gens=n_rounds * cfg.sync_every, history=history)
 

@@ -4,7 +4,7 @@ Migration moves positions and fitness only. A slot whose contents changed
 holds an adopted migrant, and the destination policy re-initialises its own
 per-individual state there: ga revives the slot and makes the migrant
 newborn, pso starts the particle at rest with its arrival as personal best.
-The slot table below is the reference's for the ported policies; the
+The slot table below is the reference's, for all eight policies; the
 ``Portfolio`` class and its unified state come with a later slice.
 """
 from __future__ import annotations
@@ -54,6 +54,10 @@ REGISTRY: dict[str, PolicySpec] = {s.name: s for s in (
         AuxSlot("pbest_f", "ind", adopt="fit"),     # migrant's position/fitness
     )),
     PolicySpec("sa", 3, slots=(AuxSlot("t", "scl"),)),
+    PolicySpec("ea", 4, slots=(AuxSlot("sigma", "scl"),)),
+    PolicySpec("fa", 5, slots=(AuxSlot("alpha", "scl"),)),
+    PolicySpec("bh", 6),
+    PolicySpec("mc", 7),
 )}
 
 

@@ -7,6 +7,8 @@
 //   trial  = (u < px) | (d == jrand) ? mutant : pop
 //   tfit   = f(trial - shift) + bias
 //   keep the trial where tfit <= fit (a NaN tfit keeps the parent).
+// clip keeps a NaN, as jnp.clip does, so a NaN mutant lane gives a NaN
+// trial fitness and the parent stays.
 //
 // Bound: memory. The function reads pop and u (P x D float32 each) and
 // writes the new population: at Table I's shape 9.6 MB, about 2.9 us at
@@ -133,7 +135,7 @@ __device__ __forceinline__ void trial_batch(const Args& a, const Place& at, cons
       const int64_t d = static_cast<int64_t>(at.slot(kb, k)) * V + j;
       const bool take = (uu[k].v[j] < a.px) || d == h.jrand;
       const float m = __fmaf_rn(a.w, __fsub_rn(db[k].v[j], dc[k].v[j]), da[k].v[j]);
-      t[k].v[j] = take ? fminf(fmaxf(m, a.lo), a.hi) : p[k].v[j];
+      t[k].v[j] = take ? popt::clip(m, a.lo, a.hi) : p[k].v[j];
     }
 }
 

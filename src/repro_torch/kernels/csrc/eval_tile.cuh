@@ -46,6 +46,20 @@ constexpr float kE = 2.71828182845904523536f;
 
 __device__ __forceinline__ float sq(float v) { return v * v; }
 
+// clip(x, lo, hi) as jnp.clip and torch.clamp compute it: a NaN stays NaN
+// (fminf/fmaxf alone would turn it into lo), with PTX's NaN-propagating max
+// and min (sm_80 on). tools/clip_timings.py times the forms in turns at
+// 800 x 1000 (PERF.md): on de_step this one costs what fminf/fmaxf cost,
+// where a test and select on x != x takes 26 more registers and 22% more
+// time; on pso_step it costs 9% over fminf/fmaxf, a compare-and-select
+// form 1% (which costs de_step 8%).
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(lo));
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(r), "f"(hi));
+  return r;
+}
+
 // s**20 as lax.integer_pow computes it: s**4 * s**16.
 __device__ __forceinline__ float pow20(float s) {
   float s2 = s * s;

@@ -84,12 +84,6 @@ __device__ __forceinline__ Head load_head(const Args& a, const Place& at) {
   return h;
 }
 
-// clip(x, lo, hi) as jnp.clip and torch.clamp compute it: a NaN stays NaN
-// (fminf/fmaxf alone would turn it into lo).
-__device__ __forceinline__ float clip(float x, float lo, float hi) {
-  return x != x ? x : fminf(fmaxf(x, lo), hi);
-}
-
 // Slot s of the child's parent lanes: p1 below `split`, p2 from it on. The
 // one slot that straddles `split` is read lane by lane from both.
 template <int V>
@@ -126,7 +120,7 @@ __device__ __forceinline__ void child_batch(const Args& a, const Place& at, cons
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const float m = uu[k].v[j] < a.pm ? __fmul_rn(a.sigma_m, nz[k].v[j]) : 0.0f;
-      c[k].v[j] = clip(__fadd_rn(c[k].v[j], m), a.lo, a.hi);
+      c[k].v[j] = popt::clip(__fadd_rn(c[k].v[j], m), a.lo, a.hi);
     }
 }
 

@@ -7,6 +7,7 @@
 //   nx = clip(x + nv, lo, hi)
 //   fit = f(nx - shift) + bias
 //   pbest, pbest_f take (nx, fit) where fit < pbest_f (strict; NaN never).
+// clip keeps a NaN, as jnp.clip does: a NaN velocity stays NaN.
 // The velocity is rounded as XLA contracts it on the CPU, two fused
 // multiply-adds: fma(fg*r2, g - x, fma(w, v, (fp*r1)*(pb - x))); the other
 // products and sums are separate roundings (__fmul_rn / __fadd_rn keep nvcc
@@ -39,10 +40,10 @@ struct Particle {
     const float cog = __fmul_rn(__fmul_rn(fp, r1[d]), __fsub_rn(pb[d], xd));
     const float a = __fmaf_rn(w, v[d], cog);
     const float nv = __fmaf_rn(__fmul_rn(fg, r2[d]), __fsub_rn(g[d], xd), a);
-    return fminf(fmaxf(nv, -vmax), vmax);
+    return popt::clip(nv, -vmax, vmax);
   }
   __device__ __forceinline__ float pos(int d, float nv) const {
-    return fminf(fmaxf(__fadd_rn(x[d], nv), lo), hi);
+    return popt::clip(__fadd_rn(x[d], nv), lo, hi);
   }
   __device__ __forceinline__ float operator()(int d) const {
     const float p = pos(d, vel(d));

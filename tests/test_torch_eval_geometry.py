@@ -93,6 +93,19 @@ def test_launch_geometry_covers_everything_once(P, D):
         assert d.shape[-1] == g.iters * (4 if g.vec else 1), label
 
 
+@pytest.mark.parametrize("P", [8_000, 25_600, 32_000, 128_000])
+def test_launch_geometry_at_polish_batch_rows(P):
+    """The polish layer's batches reach five and six digits of rows (ASD's
+    4·K·D probes, AVD's K·D·2·L): one row a block at D = 1000, four short
+    rows a block at D = 100, every row once, within CUDA's grid."""
+    for D, per_block in ((1000, 1), (100, 4)):
+        g = be.launch_geometry(P, D, 16, N_SMS)
+        assert g.rows_per_block == per_block and g.blocks == P // per_block
+        assert 1 <= g.blocks <= MAX_GRID
+        rows = block_rows(P, g)
+        assert np.array_equal(rows, np.arange(P))
+
+
 def test_launch_geometry_at_the_main_path_shapes():
     """Table I's population, its chunk and the 8-island stack: 16-byte
     slots, 4 warps a row, 2 slots a thread, one row a block; an unaligned
