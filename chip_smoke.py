@@ -56,7 +56,20 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      asd polish of the top 2 every 8 rounds) for 8 rounds through
      ``explore_then_polish``, whose stage 2 polishes the incumbent: ms/gen,
      ms and bench_eval launches per polish event, n_evals against the
-     reference's accounting.
+     reference's accounting;
+ 16. the multi-job service through ``OptimizationService.handle`` (one
+     worker thread, checkpoints under build/service) at Table I's width:
+     A, 8 fused DE jobs, in turns with their 8 standalone ``minimize`` runs
+     (jobs/s), then profiled as a bucket of 8 and of 1 (ms per round,
+     launches per round, the device's idle share); B, 4 fused PSO jobs; C,
+     2 hybrid jobs (HYBRID_CONFIG, 8 rounds) and
+     ``explore_then_polish_many``; D, 2 fused DE jobs warm-started from A's
+     incumbents; every job bit-identical to its standalone run; E, bucket A
+     killed at round 5 and finished by a fresh scheduler's ``resume``, bit
+     for bit, and a job cancelled after a round with its partial result;
+     F, ``launch.federate`` with 2 workers on the card, uninterrupted and
+     with a worker SIGKILLed in leg 1: the same values, both workers on
+     cuda.
 
 flash_attention and ssd_scan take two routes by the input's type: bfloat16
 runs the tensor-core kernels (``csrc/*_tc.cu``), float32 the CUDA-core
@@ -73,10 +86,10 @@ and, for ga_step and eval_select, the share of rows taken or accepted; the compi
 for their libraries are printed. The main-path runs of GA and SA also
 report the share of rows their fused kernel took or accepted.
 
-Phases 3-5, 7, 8, 10, 11, 13 and 15 are the main path: each run resets the
-kernels' launch counters, drives its entry point
+Phases 3-5, 7, 8, 10, 11, 13, 15 and 16 are the main path: each run resets
+the kernels' launch counters, drives its entry point
 (``IslandOptimizer.minimize``, ``explore_then_polish``, ``serve``, a prefill
-step) and reads the counters right after. Each engine configuration is then profiled over a few rounds of a
+step, ``OptimizationService.handle``) and reads the counters right after. Each engine configuration is then profiled over a few rounds of a
 further run, init excluded, and each serve run over a few further decode
 steps, for the device's busy time and idle share.
 Every launch records its kernel and input shape; the run fails if a phase
@@ -242,6 +255,38 @@ CARD_VS_CPU_RUNS = {
 FUSED_KERNEL = {"de": "de_step", "pso": "pso_step", "ga": "ga_step",
                 "sa": "eval_select"}
 
+# Phase 16: the multi-job service at Table I's width (shifted Rosenbrock-1000,
+# pop 800, 1 island, sync_every 10, the pallas backend), as OptRequest dicts.
+# A: fused DE, 10 rounds (800 + 10 x 10 x 800 evaluations); B: fused PSO, the
+# same budget; C: HYBRID_CONFIG's chunked DE with its polish, 8 rounds and
+# one polish event (800 + 8 x 10 x 800 + 2 x 2 x 4,008).
+SERVICE_BASE = {"fn": "shifted_rosenbrock", "dim": DIM, "pop": POP, "n_islands": 1,
+                "sync_every": SYNC_EVERY, "backend": "pallas"}
+SERVICE_BUCKETS = {
+    "A": {**SERVICE_BASE, "algo": "de", "params": {**DE_TABLE1, "fused": True},
+          "max_evals": 80_800},
+    "B": {**SERVICE_BASE, "algo": "pso", "params": {"fused": True}, "max_evals": 80_800},
+    "C": {**SERVICE_BASE, "algo": "de", "params": {**DE_TABLE1, "barrier_mode": "chunked"},
+          **HYBRID_POLISH, "max_evals": 80_832},
+}
+SERVICE_JOBS = {"A": 8, "B": 4, "C": 2, "D": 2}
+# The federation of phase 16: two workers on the card, two legs of
+# FederationConfig's unfused DE (sync_every 5) at the same width.
+FED_EVALS = 80_800
+FED_SYNC = 5
+# A bucket of J one-island jobs launches what J islands do: the buckets of
+# phase 16 (the killed and cancelled runs repeat A) and the federation's
+# jobs, as runs of the tables above, for phase 1's shape list.
+SERVICE_RUNS = (
+    Run("16 A", "de", 100, SERVICE_BUCKETS["A"]["params"], n_islands=SERVICE_JOBS["A"]),
+    Run("16 A, one job", "de", 100, SERVICE_BUCKETS["A"]["params"]),
+    Run("16 B", "pso", 100, SERVICE_BUCKETS["B"]["params"], n_islands=SERVICE_JOBS["B"]),
+    Run("16 C", "de", 80, SERVICE_BUCKETS["C"]["params"], n_islands=SERVICE_JOBS["C"],
+        polish=HYBRID_POLISH),
+    Run("16 D", "de", 100, SERVICE_BUCKETS["A"]["params"], n_islands=SERVICE_JOBS["D"]),
+    Run("16 F", "de", 100, DE_TABLE1, sync_every=FED_SYNC),
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelRun:
@@ -375,9 +420,18 @@ def launch_shapes(r: Run) -> dict[str, set[tuple[int, ...]]]:
 
 
 def _all_runs():
-    for table in (MAIN_RUNS, CARD_VS_CPU_RUNS, {15: (HYBRID_RUN,)}):
+    for table in (MAIN_RUNS, CARD_VS_CPU_RUNS, {15: (HYBRID_RUN,), 16: SERVICE_RUNS}):
         for runs in table.values():
             yield from runs
+
+
+def service_eval_shapes() -> set[tuple[int, int]]:
+    """bench_eval's shapes in phase 16 beyond its runs' own: bucket D's warm
+    rows (A's incumbents) and the federation's one routed row, and stage 2
+    of explore_then_polish_many on bucket C's incumbents."""
+    c_run = SERVICE_RUNS[3]
+    return ({(SERVICE_JOBS["A"], DIM), (1, DIM)}
+            | set(_polish_batches(c_run, SERVICE_JOBS["C"], STAGE2_STEPS)))
 
 
 def _derived(kernels) -> tuple[tuple[int, ...], ...]:
@@ -391,7 +445,7 @@ def _derived(kernels) -> tuple[tuple[int, ...], ...]:
 # list (GA's 200-row wave at pop 800 among them, and DE_EXTRA_SHAPES), and
 # a row view at a storage offset is added at (800, 1000), unaligned views
 # at (800, 1000) and (200, 1000).
-EVAL_SHAPES = tuple(sorted(set(_derived({"bench_eval"}))
+EVAL_SHAPES = tuple(sorted(set(_derived({"bench_eval"})) | service_eval_shapes()
                            | {(130, 1000), (37, 100), (5, 1), (128_000, 100)}))
 DE_SHAPES = _derived({"de_step"})
 # Rows past eval_row.cuh's staging cap (4096 lanes of 16-byte slots, 1024
@@ -589,9 +643,11 @@ def port_modules() -> types.SimpleNamespace:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import prng
     from repro_torch.configs import popt_bench
-    from repro_torch.core import (ALGORITHMS, ExecutorConfig, IslandConfig,
-                                  IslandOptimizer, de, explore_then_polish,
-                                  migration)
+    from repro_torch.core import (ALGORITHMS, AbandonRun, ExecutorConfig,
+                                  IslandConfig, IslandOptimizer,
+                                  ShapeBucketScheduler, de, explore_then_polish,
+                                  explore_then_polish_many, migration)
+    from repro_torch.launch.opt_serve import OptimizationService
     from repro_torch.optim import descent
     from repro_torch.functions import benchmarks as bm
     from repro_torch.configs import get_config
@@ -608,7 +664,9 @@ def port_modules() -> types.SimpleNamespace:
         _build=_build, ExecutorConfig=ExecutorConfig, IslandConfig=IslandConfig,
         IslandOptimizer=IslandOptimizer, get_config=get_config, serve=serve,
         steps=steps, T=transformer, popt_bench=popt_bench, descent=descent,
-        explore_then_polish=explore_then_polish)
+        explore_then_polish=explore_then_polish,
+        explore_then_polish_many=explore_then_polish_many, AbandonRun=AbandonRun,
+        ShapeBucketScheduler=ShapeBucketScheduler, OptimizationService=OptimizationService)
 
 
 def _check_eval(c: Ctx, pop, fn: str, shift, bias: float, label: str) -> None:
@@ -1020,7 +1078,7 @@ def _init_best(c: Ctx, opt, f, seed: int) -> float:
     plain objective, not with the kernel under test."""
     prng = c.rt.prng
     ik = prng.split(prng.PRNGKey(seed, c.dev))[1]
-    pop = opt._init_state(opt._build(f), ik)["pop"]
+    pop = opt._init_state(opt._build(f), ik[None])["pop"]
     return float(f.fn(pop.reshape(-1, pop.shape[-1])).min())
 
 
@@ -1118,6 +1176,8 @@ def main_path_phases() -> dict[str, set[int]]:
         for r in runs:
             out[MODEL_KERNEL[r.arch]].add(phase)
     out["bench_eval"].add(15)
+    for k in ("bench_eval", "de_step", "pso_step"):
+        out[k].add(16)
     return out
 
 
@@ -1211,6 +1271,361 @@ def phase_hybrid(c: Ctx) -> dict:
             f"{r.label}: polish launches {out}")
     log(f"phase 15: {r.label} + explore_then_polish: {json.dumps(out)}")
     return out
+
+
+# -- phase 16: the multi-job service ------------------------------------------------
+
+SERVICE_DIR = ROOT / "build" / "service"
+
+
+class RoundClock:
+    """A scheduler ``fault_hook``: stamps each round's end (the scheduler has
+    just read the round's values back, so the card has finished it) with
+    the host clock and the kernels' launch counters, and runs torch.profiler
+    over round ``profiled`` when given (in the thread that runs the bucket:
+    profiled buckets run inline, in the main thread). A round is timed from
+    the previous hook's return to this hook's call, so the profiler's start
+    and stop stay out of every round's time."""
+
+    def __init__(self, c: Ctx, profiled: int | None = None):
+        self.c, self.profiled, self.marks, self.prof = c, profiled, [], None
+        self.left = {}        # round -> host clock as its hook returned
+
+    def __call__(self, key, r: int) -> None:
+        self.marks.append((r, time.perf_counter(), self.c.counts()))
+        if r == (self.profiled or 0) - 1:
+            from torch.profiler import ProfilerActivity, profile
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                acc_events=True)
+            self.prof.start()
+        elif r == self.profiled:
+            self.prof.stop()
+        self.left[r] = time.perf_counter()
+
+    def summary(self) -> dict:
+        """ms per round over rounds 2.. (round 1 holds init; the profiled
+        round is left out), kernel launches per round, and for the profiled
+        round the device's busy ms, launches and idle share."""
+        gaps = [t - self.left[r - 1] for r, t, _ in self.marks
+                if r - 1 in self.left and r != self.profiled]
+        (r0, _, n0), (r1, _, n1) = self.marks[0], self.marks[-1]
+        out = {"rounds": r1, "ms_per_round": sum(gaps) / len(gaps) * 1e3,
+               "kernel_launches_per_round": {k: (n1[k] - n0[k]) / (r1 - r0)
+                                             for k in n1 if n1[k] - n0[k]}}
+        if self.prof is not None:
+            torch = self.c.torch
+            rows = [(e.device_time_total, e.count) for e in self.prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(r[0] for r in rows) / 1e3
+            out.update(device_busy_ms_per_round=busy,
+                       device_launches_per_round=sum(r[1] for r in rows),
+                       device_idle_share=1.0 - busy / out["ms_per_round"])
+        return out
+
+
+def _service(c: Ctx, name: str, workers: int = 1, **kw):
+    """An in-process service on the card with one worker thread (none: the
+    bucket runs inside ``flush``, in this thread) and its checkpoints under
+    build/service/<name>; buckets run when flushed."""
+    return c.rt.OptimizationService(
+        workers=workers, max_batch=64, flush_ms=1e9, device=c.dev,
+        checkpoint_dir=str(SERVICE_DIR / name), **kw)
+
+
+def _submit(svc, req: dict, seeds, **extra) -> list[str]:
+    ids = []
+    for s in seeds:
+        reply = svc.handle({"op": "submit", "request": {**req, **extra, "seed": s}})
+        require(reply.get("status") == "queued", f"submit refused: {reply}")
+        ids.append(reply["id"])
+    return ids
+
+
+def _flush_and_collect(svc, ids: list[str], clock: RoundClock | None = None):
+    """Flush the queued bucket, wait for it, and fetch every job through
+    the ``result`` op (checked against the job's record). Returns the
+    results and the host-clock seconds from flush to the last job done."""
+    svc.scheduler.fault_hook = clock
+    t0 = time.perf_counter()
+    reply = svc.handle({"op": "flush"})
+    require(reply == {"flushed": len(ids)}, f"flush: {reply}")
+    require(svc.scheduler.drain(timeout=900), "the bucket did not finish")
+    wall = time.perf_counter() - t0
+    svc.scheduler.fault_hook = None
+    out = []
+    for jid in ids:
+        resp = svc.scheduler.poll(jid)
+        require(resp.status == "done", f"job {jid}: {resp.status} {resp.error}")
+        reply = svc.handle({"op": "result", "id": jid})
+        res = resp.result
+        require(reply["status"] == "done" and reply["value"] == res.value
+                and reply["n_evals"] == res.n_evals and len(reply["arg"]) == DIM,
+                f"job {jid}: result reply {reply.get('status')} differs from its record")
+        out.append(res)
+    return out, wall
+
+
+def _standalone(c: Ctx, req: dict, seeds, warm=None) -> tuple[list, float]:
+    """Each seed's ``IslandOptimizer.minimize`` with the request's
+    configuration on the card, one after another; and their seconds."""
+    rt = c.rt
+    cfg = rt.IslandConfig(n_islands=1, pop=req["pop"], dim=req["dim"],
+                          sync_every=req["sync_every"], max_evals=req["max_evals"],
+                          **{k: req[k] for k in HYBRID_POLISH if k in req})
+    opt = rt.IslandOptimizer(rt.ALGORITHMS[req["algo"]], cfg, params=dict(req["params"]),
+                             exec_cfg=rt.ExecutorConfig(backend="cuda"), device=c.dev)
+    f = rt.bm.make_shifted_rosenbrock(req["dim"])
+    t0 = time.perf_counter()
+    out = [opt.minimize(f, rt.prng.PRNGKey(s), warm=warm) for s in seeds]
+    c.sync()
+    return out, time.perf_counter() - t0
+
+
+def _same_runs(label: str, got, want) -> None:
+    """A job's result bit-identical to its standalone run."""
+    import numpy as np
+    for g, w in zip(got, want):
+        require(g.value == w.value and g.n_evals == w.n_evals and g.n_gens == w.n_gens
+                and np.array_equal(g.arg, w.arg) and np.array_equal(g.history, w.history),
+                f"{label}: job {g.value} {g.n_evals} differs from its standalone run "
+                f"{w.value} {w.n_evals}")
+
+
+def _bucket_a(c: Ctx, svc, inline) -> tuple[list, dict]:
+    """Bucket A in turns with its eight standalone runs (standalone, bucket,
+    bucket, standalone), then profiled inline: J = 8 and one job alone."""
+    req, seeds = SERVICE_BUCKETS["A"], range(SERVICE_JOBS["A"])
+    seq1, t_seq1 = _standalone(c, req, seeds)
+    got1, t_b1 = _flush_and_collect(svc, _submit(svc, req, seeds))
+    clock = RoundClock(c)
+    got2, t_b2 = _flush_and_collect(svc, _submit(svc, req, seeds), clock)
+    seq2, t_seq2 = _standalone(c, req, seeds)
+    for label, got in (("A bucket 1", got1), ("A bucket 2", got2),
+                       ("A standalone 2", seq2)):
+        _same_runs(label, got, seq1)
+    prof8 = RoundClock(c, profiled=3)
+    got3, _ = _flush_and_collect(inline, _submit(inline, req, seeds), prof8)
+    _same_runs("A bucket profiled", got3, seq1)
+    prof1 = RoundClock(c, profiled=3)
+    one, _ = _flush_and_collect(inline, _submit(inline, req, [0]), prof1)
+    _same_runs("A one job", one, seq1[:1])
+    n = len(seq1)
+    out = {"jobs": n, "seconds_standalone": [t_seq1, t_seq2],
+           "seconds_bucket": [t_b1, t_b2],
+           "jobs_per_s_standalone": 2 * n / (t_seq1 + t_seq2),
+           "jobs_per_s_bucket": 2 * n / (t_b1 + t_b2),
+           "bucket": clock.summary(), "bucket_profiled": prof8.summary(),
+           "one_job_profiled": prof1.summary(),
+           "best": [r.value for r in seq1]}
+    k8, k1 = (p["kernel_launches_per_round"] for p in (out["bucket"], out["one_job_profiled"]))
+    require(k8 == k1 == {"de_step": SYNC_EVERY},
+            f"A: kernel launches per round {k8} (J = {n}), {k1} (one job)")
+    return seq1, out
+
+
+def phase_service(c: Ctx) -> dict:
+    """The multi-job service on the card (see the module docstring, phase
+    16): buckets A-D through ``OptimizationService.handle`` against their
+    standalone runs, bucket A killed and resumed, a cancelled job, and a
+    two-worker federation with a worker SIGKILLed."""
+    import shutil
+
+    import numpy as np
+    rt = c.rt
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+    svc, inline = _service(c, "buckets"), _service(c, "profiled", workers=0)
+    # Warm-up: one round of bucket A's shape.
+    _flush_and_collect(svc, _submit(svc, {**SERVICE_BUCKETS["A"], "max_evals": 8_800},
+                                    range(SERVICE_JOBS["A"])))
+    c.sync()
+    c.reset()
+    out = {}
+    a_res, out["A"] = _bucket_a(c, svc, inline)
+    log(f"phase 16: A, {SERVICE_JOBS['A']} fused DE jobs: {json.dumps(out['A'])}")
+
+    req, seeds = SERVICE_BUCKETS["B"], range(SERVICE_JOBS["B"])
+    seq, t_seq = _standalone(c, req, seeds)
+    got, t_b = _flush_and_collect(svc, _submit(svc, req, seeds))
+    _same_runs("B", got, seq)
+    prof = RoundClock(c, profiled=3)
+    _flush_and_collect(inline, _submit(inline, req, seeds), prof)
+    out["B"] = {"jobs": len(seq), "seconds_standalone": t_seq, "seconds_bucket": t_b,
+                "bucket_profiled": prof.summary(), "best": [r.value for r in seq]}
+    require(out["B"]["bucket_profiled"]["kernel_launches_per_round"] == {"pso_step": SYNC_EVERY},
+            f"B: launches per round {out['B']['bucket_profiled']}")
+    log(f"phase 16: B, {len(seq)} fused PSO jobs: {json.dumps(out['B'])}")
+
+    req, seeds = SERVICE_BUCKETS["C"], range(SERVICE_JOBS["C"])
+    seq, t_seq = _standalone(c, req, seeds)
+    clock = RoundClock(c)
+    got, t_b = _flush_and_collect(svc, _submit(svc, req, seeds), clock)
+    _same_runs("C", got, seq)
+    every = HYBRID_POLISH["polish_every"]
+    rounds = got[0].n_gens // SYNC_EVERY
+    rule = (POP + rounds * SYNC_EVERY * POP
+            + rounds // every * HYBRID_POLISH["polish_topk"]
+            * _polish_per_point(SERVICE_RUNS[3], HYBRID_POLISH["polish_steps"]))
+    require(rounds // every >= 1 and all(r.n_evals == rule == req["max_evals"] for r in got),
+            f"C: n_evals {[r.n_evals for r in got]}, the reference's rule {rule}")
+    opt = rt.IslandOptimizer(
+        rt.ALGORITHMS["de"], rt.IslandConfig(
+            pop=POP, dim=DIM, sync_every=SYNC_EVERY, max_evals=req["max_evals"],
+            **HYBRID_POLISH), params=dict(req["params"]),
+        exec_cfg=rt.ExecutorConfig(backend="cuda"), device=c.dev)
+    pcfg = rt.descent.PolishConfig(steps=STAGE2_STEPS)
+    t0 = time.perf_counter()
+    etp = rt.explore_then_polish_many(
+        opt, rt.bm.make_shifted_rosenbrock(DIM),
+        c.torch.stack([rt.prng.PRNGKey(s) for s in seeds]), pcfg)
+    t_etp = time.perf_counter() - t0
+    for e, g in zip(etp, got):
+        require(np.array_equal(e.history, g.history) and e.value <= g.value
+                and e.n_evals == g.n_evals + _polish_per_point(SERVICE_RUNS[3], STAGE2_STEPS),
+                f"C: explore_then_polish_many {e.value} {e.n_evals} against the bucket "
+                f"{g.value} {g.n_evals}")
+    out["C"] = {"jobs": len(seq), "n_evals": rule, "seconds_standalone": t_seq,
+                "seconds_bucket": t_b, "bucket": clock.summary(),
+                "best": [r.value for r in got], "explore_then_polish_many": {
+                    "seconds": t_etp, "best": [e.value for e in etp],
+                    "n_evals": [e.n_evals for e in etp]}}
+    log(f"phase 16: C, {len(seq)} hybrid jobs: {json.dumps(out['C'])}")
+
+    warm = [[float(v) for v in r.arg] for r in a_res]
+    req, seeds = SERVICE_BUCKETS["A"], range(100, 100 + SERVICE_JOBS["D"])
+    seq, _ = _standalone(c, req, seeds, warm=np.asarray(warm, np.float32))
+    got, t_b = _flush_and_collect(svc, _submit(svc, req, seeds, warm=warm))
+    _same_runs("D", got, seq)
+    best_warm = min(r.value for r in a_res)
+    require(all(r.value <= best_warm for r in got),
+            f"D: {[r.value for r in got]} worse than the best warm row {best_warm}")
+    out["D"] = {"jobs": len(got), "warm_rows": len(warm), "best_warm": best_warm,
+                "best": [r.value for r in got], "seconds_bucket": t_b}
+    log(f"phase 16: D, {len(got)} warm-started fused DE jobs: {json.dumps(out['D'])}")
+
+    out["E"] = _kill_resume_cancel(c, a_res)
+    log(f"phase 16: E, bucket A killed at round 5 and resumed; a cancelled job: "
+        f"{json.dumps(out['E'])}")
+    out["F"] = _federation(c, svc, a_res[0])
+    log(f"phase 16: F, federation of two workers on the card: {json.dumps(out['F'])}")
+    svc.scheduler.close()
+
+    counts = c.counts()
+    c.add_launches(counts)
+    require(all(counts[k] for k in ("bench_eval", "de_step", "pso_step")),
+            f"phase 16 launches {counts}")
+    log(f"phase 16: launches {json.dumps(counts)}")
+    return out
+
+
+def _kill_resume_cancel(c: Ctx, a_res: list) -> dict:
+    """Bucket A on a worker that abandons it at round 5 with snapshots
+    every 2 rounds; a fresh scheduler's ``resume`` finishes it. Then one
+    job of A cancelled after its first round."""
+    import threading
+    rt = c.rt
+    fired = threading.Event()
+
+    def abandon(key, r):
+        if r == 5:
+            fired.set()
+            raise rt.AbandonRun("killed at round 5")
+
+    svc = _service(c, "killed", checkpoint_every=2)
+    svc.scheduler.fault_hook = abandon
+    ids = _submit(svc, SERVICE_BUCKETS["A"], range(SERVICE_JOBS["A"]))
+    svc.handle({"op": "flush"})
+    require(fired.wait(900), "E: the killing hook never fired")
+    root = SERVICE_DIR / "killed"
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:   # the round-4 snapshot is written on a thread
+        runs = [d for d in root.iterdir() if d.name.startswith("run_")]
+        if runs and (runs[0] / "step_00000004" / "manifest.json").exists():
+            break
+        time.sleep(0.05)
+    svc.scheduler.close()
+    sched = rt.ShapeBucketScheduler(device=c.dev)
+    t0 = time.perf_counter()
+    summary = sched.resume(str(root))
+    t_resume = time.perf_counter() - t0
+    require(summary["failed"] == [] and len(summary["resumed"]) == 1
+            and summary["resumed"][0]["round"] == 4 and summary["resumed"][0]["jobs"] == ids,
+            f"E: resume summary {summary}")
+    _same_runs("E resumed", [sched.result(j).result for j in ids], a_res)
+    require(not [d for d in root.iterdir() if d.name.startswith("run_")],
+            "E: the finished run left its snapshots")
+
+    svc = _service(c, "cancelled")
+    jid = _submit(svc, SERVICE_BUCKETS["A"], [0])[0]
+    svc.handle({"op": "flush"})
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline:
+        p = svc.handle({"op": "poll", "id": jid})
+        require(p["status"] != "done", "E: the job finished before it was cancelled")
+        if p["status"] == "running" and p.get("round", 0) >= 1:
+            break
+        time.sleep(0.002)
+    reply = svc.handle({"op": "cancel", "id": jid})
+    require(svc.scheduler.drain(timeout=300), "E: the cancelled job did not stop")
+    resp = svc.scheduler.poll(jid)
+    res = resp.result
+    require(reply["status"] in ("cancelling", "cancelled") and resp.status == "cancelled"
+            and res is not None and len(res.history) == resp.round >= 1
+            and res.n_evals == POP + resp.round * SYNC_EVERY * POP
+            and res.value == float(res.history[-1]),
+            f"E: cancel {reply}, {resp.status} at round {resp.round}")
+    svc.scheduler.close()
+    return {"resumed_from_round": 4, "seconds_resume": t_resume,
+            "cancelled_at_round": resp.round, "cancelled_value": res.value}
+
+
+def _federation(c: Ctx, svc, best) -> dict:
+    """Two ``repro_torch.launch.federate`` runs of two workers on the card
+    (subprocesses; their launches lie outside the recorder), uninterrupted
+    and with worker 1 SIGKILLed in leg 1: the same incumbent, leg by leg.
+    A leg-1 job of the federation runs in process first, so every shape
+    the workers launch was launched (and checked) here too."""
+    from repro_torch.launch import federate as fed
+
+    def cfg(name):
+        return fed.FederationConfig(
+            fn="shifted_rosenbrock", dim=DIM, legs=2, evals_per_leg=FED_EVALS,
+            pop=POP, n_islands=1, sync_every=FED_SYNC,
+            workers=(fed.WorkerSpec(backend="pallas"),) * 2,
+            checkpoint_root=str(SERVICE_DIR / name), device=str(c.dev))
+
+    req = cfg("probe").request_dict(1, 0, [[float(v) for v in best.arg]])
+    _flush_and_collect(svc, [svc.handle({"op": "submit", "request": req})["id"]])
+    seen = {(k, s) for k, s, _ in c.shapes.get(c.phase, set())}
+    need = {("bench_eval", (POP, DIM)), ("bench_eval", (1, DIM))}
+    require(need <= seen, f"F: the federation's shapes {need - seen} were not launched here")
+    t0 = time.perf_counter()
+    ref = fed.federate(cfg("fed_ref"))
+    t_ref = time.perf_counter() - t0
+    coord = fed.FederationCoordinator(cfg("fed_kill"))
+
+    def kill(leg):
+        if leg == 1:
+            coord.workers[1].kill()
+
+    coord.fault_hook = kill
+    t0 = time.perf_counter()
+    coord.start()
+    try:
+        res = coord.run()
+    finally:
+        coord.close()
+    t_kill = time.perf_counter() - t0
+    devices = ref.devices + res.devices
+    require(all(d is not None and d.startswith(c.dev.type) for d in devices),
+            f"F: the workers' banners name {devices}")
+    require(res.revived >= 1 and res.value == ref.value and res.arg == ref.arg
+            and [[r["value"] for r in leg] for leg in res.legs]
+            == [[r["value"] for r in leg] for leg in ref.legs],
+            f"F: killed run {res.value} (revived {res.revived}) against {ref.value}")
+    return {"devices": devices, "value": ref.value, "revived": res.revived,
+            "resubmitted": res.resubmitted, "seconds_uninterrupted": t_ref,
+            "seconds_killed": t_kill,
+            "leg_values": [[r["value"] for r in leg] for leg in ref.legs]}
 
 
 def _card_values(c: Ctx):
@@ -1958,7 +2373,7 @@ def ptxas_summary(entries: list[dict]) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -2003,7 +2418,7 @@ def main() -> int:
              **{n: card_vs_cpu_phase(n) for n in CARD_VS_CPU_RUNS},
              **{n: run_model_phase(n) for n in MODEL_RUNS},
              **{n: model_card_vs_cpu_phase(n) for n in CARD_VS_CPU_MODEL_RUNS},
-             15: phase_hybrid}
+             15: phase_hybrid, 16: phase_service}
     for num in sorted(steps):
         if num not in phases:
             continue

@@ -5,8 +5,11 @@ The two packages share a state layout (``pop``, ``fit``, ``best_arg``,
 ``pbest_f``; GA's ``age``, ``age_limit``, ``alive``; SA's step ``t``; EA's
 ``sigma``; FA's ``alpha``),
 except that this port always keeps the island axis: a JAX single-island
-state, which has none, gains one on the way in. With these a test starts
-both engines from one state.
+state, which has none, gains one on the way in. A job-stacked state (the
+jobs axis, ``(J, [I,] ...)`` in JAX) folds into the port's one leading
+axis, ``(J·I, ...)`` (:func:`state_from_numpy`), and back
+(:func:`state_to_jax`). With these a test starts both engines from one
+state.
 
 For the model stack, :func:`params_from_numpy` and
 :func:`decode_state_from_numpy` carry a JAX parameter pytree or decode state
@@ -33,16 +36,18 @@ _RANK = {"pop": 3, "fit": 2, "best_arg": 2, "best_val": 1, "vel": 3,
 def state_from_numpy(d: dict[str, Any], device: str | torch.device) -> dict:
     """Engine state from numpy arrays (either package's layout) on
     ``device``: every key of ``d`` the engines know, ``alive`` as bool and
-    the rest as float32."""
+    the rest as float32. The JAX layout's leading axes, ``[J,] [I,] ...``
+    (jobs of a ``minimize_many`` or ``BucketStepper`` state, islands), fold
+    into the port's one, job-major; a state with neither gains it."""
     out = {}
     for k, v in d.items():
         if k not in _RANK:
             raise ValueError(f"unknown state key {k!r}")
         a = np.asarray(v, dtype=bool if k == "alive" else np.float32)
-        if a.ndim == _RANK[k] - 1:
-            a = a[None]
-        if a.ndim != _RANK[k]:
+        rest = _RANK[k] - 1
+        if not rest <= a.ndim <= rest + 2:
             raise ValueError(f"state[{k!r}] has shape {a.shape}")
+        a = a.reshape(-1, *a.shape[a.ndim - rest:])
         out[k] = torch.from_numpy(a.copy()).to(device)
     return out
 
@@ -50,6 +55,20 @@ def state_from_numpy(d: dict[str, Any], device: str | torch.device) -> dict:
 def state_to_numpy(state: dict) -> dict[str, np.ndarray]:
     """Island-stacked numpy copies of the engine state."""
     return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+def state_to_jax(state: dict, n_islands: int, jobs: bool = False) -> dict[str, np.ndarray]:
+    """The port's engine state -> numpy arrays in the JAX layout ``[J,]
+    [I,] ...``: the job axis when ``jobs``, the island axis when
+    ``n_islands > 1`` (the inverse of :func:`state_from_numpy`)."""
+    lead = ((-1,) if jobs else ()) + ((n_islands,) if n_islands > 1 else ())
+    out = {}
+    for k, v in state.items():
+        a = v.detach().cpu().numpy()
+        if not lead and a.shape[0] != 1:
+            raise ValueError(f"state[{k!r}] holds {a.shape[0]} islands, expected 1")
+        out[k] = a.reshape(lead + a.shape[1:])
+    return out
 
 
 def function_from_numpy(name: str, shift: np.ndarray | None = None,

@@ -7,20 +7,33 @@ of ``I`` keys and step every island at once, which is what ``vmap`` does in
 the JAX engine. One *sync round* = ``sync_every`` generations + migration +
 incumbent merge.
 
-Two drivers, with the same trajectory for a fixed key:
+Jobs fold into the same dimension: a bucket of ``J`` jobs holds ``(J·I, P,
+D)`` (job-major), so one ``init`` and one ``gen`` call step every island of
+every job — one ``de_step``, ``pso_step`` or ``bench_eval`` launch per
+bucket. Migration, incumbent sharing, selection and history act within a
+job, on ``(J, I, ...)`` views. The round function always takes a batch of
+job keys; ``minimize`` is the one-job case of it.
+
+Three drivers, with the same trajectory for a fixed key:
 
   * device-resident (default): state and the per-round incumbent history
     stay on the device; nothing is read back until the run ends, and then
     the result crosses to the host in one transfer.
   * host-stepped (``round_callback``): after each round the incumbent is
     read on the host and handed to the callback (checkpointing, coupling).
+  * jobs axis: ``minimize_many(f, keys (J, 2))`` runs J jobs of one
+    configuration as one bucket, each bit-identical to a standalone
+    ``minimize`` with its key; :class:`BucketStepper` is the same program
+    advanced a round at a time by the service, one ``(J,)`` read per round.
 
 The key discipline is the JAX engine's, draw for draw, so a seed gives the
 same trajectory in both packages up to float32 rounding of the fitness.
 This slice carries barrier islands with ring, starvation and none
 migration, and the adoption of migrants into policies with per-individual
 state (``core.portfolio.adopt_native``: ga revives and zeroes the age, pso
-restarts velocity and personal best).
+restarts velocity and personal best). ``minimize(warm=)`` adopts
+externally routed candidates (federation migrants) into island 0's worst
+slots by the same rule before round 0.
 
 ``IslandConfig.polish`` turns any meta-heuristic into a *memetic hybrid*:
 every ``polish_every`` rounds, each island's ``polish_topk`` best candidates
@@ -31,8 +44,7 @@ polished in one batch through the engine's own evaluator, so on the card
 each probe batch is one ``bench_eval`` launch pair. The pass draws nothing,
 so it leaves the key chain as it was.
 
-Portfolios, async islands, warm starts, meshes and the jobs axis raise
-``NotImplementedError``.
+Portfolios, async islands and meshes raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -138,61 +150,120 @@ class IslandOptimizer:
         self.exec_cfg = exec_cfg
         self.round_callback = round_callback
         self.device = resolve_device(device)
+        self._steppers: dict[tuple, tuple[Callable, BucketStepper]] = {}
 
     # -- engine ------------------------------------------------------------
 
     def _evaluator(self, f: Function) -> Callable[[Tensor], Tensor]:
         return make_batch_evaluator(f, self.exec_cfg)
 
-    def _build(self, f: Function) -> MetaHeuristic:
+    def _build(self, f: Function, evaluator: Callable[[Tensor], Tensor] | None = None
+               ) -> MetaHeuristic:
         cfg = self.cfg
-        return self.algo_maker(f=f, evaluator=self._evaluator(f), pop=cfg.pop,
-                               dim=cfg.dim, **self.params)
+        return self.algo_maker(f=f, evaluator=evaluator or self._evaluator(f),
+                               pop=cfg.pop, dim=cfg.dim, **self.params)
 
     def _eval_totals(self, algo: MetaHeuristic) -> tuple[int, int]:
         """(per-generation, init) evaluation totals across all islands."""
         return (algo.evals_per_gen * self.cfg.n_islands,
                 algo.init_evals * self.cfg.n_islands)
 
-    def _island_keys(self, key: Tensor) -> Tensor:
-        """``(I, 2)`` per-island keys from one key: ``split(key, I)`` when
-        islands are stacked, the key itself for a single island — the JAX
-        engine's vmap-or-not rule."""
+    def _island_keys(self, keys: Tensor) -> Tensor:
+        """``(J·I, 2)`` per-island keys from one key per job ``(J, 2)``:
+        ``split(key, I)`` when islands are stacked, the key itself for a
+        single island — the JAX engine's vmap-or-not rule, job by job."""
         if self.cfg.n_islands > 1:
-            return prng.split(key, self.cfg.n_islands)
-        return key[None]
+            return prng.split(keys, self.cfg.n_islands).reshape(-1, 2)
+        return keys
 
     def _round_fn(self, algo: MetaHeuristic) -> Callable[[State, Tensor], State]:
+        """``(state (J·I, ...), round keys (J, 2)) -> state``: one sync round
+        of every job in the bucket (a single ``(2,)`` key is one job).
+        Migration and incumbent sharing see ``(J, I, ...)`` views, so
+        nothing crosses from one job to another."""
         cfg = self.cfg
         step = algo.step_override if algo.step_override is not None else algo.gen
         stacked = cfg.n_islands > 1
         adopts = pf.has_adopt_state(algo.name)
 
         def round_fn(state: State, key: Tensor) -> State:
-            gen_keys = prng.split(key, cfg.sync_every)
+            keys = key.reshape(-1, 2)
+            n_jobs = keys.shape[0]
+            gen_keys = prng.split(keys, cfg.sync_every)             # (J, S, 2)
             for g in range(cfg.sync_every):
-                state = step(state, self._island_keys(gen_keys[g]))
+                state = step(state, self._island_keys(gen_keys[:, g]))
             if stacked and cfg.migration != "none":
                 old_pop, old_fit = state["pop"], state["fit"]
-                pop, fit = mig.migrate(cfg.migration, old_pop, old_fit,
-                                       k=cfg.n_migrants, alive=state.get("alive"))
+                alive = state.get("alive")
+                pop, fit = mig.migrate(
+                    cfg.migration, _by_job(old_pop, n_jobs), _by_job(old_fit, n_jobs),
+                    k=cfg.n_migrants, alive=None if alive is None else _by_job(alive, n_jobs))
+                pop, fit = pop.reshape(old_pop.shape), fit.reshape(old_fit.shape)
                 state = {**state, "pop": pop, "fit": fit}
                 if adopts:
                     # Slots whose contents changed hold adopted migrants.
                     adopted = torch.any(pop != old_pop, dim=-1) | (fit != old_fit)
                     state = pf.adopt_native(algo.name, state, adopted)
             if stacked and cfg.share_incumbent:
+                arg, val = _select_best(state, n_jobs)
                 bv, ba = state["best_val"], state["best_arg"]
-                gi = torch.argmin(bv)
-                state = {**state, "best_val": bv[gi].expand(bv.shape).clone(),
-                         "best_arg": ba[gi].expand(ba.shape).clone()}
+                state = {**state,
+                         "best_val": val[:, None].expand(n_jobs, cfg.n_islands).reshape(bv.shape),
+                         "best_arg": arg[:, None].expand(n_jobs, cfg.n_islands, -1)
+                         .reshape(ba.shape)}
             return state
 
         return round_fn
 
     def _init_state(self, algo: MetaHeuristic, ik: Tensor) -> State:
-        """Fresh island-stacked state from init key ``ik``."""
+        """Fresh job- and island-stacked state from init keys ``ik`` ``(J,
+        2)``."""
         return algo.init(self._island_keys(ik))
+
+    def _warm_fn(self, algo: MetaHeuristic) -> Callable[[State, Tensor, Tensor], State]:
+        """``(state (J·I, ...), warm (W, D), warm_fit (W,)) -> state``:
+        immigration at init, the federation hop (``launch/federate.py``).
+        Every job adopts the same candidates into island 0's worst slots by
+        migration's worst-k rule, the destination policy re-initialises its
+        per-individual state there, and island 0's incumbent is refreshed."""
+        cfg = self.cfg
+        n_isl = cfg.n_islands
+        adopts = pf.has_adopt_state(algo.name)
+
+        def inject(state: State, w: Tensor, wf: Tensor) -> State:
+            pop, fit = state["pop"], state["fit"]
+            n_jobs = pop.shape[0] // n_isl
+            jpop, jfit = _by_job(pop, n_jobs), _by_job(fit, n_jobs)
+            old_pop, old_fit = jpop[:, 0], jfit[:, 0]
+            pop0, fit0 = mig._replace_worst(old_pop, old_fit,
+                                            w.expand(n_jobs, *w.shape),
+                                            wf.expand(n_jobs, *wf.shape))
+            pop = torch.cat([pop0[:, None], jpop[:, 1:]], 1).reshape(pop.shape)
+            fit = torch.cat([fit0[:, None], jfit[:, 1:]], 1).reshape(fit.shape)
+            state = {**state, "pop": pop, "fit": fit}
+            if adopts:
+                changed = torch.any(pop0 != old_pop, dim=-1) | (fit0 != old_fit)
+                rest = torch.zeros_like(changed)[:, None].expand(-1, n_isl - 1, -1)
+                state = pf.adopt_native(
+                    algo.name, state, torch.cat([changed[:, None], rest], 1)
+                    .reshape(fit.shape))
+            new = incumbent(state, pop, fit)
+            first = (torch.arange(fit.shape[0], device=fit.device) % n_isl) == 0
+            return {**state,
+                    "best_val": torch.where(first, new["best_val"], state["best_val"]),
+                    "best_arg": torch.where(first[:, None], new["best_arg"],
+                                            state["best_arg"])}
+
+        return inject
+
+    def _warm_rows(self, f: Function, warm: Any) -> tuple[Tensor, Tensor]:
+        """Warm candidates ``(W, D)`` on the engine's device and their
+        fitness by the engine's own evaluator."""
+        w = torch.as_tensor(np.asarray(warm, np.float32)).to(self.device)
+        if w.dim() != 2 or w.shape[1] != self.cfg.dim:
+            raise ValueError(f"warm candidates must have shape (W, {self.cfg.dim}), "
+                             f"got {tuple(w.shape)}")
+        return w, self._evaluator(f)(w)
 
     def _polish(self, f: Function) -> tuple[Callable[[State], State] | None, int]:
         """(state -> state polish pass, evaluations per polished point), or
@@ -253,9 +324,11 @@ class IslandOptimizer:
 
     def minimize(self, f: Function, key: Tensor,
                  warm: Any = None) -> OptimizeResult:
-        """Run the full evaluation budget on ``f`` from PRNG ``key``."""
-        if warm is not None:
-            raise _later("warm-start immigrants")
+        """Run the full evaluation budget on ``f`` from PRNG ``key``.
+
+        ``warm`` (optional, ``(W, dim)``) are externally routed immigrants —
+        federation migrants — adopted into the initial population before
+        round 0 (see :meth:`_warm_fn`)."""
         cfg = self.cfg
         algo = self._build(f)
         polish_pass, pp = self._polish(f)
@@ -273,7 +346,9 @@ class IslandOptimizer:
 
         ks = prng.split(key.to(self.device))
         key, ik = ks[0], ks[1]
-        state = self._init_state(algo, ik)
+        state = self._init_state(algo, ik[None])
+        if warm is not None and len(warm):
+            state = self._warm_fn(algo)(state, *self._warm_rows(f, warm))
         round_keys = _chain_split(key, n_rounds)
 
         if self.round_callback is None:
@@ -284,7 +359,7 @@ class IslandOptimizer:
                 history[r] = torch.amin(state["best_val"])
             arg, val = _select_best(state)
             # The one device-to-host transfer of the run.
-            host = torch.cat([arg, val[None], history]).cpu().numpy()
+            host = torch.cat([arg[0], val, history]).cpu().numpy()
             arg, val, history = host[:cfg.dim], host[cfg.dim], host[cfg.dim + 1:]
         else:
             hist = []
@@ -296,33 +371,155 @@ class IslandOptimizer:
                     ba, bv = ba[0], bv[0]
                 self.round_callback(r, ba, bv)
             arg, val = _select_best(state)
-            arg = arg.cpu().numpy()
+            arg = arg[0].cpu().numpy()
             history = np.asarray(hist, dtype=np.float32)
 
         n_evals = init_total + n_rounds * per_round + n_polish * per_polish
         return OptimizeResult(arg=arg, value=float(val), n_evals=n_evals,
                               n_gens=n_rounds * cfg.sync_every, history=history)
 
-    def minimize_many(self, *args: Any, **kwargs: Any):
-        raise _later("the jobs axis (minimize_many)")
+    # -- jobs axis ---------------------------------------------------------
+
+    def bucket_stepper(self, f: Function) -> "BucketStepper":
+        """The cached host-stepped jobs-axis runner for objective ``f`` (see
+        :class:`BucketStepper`), keyed by ``Function.cache_token()``."""
+        ck = f.cache_token()
+        hit = self._steppers.get(ck)
+        if hit is not None and hit[0] is f.fn:
+            return hit[1]
+        stepper = BucketStepper(self, f)
+        self._steppers[ck] = (f.fn, stepper)
+        return stepper
+
+    def minimize_many(self, f: Function, keys: Tensor) -> list[OptimizeResult]:
+        """Run one job per row of ``keys (J, 2)`` as one bucket.
+
+        The scheduler's bucket primitive: all jobs share this optimizer's
+        configuration and differ by key only. The bucket's state stays on
+        the device and the results cross to the host in one transfer; each
+        job's result is bit-identical to ``minimize`` with its key."""
+        if self.round_callback is not None:
+            raise ValueError("minimize_many is device-resident only; "
+                             "round_callback requires per-job minimize calls")
+        st = self.bucket_stepper(f)
+        state, round_keys = st.init(keys)
+        n_jobs, dim = round_keys.shape[0], self.cfg.dim
+        history = torch.empty((st.n_rounds, n_jobs), dtype=torch.float32,
+                              device=self.device)
+        for r in range(st.n_rounds):
+            state, history[r] = st.step(state, round_keys, r)
+        args, vals = st.best(state)
+        host = torch.cat([args, vals[:, None], history.T], 1).cpu().numpy()
+        return [OptimizeResult(arg=row[:dim], value=float(row[dim]),
+                               n_evals=st.evals_done(st.n_rounds),
+                               n_gens=st.n_rounds * self.cfg.sync_every,
+                               history=row[dim + 1:])
+                for row in host]
 
 
-def _select_best(state: State) -> tuple[Tensor, Tensor]:
-    """Global incumbent from island-stacked state (first island on ties)."""
-    bv = state["best_val"]
-    gi = torch.argmin(bv)
-    return state["best_arg"][gi], bv[gi]
+class BucketStepper:
+    """Host-stepped jobs-axis runner — the program ``minimize_many`` runs,
+    advanced one sync round at a time by its caller (counterpart of the
+    reference's ``BucketStepper``).
+
+    Control returns to the host at every round boundary, so the service can
+    stream per-round progress, honour cooperative cancellation and
+    checkpoint the bucket's state, while the trajectory stays
+    bit-identical to ``minimize_many`` (the same init, key streams and
+    round/polish/history order). State is job-major ``(J·I, ...)``; each
+    ``step`` returns the jobs' incumbent values ``(J,)`` on the device."""
+
+    def __init__(self, opt: IslandOptimizer, f: Function) -> None:
+        cfg = opt.cfg
+        self.cfg = cfg
+        self.device = opt.device
+        self._opt, self._f = opt, f
+        self._algo = algo = opt._build(f)
+        self._polish_pass, pp = opt._polish(f)
+        per_gen_total, init_total = opt._eval_totals(algo)
+        self.n_rounds, self.per_round, _, self.per_polish = opt._budget(
+            per_gen_total, init_total, pp)
+        self.init_evals = init_total
+        self.every = max(1, cfg.polish_every)
+        self.has_polish = self._polish_pass is not None
+        self._round = opt._round_fn(algo)
+        self._warm = opt._warm_fn(algo)
+        self._warm_rows = lambda w: opt._warm_rows(f, w)
+
+    def _split(self, keys: Tensor) -> tuple[Tensor, Tensor]:
+        ks = prng.split(torch.as_tensor(keys).to(self.device))      # (J, 2, 2)
+        return ks[:, 0], ks[:, 1]
+
+    def init(self, keys: Tensor) -> tuple[State, Tensor]:
+        """``keys (J, 2) -> (state, round keys (J, n_rounds, 2))``: each
+        job's ``split``/init/``_chain_split`` exactly as ``minimize``."""
+        key, ik = self._split(keys)
+        return self._opt._init_state(self._algo, ik), _chain_split(key, self.n_rounds)
+
+    def inject(self, state: State, warm: Any) -> State:
+        """Adopt warm-start immigrants (``OptRequest.warm``) into every
+        job's fresh state; the candidates are evaluated once, by the
+        bucket's own evaluator."""
+        return self._warm(state, *self._warm_rows(warm))
+
+    def round_keys(self, keys: Tensor) -> Tensor:
+        """The ``(J, n_rounds, 2)`` round keys without running init — how a
+        resumed run rebuilds the key stream it was stopped on."""
+        return _chain_split(self._split(keys)[0], self.n_rounds)
+
+    def state_shape(self, keys: Tensor) -> State:
+        """The bucket's state as tensors on the ``meta`` device (shapes and
+        dtypes, no data): the template a checkpoint restore checks against.
+        Init runs there with a stand-in evaluator, so nothing is launched."""
+        algo = self._opt._build(self._f, lambda x: x.new_zeros(x.shape[:-1]))
+        ks = prng.split(torch.as_tensor(keys).to("meta"))
+        return self._opt._init_state(algo, ks[:, 1])
+
+    def step(self, state: State, round_keys: Tensor, r: int) -> tuple[State, Tensor]:
+        """Advance round ``r``: ``sync_every`` generations, migration,
+        incumbent merge, and a polish on its cadence; returns the state and
+        each job's incumbent value ``(J,)``."""
+        state = self._round(state, round_keys[:, r])
+        if self.has_polish and (r + 1) % self.every == 0:
+            state = self._polish_pass(state)
+        n_jobs = round_keys.shape[0]
+        return state, torch.amin(state["best_val"].reshape(n_jobs, -1), dim=1)
+
+    def best(self, state: State) -> tuple[Tensor, Tensor]:
+        """Each job's incumbent ``(args (J, D), vals (J,))``."""
+        return _select_best(state, state["best_val"].shape[0] // self.cfg.n_islands)
+
+    def evals_done(self, rounds: int) -> int:
+        """Evaluations one job has used after ``rounds`` rounds, by the rule
+        ``minimize`` charges."""
+        n_polish = rounds // self.every if self.has_polish else 0
+        return self.init_evals + rounds * self.per_round + n_polish * self.per_polish
+
+
+def _by_job(t: Tensor, n_jobs: int) -> Tensor:
+    """``(J·I, ...)`` as ``(J, I, ...)``."""
+    return t.reshape(n_jobs, -1, *t.shape[1:])
+
+
+def _select_best(state: State, n_jobs: int = 1) -> tuple[Tensor, Tensor]:
+    """Each job's incumbent ``((J, D), (J,))`` from job- and island-stacked
+    state (first island on ties)."""
+    bv = _by_job(state["best_val"], n_jobs)
+    gi = torch.argmin(bv, dim=1)
+    jobs = torch.arange(n_jobs, device=gi.device)
+    return _by_job(state["best_arg"], n_jobs)[jobs, gi], bv[jobs, gi]
 
 
 def _chain_split(key: Tensor, n: int) -> Tensor:
-    """``(n, 2)`` round keys from the sequential ``key, rk = split(key)``
-    chain — the stream the JAX engine's round loop draws."""
+    """``(..., n, 2)`` round keys from the sequential ``key, rk =
+    split(key)`` chain of each key ``(..., 2)`` — the stream the JAX
+    engine's round loop draws."""
     rks = []
     for _ in range(n):
         ks = prng.split(key)
-        key = ks[0]
-        rks.append(ks[1])
-    return torch.stack(rks) if rks else key.new_empty((0, 2))
+        key = ks[..., 0, :]
+        rks.append(ks[..., 1, :])
+    return torch.stack(rks, dim=-2) if rks else key.new_empty((*key.shape[:-1], 0, 2))
 
 
 def uniform_init(keys: Tensor, pop: int, dim: int, lo: float, hi: float) -> Tensor:

@@ -1,6 +1,8 @@
 """Island migration policies (counterpart of ``repro.core.migration``).
 
-Operates on island-stacked tensors ``pop: (I, P, D)``, ``fit: (I, P)``.
+Operates on island-stacked tensors ``pop: (..., I, P, D)``, ``fit: (...,
+I, P)``; leading dimensions (the jobs of a bucket) are independent runs, and
+nothing moves between them.
 
   ring        counter-clock-wise unidirectional ring (the DPSO/DDE default):
               island i sends its best ``k`` individuals to island i+1 (mod I),
@@ -28,7 +30,8 @@ STARVATION_RATIO = 2.5  # the paper's "population of another island divided by 2
 
 def _replace_worst(pop: Tensor, fit: Tensor, mig: Tensor, migf: Tensor):
     """Per island: replace the worst-k individuals with migrants where the
-    migrant is better. pop (I, P, D), fit (I, P), mig (I, k, D), migf (I, k)."""
+    migrant is better. pop (..., P, D), fit (..., P), mig (..., k, D), migf
+    (..., k)."""
     k = mig.shape[-2]
     worst = torch.argsort(fit, dim=-1, stable=True)[..., fit.shape[-1] - k:]
     cur = torch.gather(fit, -1, worst)
@@ -41,48 +44,53 @@ def _replace_worst(pop: Tensor, fit: Tensor, mig: Tensor, migf: Tensor):
 
 def ring(pop: Tensor, fit: Tensor, k: int = 2):
     """Counter-clock-wise ring migration of the best-k per island."""
-    if pop.shape[0] <= 1:
+    if pop.shape[-3] <= 1:
         return pop, fit
-    best = torch.argsort(fit, dim=1, stable=True)[:, :k]            # (I,k)
-    mig = torch.gather(pop, 1, best.unsqueeze(-1).expand(*best.shape, pop.shape[-1]))
-    migf = torch.gather(fit, 1, best)                               # (I,k)
+    best = torch.argsort(fit, dim=-1, stable=True)[..., :k]          # (..., I, k)
+    mig = torch.gather(pop, -2, best.unsqueeze(-1).expand(*best.shape, pop.shape[-1]))
+    migf = torch.gather(fit, -1, best)
     # i -> i+1: destination i receives from i-1
-    mig = torch.roll(mig, 1, dims=0)
-    migf = torch.roll(migf, 1, dims=0)
+    mig = torch.roll(mig, 1, dims=-3)
+    migf = torch.roll(migf, 1, dims=-2)
     return _replace_worst(pop, fit, mig, migf)
 
 
 def starvation(pop: Tensor, fit: Tensor, k: int = 2,
                alive: Tensor | None = None):
     """DGA starvation-based immigration: the weakest island hosts everyone's
-    best. ``alive`` ``(I, P)`` marks live individuals (aging model; dead
-    slots carry +inf fitness), ``isfinite(fit)`` when not given. Migrants
-    land in the host's worst (dead first) slots."""
-    n_isl = pop.shape[0]
+    best. ``alive`` ``(..., I, P)`` marks live individuals (aging model;
+    dead slots carry +inf fitness), ``isfinite(fit)`` when not given.
+    Migrants land in the host's worst (dead first) slots."""
+    n_isl, P, D = pop.shape[-3:]
     if n_isl <= 1:
         return pop, fit
+    lead = pop.shape[:-3]
     if alive is None:
         alive = torch.isfinite(fit)
-    counts = alive.sum(dim=1)                                       # (I,)
-    host = torch.argmin(counts).reshape(1)                          # first on ties
-    host_n = counts.index_select(0, host)
-    starving = (host_n == 0) | (host_n.float() < counts.max().float() / STARVATION_RATIO)
+    counts = alive.sum(dim=-1)                                      # (..., I)
+    host = torch.argmin(counts, dim=-1, keepdim=True)               # first on ties
+    host_n = torch.gather(counts, -1, host)                         # (..., 1)
+    starving = (host_n == 0) | (
+        host_n.float() < counts.amax(dim=-1, keepdim=True).float() / STARVATION_RATIO)
 
     k = min(k, 2)  # paper: at most 2 migrants leave an island per round
-    best = torch.argsort(fit, dim=1, stable=True)[:, :k]            # (I,k)
-    mig = torch.gather(pop, 1, best.unsqueeze(-1).expand(*best.shape, pop.shape[-1]))
-    migf = torch.gather(fit, 1, best)
+    best = torch.argsort(fit, dim=-1, stable=True)[..., :k]          # (..., I, k)
+    mig = torch.gather(pop, -2, best.unsqueeze(-1).expand(*best.shape, D))
+    migf = torch.gather(fit, -1, best)
     # Donors: every island except the host.
-    donor = torch.arange(n_isl, device=pop.device) != host
-    migf = torch.where(donor[:, None], migf, torch.inf)
-    flat_f = migf.reshape(-1)
-    order = torch.argsort(flat_f, stable=True)[:min(flat_f.shape[0], pop.shape[1])]
-    arrivals = mig.reshape(-1, pop.shape[-1])[order]
-    hpop, hfit = pop.index_select(0, host), fit.index_select(0, host)
-    hpop2, hfit2 = _replace_worst(hpop, hfit, arrivals[None], flat_f[order][None])
-    hpop2 = torch.where(starving, hpop2, hpop)
-    hfit2 = torch.where(starving, hfit2, hfit)
-    return pop.index_copy(0, host, hpop2), fit.index_copy(0, host, hfit2)
+    donor = torch.arange(n_isl, device=pop.device) != host          # (..., I)
+    flat_f = torch.where(donor[..., None], migf, torch.inf).reshape(*lead, n_isl * k)
+    order = torch.argsort(flat_f, dim=-1, stable=True)[..., :min(n_isl * k, P)]
+    arrivals = torch.gather(mig.reshape(*lead, n_isl * k, D), -2,
+                            order.unsqueeze(-1).expand(*order.shape, D))
+    rows = host[..., None, None].expand(*lead, 1, P, D)
+    slots = host[..., None].expand(*lead, 1, P)
+    hpop, hfit = torch.gather(pop, -3, rows), torch.gather(fit, -2, slots)
+    hpop2, hfit2 = _replace_worst(hpop, hfit, arrivals.unsqueeze(-3),
+                                  torch.gather(flat_f, -1, order).unsqueeze(-2))
+    hpop2 = torch.where(starving[..., None, None], hpop2, hpop)
+    hfit2 = torch.where(starving[..., None], hfit2, hfit)
+    return pop.scatter(-3, rows, hpop2), fit.scatter(-2, slots, hfit2)
 
 
 def migrate(policy: str, pop: Tensor, fit: Tensor, k: int = 2,

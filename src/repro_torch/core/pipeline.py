@@ -13,6 +13,7 @@ hybrid runs at equal budgets.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.api import OptimizeResult
@@ -62,10 +63,18 @@ def explore_then_polish(
 
 
 def explore_then_polish_many(opt: IslandOptimizer, f: Function, keys: Tensor,
-                             pcfg: descent.PolishConfig = descent.PolishConfig(steps=12)):
+                             pcfg: descent.PolishConfig = descent.PolishConfig(steps=12)
+                             ) -> list[OptimizeResult]:
     """Jobs-axis pipeline: one ``minimize_many`` for the global stage, then
-    one batched polish of every job's incumbent. Needs the jobs axis
-    (``IslandOptimizer.minimize_many``), which is not ported yet."""
-    raise NotImplementedError(
-        "explore_then_polish_many needs IslandOptimizer.minimize_many, which is "
-        "not ported yet: later slice")
+    one batched polish of every job's incumbent ``(J, dim)`` on ``opt``'s
+    device. Each job is charged its stage-2 evaluations."""
+    results = opt.minimize_many(f, keys)
+    polish = _stage2_fn(opt, f, pcfg)
+    xs = torch.as_tensor(np.stack([r.arg for r in results])).to(opt.device)
+    fs = torch.tensor([r.value for r in results], dtype=torch.float32,
+                      device=opt.device)
+    xs2, fs2 = polish(xs, fs)
+    host = torch.cat([xs2, fs2[:, None]], 1).cpu().numpy()
+    per_point = descent.polish_evals_per_point(opt.cfg.dim, pcfg)
+    return [_merge(r, row[:-1], float(row[-1]), per_point)
+            for r, row in zip(results, host)]

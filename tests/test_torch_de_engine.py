@@ -160,15 +160,12 @@ def _de_opt(cfg, **kw):
 
 
 @pytest.mark.parametrize("later", [
-    # The polish layer itself is ported; its jobs-axis pipeline waits for
-    # minimize_many.
-    lambda: tcore.explore_then_polish_many(
-        _de_opt(dict(polish="asd")), tbm.FUNCTIONS["sphere"],
-        prng.split(prng.PRNGKey(0), 2)),
+    # Population sharding over a mesh (IslandConfig.pop_axes).
+    lambda: _de_opt(dict(pop_axes=("data",))),
     lambda: _de_opt(dict(sync_policy="async", n_islands=2)),
     lambda: _de_opt(dict(portfolio=("de", "pso"), n_islands=2)),
     lambda: _de_opt(dict(), mesh_cfg=object()),
-], ids=["polish", "async", "portfolio", "mesh"])
+], ids=["pop_axes", "async", "portfolio", "mesh"])
 def test_later_slice_features_raise(later):
     with pytest.raises(NotImplementedError, match="later slice"):
         later()
