@@ -21,7 +21,7 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
   2. the draws on the card against the CPU: threefry, uniform, randint
      bitwise; normal and categorical to the last bit or ulp;
   3. Table I fused: 1 island, pop 800, shifted Rosenbrock-1000, 200 gens;
-  4. Table I unfused: sync, 20 gens, and chunked, 100 gens
+  4. Table I unfused: sync, 20 gens, and chunked, 50 gens
      (benchmarks/table1_de_scaling.py's setup);
   5. 8 islands x pop 800 x dim 1000, ring migration, fused, 100 gens;
   6. small DE runs (fused, sync, chunked) on the card against the same runs
@@ -69,7 +69,24 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      for bit, and a job cancelled after a round with its partial result;
      F, ``launch.federate`` with 2 workers on the card, uninterrupted and
      with a worker SIGKILLed in leg 1: the same values, both workers on
-     cuda.
+     cuda;
+ 17. heterogeneous portfolio islands and async islands at Table I's width:
+     A, 8 islands of de, pso, sa and ga (two each, cycled, every policy
+     fused, the incumbent shared) for 50 generations, one launch of each
+     fused kernel per generation (one per group of islands), rows adopted
+     per round, profiled (the grouping's gathers and scatters counted),
+     then in turns with phase 5's run; B, the homogeneous portfolio
+     ("de",) on phase 5's run, bit-identical to it; C, phase 5's run async
+     at staleness 0, bit-identical to the barrier run, then a straggler
+     (island 0 every 4th tick, staleness up to 4) for 10 ticks in turns
+     with the barrier run, and its recorded schedule replayed bit for bit;
+     D, benchmarks/portfolio.py's default cell (9 seeds through
+     ``minimize_many``), a seeded async DE run and an async mixed
+     portfolio on the card against the CPU, and the cell's single
+     algorithms for the benchmark's claim (logged); E, a portfolio bucket
+     and an async bucket of 3 jobs each through the service, every job
+     bit-identical to its standalone run, and a ``devices: 2`` request
+     ending in error.
 
 flash_attention and ssd_scan take two routes by the input's type: bfloat16
 runs the tensor-core kernels (``csrc/*_tc.cu``), float32 the CUDA-core
@@ -86,7 +103,7 @@ and, for ga_step and eval_select, the share of rows taken or accepted; the compi
 for their libraries are printed. The main-path runs of GA and SA also
 report the share of rows their fused kernel took or accepted.
 
-Phases 3-5, 7, 8, 10, 11, 13, 15 and 16 are the main path: each run resets
+Phases 3-5, 7, 8, 10, 11, 13, 15, 16 and 17 are the main path: each run resets
 the kernels' launch counters, drives its entry point
 (``IslandOptimizer.minimize``, ``explore_then_polish``, ``serve``, a prefill
 step, ``OptimizationService.handle``) and reads the counters right after. Each engine configuration is then profiled over a few rounds of a
@@ -148,6 +165,14 @@ class Run:
     profile: bool = True
     adopts: bool = False     # migrants must be adopted in at least one round
     polish: dict = dataclasses.field(default_factory=dict)  # IslandConfig.polish*
+    # A portfolio run names one policy per island (cycled) and keeps each
+    # policy's params under its name in ``params``; ``algo`` is then unused.
+    portfolio: tuple = ()
+    share: bool = False      # IslandConfig.share_incumbent
+    sync: dict = dataclasses.field(default_factory=dict)  # sync_policy, max_staleness
+    # AsyncSchedule of an async run: {"seed": s} or {"cadences": (...)}.
+    schedule: dict = dataclasses.field(default_factory=dict)
+    jobs: int = 1            # jobs of a bucket, for the shapes it launches
 
 
 # Table I's DE parameters (benchmarks/table1_de_scaling.py).
@@ -178,7 +203,7 @@ MAIN_RUNS = {
     3: (Run("Table I fused", "de", 200, {**DE_TABLE1, "fused": True}),),
     4: (Run("Table I sync", "de", 20, {**DE_TABLE1, "barrier_mode": "sync"},
             profile=False),
-        Run("Table I chunked", "de", 100,
+        Run("Table I chunked", "de", 50,
             {**DE_TABLE1, "barrier_mode": "chunked"})),
     5: (Run("8 islands fused ring", "de", 100, {**DE_TABLE1, "fused": True},
             seed=1, n_islands=8),),
@@ -286,6 +311,71 @@ SERVICE_RUNS = (
     Run("16 D", "de", 100, SERVICE_BUCKETS["A"]["params"], n_islands=SERVICE_JOBS["D"]),
     Run("16 F", "de", 100, DE_TABLE1, sync_every=FED_SYNC),
 )
+
+
+# Phase 17: heterogeneous portfolio islands and async islands at Table I's
+# width (shifted Rosenbrock-1000, pop 800, sync_every 10, ring).
+# A: 8 islands, de, pso, sa, ga cycled (two islands each), every policy
+# fused, the incumbent shared; in turns with phase 5's DE run. B: the
+# homogeneous portfolio ("de",) on phase 5's run, which must equal it bit
+# for bit. C: phase 5's run async at staleness 0 (bit-identical to the
+# barrier run), then the straggler shape of benchmarks/distributed.py
+# (island 0 on cadence 4, the rest every tick, staleness up to 4) for 10
+# ticks, in turns with the barrier run, and its recorded schedule replayed.
+PORTFOLIO = ("de", "pso", "sa", "ga")
+PORTFOLIO_PARAMS = {"de": {**DE_TABLE1, "fused": True}, "pso": {"fused": True},
+                    "sa": {"fused": True}, "ga": {"fused": True}}
+DE8 = MAIN_RUNS[5][0]
+ASYNC = {"sync_policy": "async"}
+MIXED_RUN = Run("8 islands mixed portfolio", "portfolio", 50, PORTFOLIO_PARAMS, seed=1,
+                n_islands=8, portfolio=PORTFOLIO, share=True, adopts=True)
+HOMOGENEOUS_RUN = dataclasses.replace(
+    DE8, label="8 islands homogeneous de portfolio", algo="portfolio",
+    params={"de": DE8.params}, portfolio=("de",), profile=False)
+ASYNC0_RUN = dataclasses.replace(DE8, label="8 islands async, staleness 0",
+                                 sync={**ASYNC, "max_staleness": 0}, profile=False)
+STRAGGLER_RUN = dataclasses.replace(
+    DE8, label="8 islands async straggler", sync={**ASYNC, "max_staleness": 4},
+    schedule={"cadences": (4, 1, 1, 1, 1, 1, 1, 1)}, profile=False)
+# D, card against CPU: benchmarks/portfolio.py's default cell (rastrigin-12,
+# pop 32, 6 islands of de, pso, sa, sync_every 5, ring, shared incumbent,
+# 24,000 evaluations, SA by _sa_params with T0 5.0 and step_frac 0.02; 9
+# seeds through minimize_many, unfused), and phase 6's small fused DE and a
+# fused mixed portfolio, async under a seeded random schedule.
+PORTFOLIO_CELL = {"fn": "rastrigin", "dim": 12, "pop": 32, "n_islands": 6,
+                  "sync_every": 5, "budget": 24_000, "seeds": 9,
+                  "portfolio": ("de", "pso", "sa"), "sa_t0": 5.0, "sa_step_frac": 0.02}
+CELL_RUNS = tuple(
+    Run(f"17 D cell {a or 'portfolio'}", a or "portfolio", 0, fn="rastrigin",
+        pop=PORTFOLIO_CELL["pop"], dim=PORTFOLIO_CELL["dim"],
+        n_islands=PORTFOLIO_CELL["n_islands"], sync_every=PORTFOLIO_CELL["sync_every"],
+        portfolio=() if a else PORTFOLIO_CELL["portfolio"], jobs=PORTFOLIO_CELL["seeds"])
+    for a in (None, *PORTFOLIO_CELL["portfolio"]))
+ASYNC_CARD_VS_CPU = (
+    Run("de async, seeded schedule", "de", 40, {**DE_TABLE1, "fused": True}, seed=11,
+        n_islands=4, pop=60, dim=100, sync={**ASYNC, "max_staleness": 2},
+        schedule={"seed": 0}),
+    Run("mixed portfolio async, seeded schedule", "portfolio", 40, PORTFOLIO_PARAMS,
+        seed=11, n_islands=8, pop=64, dim=100, portfolio=PORTFOLIO, share=True,
+        sync={**ASYNC, "max_staleness": 2}, schedule={"seed": 0}),
+)
+# E, the service: a portfolio bucket (3 jobs of A's configuration cut to 2
+# rounds: 6,400 + 2 x 10 x 5,200 evaluations) and an async bucket (3 jobs of
+# phase 5's, 2 rounds); every job equal to its standalone minimize.
+SERVICE17 = {
+    "portfolio": {**SERVICE_BASE, "n_islands": 8, "portfolio": list(PORTFOLIO),
+                  "params": PORTFOLIO_PARAMS, "share_incumbent": True,
+                  "max_evals": 8 * POP + 2 * SYNC_EVERY * 2 * (3 * POP + POP // 4)},
+    "async": {**SERVICE_BASE, "n_islands": 8, "algo": "de",
+              "params": {**DE_TABLE1, "fused": True}, **ASYNC, "max_staleness": 2,
+              "max_evals": 8 * POP + 2 * SYNC_EVERY * 8 * POP},
+}
+SERVICE17_JOBS = 3
+PORTFOLIO_RUNS = {17: (
+    MIXED_RUN, HOMOGENEOUS_RUN, ASYNC0_RUN, STRAGGLER_RUN, *CELL_RUNS, *ASYNC_CARD_VS_CPU,
+    dataclasses.replace(MIXED_RUN, label="17 E portfolio", jobs=SERVICE17_JOBS),
+    dataclasses.replace(DE8, label="17 E async", sync={**ASYNC, "max_staleness": 2},
+                        jobs=SERVICE17_JOBS))}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -400,18 +490,33 @@ def _polish_per_point(r: Run, steps: int) -> int:
     return steps * (4 * D + N_LADDER)
 
 
+def _groups(r: Run) -> list[tuple[str, dict, int]]:
+    """(policy, its params, islands) of each group of islands one call
+    steps: the run's one policy over all its islands, or each distinct
+    policy of a portfolio (islands cycled as ``portfolio.expand`` cycles
+    them, a group per policy in order of first appearance); every island of
+    every job of a bucket."""
+    if not r.portfolio:
+        return [(r.algo, r.params, r.n_islands * r.jobs)]
+    names = [r.portfolio[i % len(r.portfolio)] for i in range(r.n_islands)]
+    return [(a, r.params.get(a, {}), names.count(a) * r.jobs) for a in dict.fromkeys(names)]
+
+
 def launch_shapes(r: Run) -> dict[str, set[tuple[int, ...]]]:
-    """The shapes run ``r`` launches each kernel at: bench_eval on the
-    flattened ``(islands * rows, D)`` batch the executor evaluates (init;
-    unfused, every generation's batch or chunk; every polish batch); a fused
-    kernel on the island-stacked ``(I, rows, D)`` state, also for one
-    island."""
-    I, P, D = r.n_islands, r.pop, r.dim
-    out = {"bench_eval": {(I * P, D)}}
-    if r.params.get("fused"):
-        out[FUSED_KERNEL[r.algo]] = {(I, _evals_per_gen(r.algo, P, r.params), D)}
-    else:
-        out["bench_eval"].add((I * _eval_calls(r.algo, P, r.params)[0], D))
+    """The shapes run ``r`` launches each kernel at, for each group of
+    islands (see _groups): bench_eval on the flattened ``(islands * rows,
+    D)`` batch the executor evaluates (init; unfused, every generation's
+    batch or chunk; every polish batch); a fused kernel on the
+    island-stacked ``(I, rows, D)`` state, also for one island."""
+    P, D = r.pop, r.dim
+    out = {"bench_eval": set()}
+    for algo, params, n in _groups(r):
+        out["bench_eval"].add((n * P, D))
+        if params.get("fused"):
+            out.setdefault(FUSED_KERNEL[algo], set()).add(
+                (n, _evals_per_gen(algo, P, params), D))
+        else:
+            out["bench_eval"].add((n * _eval_calls(algo, P, params)[0], D))
     if r.polish:
         out["bench_eval"].update(_event_batches(r))
     if r is HYBRID_RUN:
@@ -420,7 +525,8 @@ def launch_shapes(r: Run) -> dict[str, set[tuple[int, ...]]]:
 
 
 def _all_runs():
-    for table in (MAIN_RUNS, CARD_VS_CPU_RUNS, {15: (HYBRID_RUN,), 16: SERVICE_RUNS}):
+    for table in (MAIN_RUNS, CARD_VS_CPU_RUNS, {15: (HYBRID_RUN,), 16: SERVICE_RUNS},
+                  PORTFOLIO_RUNS):
         for runs in table.values():
             yield from runs
 
@@ -524,8 +630,7 @@ def profile_rounds(c: "Ctx", make_opt, f, seed: int, timed: int = 2,
     generation: the profiler slows the host, so its own wall is not used."""
     torch = c.torch
     from torch.profiler import ProfilerActivity, profile
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                   acc_events=True)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     marks = {}
 
     def at_round_end(r, best_arg, best_val):
@@ -553,12 +658,19 @@ def profile_rounds(c: "Ctx", make_opt, f, seed: int, timed: int = 2,
     wall_ms = (marks["profiled"] - marks["timed"]) * 1e3 / (timed * every)
     ours = {name: sum(t for t, k, _ in rows if f"{name}_" in k) / 1e3 / gens
             for name in KERNELS}
+    # The row gathers and scatters of a portfolio's grouping (one device
+    # launch each), counted as the host issued them.
+    grouping = sum(e.count for e in prof.key_averages()
+                   if e.key in ("aten::index_select", "aten::index_copy_")) / gens
+    launches = sum(r[2] for r in rows) / gens
     return {"timed_gens": timed * every, "profiled_gens": gens,
             "wall_ms_per_gen": wall_ms,
             "profiled_wall_ms_per_gen": (marks["end"] - marks["profiled"]) * 1e3 / gens,
             "device_busy_ms_per_gen": busy_ms,
             "device_idle_share": (1.0 - busy_ms / wall_ms) if rows else None,
-            "device_launches_per_gen": sum(r[2] for r in rows) / gens,
+            "device_launches_per_gen": launches,
+            "gather_scatter_launches_per_gen": grouping,
+            "gather_scatter_share": grouping / launches if launches else None,
             "port_kernels_device_ms_per_gen": ours,
             "top": [{"name": k[:90], "device_ms": t / 1e3, "count": n}
                     for t, k, n in rows[:4]]}
@@ -643,7 +755,7 @@ def port_modules() -> types.SimpleNamespace:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import prng
     from repro_torch.configs import popt_bench
-    from repro_torch.core import (ALGORITHMS, AbandonRun, ExecutorConfig,
+    from repro_torch.core import (ALGORITHMS, AbandonRun, AsyncSchedule, ExecutorConfig,
                                   IslandConfig, IslandOptimizer,
                                   ShapeBucketScheduler, de, explore_then_polish,
                                   explore_then_polish_many, migration)
@@ -662,6 +774,7 @@ def port_modules() -> types.SimpleNamespace:
         flash_attention=flash_attention, ssd_scan=ssd_scan,
         ALGORITHMS=ALGORITHMS, migration=migration,
         _build=_build, ExecutorConfig=ExecutorConfig, IslandConfig=IslandConfig,
+        AsyncSchedule=AsyncSchedule,
         IslandOptimizer=IslandOptimizer, get_config=get_config, serve=serve,
         steps=steps, T=transformer, popt_bench=popt_bench, descent=descent,
         explore_then_polish=explore_then_polish,
@@ -1059,16 +1172,22 @@ def _algo_opt(c: Ctx, r: Run, gens: int | None = None, round_callback=None,
     ``cuda`` backend."""
     rt = c.rt
     gens = r.gens if gens is None else gens
-    per_gen = _evals_per_gen(r.algo, r.pop, r.params)
     polish = (_polish_events(r, gens) * r.n_islands * min(r.polish["polish_topk"], r.pop)
               * _polish_per_point(r, r.polish["polish_steps"]) if r.polish else 0)
     cfg = rt.IslandConfig(
         n_islands=r.n_islands, pop=r.pop, dim=r.dim, sync_every=r.sync_every,
         migration=r.migration or ("ring" if r.n_islands > 1 else "none"),
-        max_evals=r.n_islands * (r.pop + per_gen * gens) + polish, **r.polish)
-    return rt.IslandOptimizer(rt.ALGORITHMS[r.algo], cfg, params=dict(r.params),
-                              exec_cfg=rt.ExecutorConfig(backend="cuda"),
-                              round_callback=round_callback,
+        max_evals=sum(n * (r.pop + _evals_per_gen(a, r.pop, p) * gens)
+                      for a, p, n in _groups(r)) + polish,
+        portfolio=r.portfolio, share_incumbent=r.share, **r.sync, **r.polish)
+    if "cadences" in r.schedule:
+        schedule = rt.AsyncSchedule.from_cadences(r.schedule["cadences"], gens // r.sync_every)
+    else:
+        schedule = rt.AsyncSchedule(**r.schedule) if r.schedule else None
+    params = ({k: dict(v) for k, v in r.params.items()} if r.portfolio else dict(r.params))
+    return rt.IslandOptimizer(None if r.portfolio else rt.ALGORITHMS[r.algo], cfg,
+                              params=params, exec_cfg=rt.ExecutorConfig(backend="cuda"),
+                              round_callback=round_callback, schedule=schedule,
                               device=c.dev if device is None else device)
 
 
@@ -1083,20 +1202,24 @@ def _init_best(c: Ctx, opt, f, seed: int) -> float:
 
 
 def _want_counts(r: Run, gens: int) -> dict:
-    """Launches one run must make: the fused kernel once per generation
-    (all islands in one launch) and bench_eval twice at init; unfused, the
+    """Launches one run must make, per group of islands (a portfolio
+    steps each policy's islands as one group): the fused kernel once per
+    generation (all the group's islands in one launch) and bench_eval twice
+    at init; unfused, the
     executor's two bench_eval launches per evaluator call (chunked DE calls
     once per chunk, the last chunk clamped onto the one before; BH once for
     the kick and once per probe); two per evaluator call of each polish
     event."""
-    if r.params.get("fused"):
-        want = {FUSED_KERNEL[r.algo]: gens, "bench_eval": 2}
-    else:
-        calls = _eval_calls(r.algo, r.pop, r.params)[1]
-        want = {"bench_eval": 2 + 2 * calls * gens}
+    want = {k: 0 for k in KERNELS}
+    for algo, params, _ in _groups(r):     # a portfolio: each group's own
+        want["bench_eval"] += 2
+        if params.get("fused"):
+            want[FUSED_KERNEL[algo]] += gens
+        else:
+            want["bench_eval"] += 2 * _eval_calls(algo, r.pop, params)[1] * gens
     if r.polish:
         want["bench_eval"] += 2 * len(_event_batches(r)) * _polish_events(r, gens)
-    return {k: want.get(k, 0) for k in KERNELS}
+    return want
 
 
 def _count_adoptions(c: Ctx):
@@ -1145,7 +1268,8 @@ def _run_main(c: Ctx, phase: int, r: Run) -> dict:
             f"{r.label}: best {res.value} not below initial best {init_best}")
     require(bool((res.history[1:] <= res.history[:-1]).all()),
             f"{r.label}: the incumbent history rose")
-    per_gen = {k: (n - (2 if k == "bench_eval" else 0)) / g
+    init = 2 * len(_groups(r))             # bench_eval's launches at init
+    per_gen = {k: (n - (init if k == "bench_eval" else 0)) / g
                for k, n in counts.items() if n}
     out = {"gens": g, "ms_per_gen": wall / g * 1e3, "best": res.value,
            "init_best": init_best, "launches_per_gen": per_gen, "launches": counts}
@@ -1178,6 +1302,8 @@ def main_path_phases() -> dict[str, set[int]]:
     out["bench_eval"].add(15)
     for k in ("bench_eval", "de_step", "pso_step"):
         out[k].add(16)
+    for k in POP_KERNELS:
+        out[k].add(17)
     return out
 
 
@@ -1295,8 +1421,7 @@ class RoundClock:
         self.marks.append((r, time.perf_counter(), self.c.counts()))
         if r == (self.profiled or 0) - 1:
             from torch.profiler import ProfilerActivity, profile
-            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                                acc_events=True)
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             self.prof.start()
         elif r == self.profiled:
             self.prof.stop()
@@ -1369,10 +1494,13 @@ def _standalone(c: Ctx, req: dict, seeds, warm=None) -> tuple[list, float]:
     """Each seed's ``IslandOptimizer.minimize`` with the request's
     configuration on the card, one after another; and their seconds."""
     rt = c.rt
-    cfg = rt.IslandConfig(n_islands=1, pop=req["pop"], dim=req["dim"],
-                          sync_every=req["sync_every"], max_evals=req["max_evals"],
-                          **{k: req[k] for k in HYBRID_POLISH if k in req})
-    opt = rt.IslandOptimizer(rt.ALGORITHMS[req["algo"]], cfg, params=dict(req["params"]),
+    portfolio = tuple(req.get("portfolio", ()))
+    extra = {k: req[k] for k in (*HYBRID_POLISH, "n_islands", "share_incumbent",
+                                 "sync_policy", "max_staleness") if k in req}
+    cfg = rt.IslandConfig(pop=req["pop"], dim=req["dim"], sync_every=req["sync_every"],
+                          max_evals=req["max_evals"], portfolio=portfolio, **extra)
+    opt = rt.IslandOptimizer(None if portfolio else rt.ALGORITHMS[req["algo"]], cfg,
+                             params=dict(req["params"]),
                              exec_cfg=rt.ExecutorConfig(backend="cuda"), device=c.dev)
     f = rt.bm.make_shifted_rosenbrock(req["dim"])
     t0 = time.perf_counter()
@@ -1702,6 +1830,199 @@ def card_vs_cpu_phase(phase: int):
     return run
 
 
+# -- heterogeneous portfolios and async islands (phase 17) ------------------------
+
+def _in_turns(c: Ctx, runs) -> tuple[dict[str, list[float]], dict[str, list]]:
+    """Each run warmed up with one round, then driven in turns (a, b, b,
+    a): host-clock ms per generation ending in a synchronise, and the
+    results (a run's two results must be equal)."""
+    prng = c.rt.prng
+    f = _objective(c, runs[0])
+    opts = [_algo_opt(c, r) for r in runs]
+    for r in runs:
+        _algo_opt(c, r, gens=r.sync_every).minimize(f, prng.PRNGKey(r.seed))
+    ms, res = {r.label: [] for r in runs}, {r.label: [] for r in runs}
+    for i in [*range(len(runs)), *reversed(range(len(runs)))]:
+        c.sync()
+        t0 = time.perf_counter()
+        out = opts[i].minimize(f, prng.PRNGKey(runs[i].seed))
+        c.sync()
+        ms[runs[i].label].append((time.perf_counter() - t0) * 1e3 / out.n_gens)
+        res[runs[i].label].append((out, opts[i]))
+    for label, pair in res.items():
+        _same_runs(f"{label} in turns", [pair[0][0]], [pair[1][0]])
+    return ms, res
+
+
+def _phase17_mixed(c: Ctx) -> dict:
+    """A: the mixed portfolio on the main path (launches, adoption, a
+    profile), then 30 generations in turns with phase 5's DE run (which
+    phase 5 profiles)."""
+    out = _run_main(c, 17, MIXED_RUN)
+    per_gen = out["launches_per_gen"]
+    require(all(per_gen.get(FUSED_KERNEL[a]) == 1.0 for a in PORTFOLIO),
+            f"A: fused launches per generation {per_gen}, expected one per group")
+    ms, _ = _in_turns(c, [dataclasses.replace(r, gens=30, profile=False)
+                          for r in (MIXED_RUN, DE8)])
+    out["ms_per_gen_in_turns"] = ms
+    log(f"phase 17: A, mixed portfolio in turns with {DE8.label}: ms/gen {json.dumps(ms)}")
+    return out
+
+
+def _phase17_bits(c: Ctx) -> dict:
+    """B and C: the homogeneous portfolio and async at staleness 0 against
+    phase 5's barrier run, bit for bit; the straggler in turns with the
+    barrier run, its staleness bound and island-rounds; its replay."""
+    prng = c.rt.prng
+    f = _objective(c, DE8)
+    base = _algo_opt(c, DE8).minimize(f, prng.PRNGKey(DE8.seed))
+    homog = _algo_opt(c, HOMOGENEOUS_RUN).minimize(f, prng.PRNGKey(DE8.seed))
+    _same_runs("B: homogeneous portfolio against the plain engine", [homog], [base])
+    opt0 = _algo_opt(c, ASYNC0_RUN)
+    async0 = opt0.minimize(f, prng.PRNGKey(DE8.seed))
+    _same_runs("C: async at staleness 0 against the barrier engine", [async0], [base])
+    require(opt0.last_max_staleness == 0, f"C: staleness {opt0.last_max_staleness}")
+    ms, res = _in_turns(c, [DE8, STRAGGLER_RUN])
+    straggler, sopt = res[STRAGGLER_RUN.label][0]
+    rec = sopt.recorded_schedule
+    bound = STRAGGLER_RUN.sync["max_staleness"]
+    require(0 <= sopt.last_max_staleness <= bound,
+            f"C: straggler staleness {sopt.last_max_staleness} outside 0..{bound}")
+    replay = dataclasses.replace(STRAGGLER_RUN, schedule={"step": rec.step, "deliver": rec.deliver})
+    again = _algo_opt(c, replay).minimize(f, prng.PRNGKey(DE8.seed))
+    _same_runs("C: replay of the recorded schedule", [again], [straggler])
+    out = {"homogeneous_value": homog.value, "async0_value": async0.value,
+           "straggler": {
+               "ms_per_tick_in_turns": [m * DE8.sync_every for m in ms[STRAGGLER_RUN.label]],
+               "barrier_ms_per_round_in_turns": [m * DE8.sync_every for m in ms[DE8.label]],
+               "ticks": len(rec.step), "island_rounds": int(rec.step.sum()),
+               "barrier_island_rounds": len(rec.step) * DE8.n_islands,
+               "last_max_staleness": sopt.last_max_staleness,
+               "value": straggler.value, "barrier_value": base.value}}
+    log(f"phase 17: B, C: homogeneous portfolio and async staleness 0 bit-identical to "
+        f"{DE8.label}; straggler: {json.dumps(out['straggler'])}")
+    return out
+
+
+def _cell_opt(c: Ctx, algo: str | None, device):
+    """benchmarks/portfolio.py's run_variant for PORTFOLIO_CELL: the mixed
+    portfolio (``algo`` None) or one algorithm over the same islands and
+    budget, SA tuned by its _sa_params, on the cuda backend."""
+    rt, k = c.rt, PORTFOLIO_CELL
+    I, P, S = k["n_islands"], k["pop"], k["sync_every"]
+    rounds = max(1, (k["budget"] - P * I) // (P * I * S))
+    sa = {"T0": k["sa_t0"], "step_frac": k["sa_step_frac"], "n_gens_hint": rounds * S}
+    cfg = rt.IslandConfig(n_islands=I, pop=P, dim=k["dim"], sync_every=S, migration="ring",
+                          share_incumbent=True, max_evals=k["budget"],
+                          portfolio=() if algo else k["portfolio"])
+    params = ({"sa": sa} if algo is None else sa if algo == "sa" else {})
+    return rt.IslandOptimizer(None if algo is None else rt.ALGORITHMS[algo], cfg,
+                              params=params, exec_cfg=rt.ExecutorConfig(backend="cuda"),
+                              device=device)
+
+
+def _phase17_card_vs_cpu(c: Ctx) -> dict:
+    """D: the portfolio benchmark's default cell through minimize_many on
+    the card and on the CPU (value and history of every seed), its single
+    algorithms on the card for the benchmark's claim (logged, not gated);
+    then the async runs of ASYNC_CARD_VS_CPU."""
+    import statistics
+
+    import numpy as np
+    torch, rt, k = c.torch, c.rt, PORTFOLIO_CELL
+    f = rt.bm.FUNCTIONS[k["fn"]]
+    keys = torch.stack([rt.prng.PRNGKey(s) for s in range(k["seeds"])])
+    c.reset()
+    card = _cell_opt(c, None, c.dev).minimize_many(f, keys)
+    counts = c.counts()
+    cpu = _cell_opt(c, None, "cpu").minimize_many(f, keys)
+    undo = _card_values(c)
+    try:
+        cpu_cv = _cell_opt(c, None, "cpu").minimize_many(f, keys)
+    finally:
+        undo()
+    # Rastrigin-12 runs end near 0.01, where the objective's float32 sum
+    # cancels: the kernel and the CPU sum in other orders and part by a few
+    # ulps of the sum's 120 (the kernel bound allows 1e-5 of |b| + 1,
+    # tests/test_kernels.py). So, as phase 14 does for the polish, the CPU
+    # also runs on the card's objective values (_card_values), and that run
+    # is held to rtol 1e-4; against the CPU's own values the gate is the
+    # kernel bound's form at 1e-4, with the plain relative and the absolute
+    # differences printed beside it.
+    def diffs(xs, ys):
+        return [(np.abs(np.append(a.history, a.value) - np.append(b.history, b.value)),
+                 np.abs(np.append(b.history, b.value))) for a, b in zip(xs, ys)]
+
+    rel_cv = max(float(np.max(d / h)) for d, h in diffs(card, cpu_cv))
+    rel1 = max(float(np.max(d / (h + 1.0))) for d, h in diffs(card, cpu))
+    rel = max(float(np.max(d / h)) for d, h in diffs(card, cpu))
+    absd = max(float(np.max(d)) for d, _ in diffs(card, cpu))
+    require(rel_cv < 1e-4 and rel1 < 1e-4
+            and all(a.n_evals == b.n_evals == e.n_evals for a, b, e in zip(card, cpu, cpu_cv)),
+            f"D: portfolio cell card vs cpu: on the card's values rel {rel_cv:.3g}; on its own "
+            f"|a-b|/(|b|+1) {rel1:.3g}, relative {rel:.3g}, absolute {absd:.3g}")
+    want = _want_counts(dataclasses.replace(CELL_RUNS[0], jobs=1), card[0].n_gens)
+    require(counts == want, f"D: portfolio cell launches {counts}, expected {want}")
+    medians = {a: statistics.median(r.value for r in _cell_opt(c, a, c.dev).minimize_many(f, keys))
+               for a in k["portfolio"]}
+    port = statistics.median(r.value for r in card)
+    out = {"cell": {"history_rel_diff_on_card_values": rel_cv,
+                    "history_diff_over_abs_plus_1": rel1, "history_rel_diff": rel,
+                    "history_abs_diff": absd, "n_evals": card[0].n_evals,
+                    "portfolio_median": port, "single_medians": medians,
+                    "beats_worst_single": port < max(medians.values()),
+                    "beats_best_single": port < min(medians.values()),
+                    "values": [r.value for r in card], "launches": counts}}
+    log(f"phase 17: D, benchmarks/portfolio.py's cell card vs cpu: {json.dumps(out['cell'])}")
+    for r in ASYNC_CARD_VS_CPU:
+        _card_vs_cpu(c, 17, r)
+    return out
+
+
+def _phase17_service(c: Ctx) -> dict:
+    """E: a portfolio bucket (resident, as the reference runs it) and an
+    async bucket (stepped) through OptimizationService.handle, every job
+    bit-identical to its standalone minimize; a devices: 2 request ends in
+    error."""
+    import shutil
+    shutil.rmtree(SERVICE_DIR / "phase17", ignore_errors=True)
+    svc = _service(c, "phase17")
+    out = {}
+    seeds = range(SERVICE17_JOBS)
+    for name, req in SERVICE17.items():
+        want, t_seq = _standalone(c, req, seeds)
+        got, t_b = _flush_and_collect(svc, _submit(svc, req, seeds))
+        _same_runs(f"E: {name} bucket", got, want)
+        out[name] = {"jobs": len(got), "seconds_standalone": t_seq, "seconds_bucket": t_b,
+                     "n_evals": got[0].n_evals, "best": [r.value for r in got]}
+    (jid,) = _submit(svc, {**SERVICE17["async"], "devices": 2}, [0])
+    svc.handle({"op": "flush"})
+    require(svc.scheduler.drain(timeout=300), "E: the devices: 2 bucket did not finish")
+    resp = svc.scheduler.poll(jid)
+    require(resp.status == "error" and "devices" in (resp.error or ""),
+            f"E: devices: 2 ended {resp.status} {resp.error}")
+    out["devices_2"] = resp.error
+    svc.scheduler.close()
+    log(f"phase 17: E, the service: {json.dumps(out)}")
+    return out
+
+
+def phase_portfolio_async(c: Ctx) -> dict:
+    """Phase 17 (see the module docstring): A-E. The launch counters are
+    read around each main-path drive (A) and across the phase."""
+    out = {"A": _phase17_mixed(c)}
+    c.reset()
+    out.update(_phase17_bits(c))
+    out["D"] = _phase17_card_vs_cpu(c)
+    c.reset()
+    out["E"] = _phase17_service(c)
+    counts = c.counts()
+    c.add_launches(counts)
+    require(counts["de_step"] and counts["pso_step"] and counts["eval_select"]
+            and counts["ga_step"], f"E: launches {counts}")
+    return out
+
+
 # -- the model serving path ------------------------------------------------------
 
 # Bounds of tests/test_kernels.py: flash attention absolute, the SSD scan
@@ -1890,8 +2211,7 @@ def profile_decode(c: Ctx, cfg, params, batch: int, prompt_len: int, steps: int 
     run(steps)
     c.sync()
     wall = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(steps)
         c.sync()
     rows = _device_rows(c, prof)
@@ -2068,9 +2388,11 @@ def model_card_vs_cpu_phase(phase: int):
 EVAL_TIMED = ((POP, DIM), (POP // 8, DIM),
               *sorted(set(_polish_batches(HYBRID_RUN, HYBRID_POLISH["polish_topk"], 1))
                       | set(_polish_batches(HYBRID_RUN, 1, 1)), reverse=True))
-DE_TIMED = ((POP, DIM), (8, POP, DIM))
-GA_TIMED = ((POP // 4, DIM), (8, POP // 4, DIM), (8, 1, DIM))
-ES_TIMED = ((POP, DIM),)
+# The fused kernels also at phase 17's groups of two islands.
+DE_TIMED = ((POP, DIM), (8, POP, DIM), (2, POP, DIM))
+GA_TIMED = ((POP // 4, DIM), (8, POP // 4, DIM), (8, 1, DIM), (2, POP // 4, DIM))
+ES_TIMED = ((POP, DIM), (2, POP, DIM))
+PSO_TIMED = ((POP, DIM), (2, POP, DIM))
 
 
 def _bound(rates: dict[str, float], nbytes: float, nops: float) -> dict:
@@ -2155,26 +2477,48 @@ def _time_eval_select(c: Ctx, rates, gen, shape) -> dict:
     accepted and the geometry. Bound: pop and trial read, the population
     written; fit, thresh, shift read; fit and accepted written."""
     torch, be, es = c.torch, c.rt.bench_eval, c.rt.eval_select
-    P, D = shape
+    *lead, P, D = shape
+    R = math.prod(lead) * P
     shift = c.rt.bm.shift_vector(D, device=c.dev)
     pop, trial = (_uniform(torch, gen, shape, -100.0, 100.0, c.dev) for _ in range(2))
     fit = be.bench_eval_ref(pop, "shifted_rosenbrock", shift, 390.0)
-    th = -100.0 * torch.log(torch.rand(P, generator=gen)).to(c.dev)
+    th = -100.0 * torch.log(torch.rand((*lead, P), generator=gen)).to(c.dev)
     args = (pop, fit, trial, th, "shifted_rosenbrock", shift, 390.0)
-    nbytes = 4 * 3 * P * D + 4 * (3 * P + D) + 4 * P + P
+    nbytes = 4 * 3 * R * D + 4 * (3 * R + D) + 4 * R + R
     return {"shape": list(shape), "ms": time_ms(lambda: es.eval_select(*args)),
             "plain_ms": time_ms(lambda: es.eval_select_ref(*args)),
-            **_bound(rates, nbytes, 12 * P * D + 3 * P),
+            **_bound(rates, nbytes, 12 * R * D + 3 * R),
             "decided_share": float(es.eval_select(*args)[2].float().mean()),
-            "geometry": be.geometry_for(P, D, pop, trial, shift)._asdict()}
+            "geometry": be.geometry_for(R, D, pop, trial, shift)._asdict()}
+
+
+def _time_pso_step(c: Ctx, rates, gen, shape) -> dict:
+    """pso_step on shifted Rosenbrock at ``shape`` (``[I,] P, D``) with Fig.
+    4's w, fp, fg and vmax 0.2 of the box: kernel, plain and bound. Bytes:
+    x, v, pbest, r1, r2 in; x, v, pbest out; pbest_f, gbest, shift in;
+    fitness, pbest_f out. Per lane: 11 operations for the update (two of
+    them fused multiply-adds) and 12 for the evaluation."""
+    torch, be = c.torch, c.rt.bench_eval
+    *lead, P, D = shape
+    R = math.prod(lead) * P
+    shift = c.rt.bm.shift_vector(D, device=c.dev)
+    x, v, pb = (_uniform(torch, gen, shape, -100.0, 100.0, c.dev) for _ in range(3))
+    r1, r2 = (torch.rand(shape, generator=gen).to(c.dev) for _ in range(2))
+    pbf = be.bench_eval_ref(pb, "shifted_rosenbrock", shift, 390.0)
+    best = pbf.argmin(-1)[..., None, None].expand(*lead, 1, D)
+    gbest = torch.gather(pb, -2, best).squeeze(-2).contiguous()
+    args = (x, v, pb, pbf, r1, r2, gbest, "shifted_rosenbrock", shift, 390.0, 0.6, 1.0,
+            1.0, 40.0, -100.0, 100.0)
+    return {"shape": list(shape), "ms": time_ms(lambda: c.rt.pso_step.pso_step(*args)),
+            "plain_ms": time_ms(lambda: c.rt.pso_step.pso_step_ref(*args)),
+            **_bound(rates, 4 * 8 * R * D + 4 * (R + (math.prod(lead) + 1) * D) + 4 * 2 * R,
+                     (13 + 12) * R * D + R)}
 
 
 def kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
     """Time each kernel and its plain version at its main path's shape and
     work out its bound from this run's inputs."""
-    torch, rt = c.torch, c.rt
-    be = rt.bench_eval
-    gen = torch.Generator().manual_seed(1)
+    gen = c.torch.Generator().manual_seed(1)
     for name, timer, shapes in (("bench_eval", _time_bench_eval, EVAL_TIMED),
                                 ("de_step", _time_de_step, DE_TIMED),
                                 ("eval_select", _time_eval_select, ES_TIMED),
@@ -2188,24 +2532,13 @@ def kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
                 f"{extra}, geometry {r['geometry']}")
 
-    # pso_step at Table I's shape (Fig. 4's w, fp, fg; vmax 0.2 of the box).
-    P, D = POP, DIM
-    shift = rt.bm.shift_vector(D, device=c.dev)
-    x, v, pb = (_uniform(torch, gen, (P, D), -100.0, 100.0, c.dev) for _ in range(3))
-    r1, r2 = (torch.rand((P, D), generator=gen).to(c.dev) for _ in range(2))
-    pbf = be.bench_eval_ref(pb, "shifted_rosenbrock", shift, 390.0)
-    args = (x, v, pb, pbf, r1, r2, pb[int(pbf.argmin())].contiguous(),
-            "shifted_rosenbrock", shift, 390.0, 0.6, 1.0, 1.0, 40.0, -100.0, 100.0)
-    k = c.kern["pso_step"]
-    k["ms"] = time_ms(lambda: rt.pso_step.pso_step(*args))
-    k["plain_ms"] = time_ms(lambda: rt.pso_step.pso_step_ref(*args))
-    # x, v, pbest, r1, r2 in; x, v, pbest out; pbest_f, gbest, shift in;
-    # fitness, pbest_f out. Per lane: 11 operations for the update (two of
-    # them fused multiply-adds) and 12 for the evaluation.
-    k.update(_bound(rates, 4 * 8 * P * D + 4 * (P + 2 * D) + 4 * 2 * P,
-                    (13 + 12) * P * D + P))
-    log(f"timing pso_step at {(P, D)}: kernel {k['ms']:.4f} ms, plain "
-        f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
+    # pso_step at Table I's shape and at phase 17's group of two islands.
+    rows = [_time_pso_step(c, rates, gen, shape) for shape in PSO_TIMED]
+    c.kern["pso_step"].update({key: rows[0][key] for key in
+                               ("ms", "plain_ms", "bound_ms", "bound_by")}, shapes=rows)
+    for r in rows:
+        log(f"timing pso_step at {tuple(r['shape'])}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     model_kernel_timings(c, rates)
 
 
@@ -2373,7 +2706,7 @@ def ptxas_summary(entries: list[dict]) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -2418,7 +2751,7 @@ def main() -> int:
              **{n: card_vs_cpu_phase(n) for n in CARD_VS_CPU_RUNS},
              **{n: run_model_phase(n) for n in MODEL_RUNS},
              **{n: model_card_vs_cpu_phase(n) for n in CARD_VS_CPU_MODEL_RUNS},
-             15: phase_hybrid, 16: phase_service}
+             15: phase_hybrid, 16: phase_service, 17: phase_portfolio_async}
     for num in sorted(steps):
         if num not in phases:
             continue
@@ -2466,6 +2799,8 @@ def main() -> int:
             # Every timed shape with its bound and geometry, and the
             # compiler's registers, shared memory and spills.
             row.update(shapes=k.get("shapes"), ptxas=k.get("ptxas"))
+        elif name == "pso_step":
+            row.update(shapes=k.get("shapes"))
         if name in TC_LIBRARY:
             # The CUDA-core design at the same shape (the float32 route), and
             # the tensor-core instructions in the bf16 route's SASS.

@@ -3,8 +3,9 @@
 The two packages share a state layout (``pop``, ``fit``, ``best_arg``,
 ``best_val``, and each policy's own keys: PSO's ``vel``, ``pbest``,
 ``pbest_f``; GA's ``age``, ``age_limit``, ``alive``; SA's step ``t``; EA's
-``sigma``; FA's ``alpha``),
-except that this port always keeps the island axis: a JAX single-island
+``sigma``; FA's ``alpha``; a portfolio's unified ``alive``, ``aux_vec``,
+``aux_ind``, ``aux_scl``; the async mailbox's ``mbox_*``, ``round_ctr``,
+``stale_seen``), except that this port always keeps the island axis: a JAX single-island
 state, which has none, gains one on the way in. A job-stacked state (the
 jobs axis, ``(J, [I,] ...)`` in JAX) folds into the port's one leading
 axis, ``(J·I, ...)`` (:func:`state_from_numpy`), and back
@@ -30,20 +31,26 @@ STATE_KEYS = ("pop", "fit", "best_arg", "best_val")
 # Rank of each state key with the island axis.
 _RANK = {"pop": 3, "fit": 2, "best_arg": 2, "best_val": 1, "vel": 3,
          "pbest": 3, "pbest_f": 2, "age": 2, "age_limit": 2, "alive": 2,
-         "t": 1, "sigma": 1, "alpha": 1}
+         "t": 1, "sigma": 1, "alpha": 1, "aux_vec": 4, "aux_ind": 3, "aux_scl": 2,
+         "mbox_pop": 4, "mbox_fit": 3, "mbox_tag": 2, "mbox_head": 1,
+         "round_ctr": 1, "stale_seen": 1}
+# Keys that are not float32: the liveness mask and the mailbox's counters.
+_DTYPE = {"alive": bool, "mbox_tag": np.int32, "mbox_head": np.int32,
+          "round_ctr": np.int32, "stale_seen": np.int32}
 
 
 def state_from_numpy(d: dict[str, Any], device: str | torch.device) -> dict:
     """Engine state from numpy arrays (either package's layout) on
-    ``device``: every key of ``d`` the engines know, ``alive`` as bool and
-    the rest as float32. The JAX layout's leading axes, ``[J,] [I,] ...``
+    ``device``: every key of ``d`` the engines know, ``alive`` as bool,
+    the mailbox's tags, heads and counters as int32 and the rest as
+    float32. The JAX layout's leading axes, ``[J,] [I,] ...``
     (jobs of a ``minimize_many`` or ``BucketStepper`` state, islands), fold
     into the port's one, job-major; a state with neither gains it."""
     out = {}
     for k, v in d.items():
         if k not in _RANK:
             raise ValueError(f"unknown state key {k!r}")
-        a = np.asarray(v, dtype=bool if k == "alive" else np.float32)
+        a = np.asarray(v, dtype=_DTYPE.get(k, np.float32))
         rest = _RANK[k] - 1
         if not rest <= a.ndim <= rest + 2:
             raise ValueError(f"state[{k!r}] has shape {a.shape}")

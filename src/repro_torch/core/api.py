@@ -94,8 +94,8 @@ class OptRequest:
     polish_every: int = 1           # sync rounds between polish events
     polish_topk: int = 4            # per-island candidates polished per event
     polish_steps: int = 3           # descent iterations per polish event
-    portfolio: tuple[str, ...] = ()  # per-island policies (later slice)
-    sync_policy: str = "barrier"    # barrier | async (later slice)
+    portfolio: tuple[str, ...] = ()  # per-island policies
+    sync_policy: str = "barrier"    # barrier | async
     max_staleness: int = 0
     # Warm-start immigrants, the federation hop (launch/federate.py): adopted
     # into island 0's worst slots before round 0. Value-keyed into the

@@ -28,12 +28,28 @@ Three drivers, with the same trajectory for a fixed key:
 
 The key discipline is the JAX engine's, draw for draw, so a seed gives the
 same trajectory in both packages up to float32 rounding of the fitness.
-This slice carries barrier islands with ring, starvation and none
-migration, and the adoption of migrants into policies with per-individual
-state (``core.portfolio.adopt_native``: ga revives and zeroes the age, pso
-restarts velocity and personal best). ``minimize(warm=)`` adopts
-externally routed candidates (federation migrants) into island 0's worst
-slots by the same rule before round 0.
+Migration is ring, starvation or none, with the adoption of migrants into
+policies with per-individual state (``core.portfolio.adopt_native``: ga
+revives and zeroes the age, pso restarts velocity and personal best).
+``minimize(warm=)`` adopts externally routed candidates (federation
+migrants) into island 0's worst slots by the same rule before round 0.
+
+``IslandConfig.portfolio`` makes the engine *heterogeneous*: each island
+carries its own policy from ``core.portfolio``'s unified-state registry, and
+each generation steps every policy's islands as one group (one fused kernel
+launch per group), composing with migration (destination-policy slots
+re-initialise on adoption), incumbent sharing and the polish cadence. A
+homogeneous portfolio calls its policy directly and is bit-identical to the
+plain ``algo_maker`` engine.
+
+``sync_policy="async"`` drops the round barrier: islands advance on their
+own cadence (an :class:`AsyncSchedule`) and exchange migrants through a
+fixed-shape mailbox ring (``core.migration.mailbox_*``) whose leaves join
+the state. Every island computes its ``sync_every`` generations every tick
+from the global key table, and the schedule's step mask selects, once
+after the generations, which islands keep them. Under the default all-ones
+schedule with ``max_staleness=0`` the async engine is bit-identical to the
+barrier engine.
 
 ``IslandConfig.polish`` turns any meta-heuristic into a *memetic hybrid*:
 every ``polish_every`` rounds, each island's ``polish_topk`` best candidates
@@ -44,7 +60,7 @@ polished in one batch through the engine's own evaluator, so on the card
 each probe batch is one ``bench_eval`` launch pair. The pass draws nothing,
 so it leaves the key chain as it was.
 
-Portfolios, async islands and meshes raise ``NotImplementedError``.
+Meshes raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -56,7 +72,6 @@ import torch
 
 from repro_torch import prng, resolve_device
 from repro_torch.core import migration as mig
-from repro_torch.core import portfolio as pf
 from repro_torch.core.api import OptimizeResult
 from repro_torch.core.executor import ExecutorConfig, make_batch_evaluator
 from repro_torch.functions.benchmarks import Function
@@ -84,10 +99,18 @@ class IslandConfig:
     polish_every: int = 1         # sync rounds between polish events
     polish_topk: int = 4          # per-island candidates polished per event
     polish_steps: int = 3         # descent iterations per polish event
-    portfolio: tuple[str, ...] = ()  # heterogeneous islands (later slice)
-    sync_policy: str = "barrier"  # barrier (async: later slice)
-    max_staleness: int = 0
-    mailbox_slots: int = 4
+    # Heterogeneous portfolio: one policy name per island (cycled
+    # round-robin when shorter than n_islands). Non-empty selects portfolio
+    # mode — pass algo_maker=None; per-policy params go in
+    # IslandOptimizer(params={"de": {...}, ...}).
+    portfolio: tuple[str, ...] = ()
+    # Async staleness-bounded islands: "async" drops the round barrier;
+    # islands advance on an AsyncSchedule and exchange migrants through a
+    # mailbox ring (ring or none migration). With n_islands == 1 the mailbox
+    # is a self-loop no-op and the engine runs the barrier path.
+    sync_policy: str = "barrier"  # barrier | async
+    max_staleness: int = 0        # adopt migrants at most this many rounds old
+    mailbox_slots: int = 4        # per-island mailbox ring capacity
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +131,62 @@ class MetaHeuristic:
     step_override: Callable[[State, Tensor], State] | None = None
 
 
+@dataclasses.dataclass(frozen=True)
+class AsyncSchedule:
+    """Record/replay hook for the async engine's mailbox (counterpart of the
+    reference's ``AsyncSchedule``).
+
+    ``step[t, i]`` — island ``i`` runs a sync round at tick ``t``;
+    ``deliver[t, i]`` — the migrant batch island ``i`` posts at tick ``t``
+    reaches its ring successor (False models a dropped message). Both
+    default to all-ones — every island on every tick, every delivery on
+    time — which is exactly the barrier cadence. A ``seed`` generates random
+    Bernoulli masks instead, with numpy's ``RandomState`` as the reference
+    draws them. Whatever arrays a run used are recorded in
+    ``IslandOptimizer.recorded_schedule``; feeding that schedule back in
+    replays the run bit-identically.
+    """
+
+    step: Any = None          # (n_rounds, n_islands) bool, or None
+    deliver: Any = None       # (n_rounds, n_islands) bool, or None
+    seed: int | None = None   # random masks when the arrays are absent
+    step_prob: float = 0.75
+    deliver_prob: float = 0.75
+
+    def materialize(self, n_rounds: int, n_islands: int
+                    ) -> tuple[np.ndarray, np.ndarray]:
+        """Concrete ``(step, deliver)`` bool masks of shape
+        ``(n_rounds, n_islands)`` — explicit arrays are validated, missing
+        ones are filled from ``seed`` (or all-ones without one)."""
+        rng = np.random.RandomState(0 if self.seed is None else self.seed)
+
+        def mask(a: Any, p: float, name: str) -> np.ndarray:
+            if a is not None:
+                a = np.asarray(a, dtype=bool)
+                if a.shape != (n_rounds, n_islands):
+                    raise ValueError(
+                        f"AsyncSchedule.{name} has shape {a.shape}, engine "
+                        f"needs {(n_rounds, n_islands)}")
+                return a
+            if self.seed is None:
+                return np.ones((n_rounds, n_islands), dtype=bool)
+            return rng.random_sample((n_rounds, n_islands)) < p
+
+        return (mask(self.step, self.step_prob, "step"),
+                mask(self.deliver, self.deliver_prob, "deliver"))
+
+    @classmethod
+    def from_cadences(cls, cadences, n_rounds: int) -> "AsyncSchedule":
+        """Deterministic per-island cadence schedule: island ``i`` steps on
+        ticks ``t`` with ``t % cadences[i] == 0`` (a straggler with cadence 4
+        completes a round every 4th tick); every delivery fires."""
+        c = np.asarray(cadences, dtype=int)
+        if (c < 1).any():
+            raise ValueError("cadences must be >= 1")
+        step = (np.arange(n_rounds)[:, None] % c[None, :]) == 0
+        return cls(step=step, deliver=np.ones_like(step))
+
+
 AlgoMaker = Callable[..., MetaHeuristic]
 
 
@@ -119,11 +198,13 @@ class IslandOptimizer:
     """popt4jlib OptimizerIntf over the island engine.
 
     ``device=None`` runs on CUDA and raises if no GPU is present; pass
-    ``device="cpu"`` for the plain PyTorch path."""
+    ``device="cpu"`` for the plain PyTorch path. In portfolio mode
+    (``cfg.portfolio``) ``algo_maker`` is ``None`` and ``params`` maps each
+    policy name to its maker's keyword arguments."""
 
     def __init__(
         self,
-        algo_maker: AlgoMaker,
+        algo_maker: AlgoMaker | None,
         cfg: IslandConfig,
         params: dict[str, Any] | None = None,
         exec_cfg: ExecutorConfig = ExecutorConfig(),
@@ -131,25 +212,53 @@ class IslandOptimizer:
         device: str | torch.device | None = None,
         mesh: Any = None,
         mesh_cfg: Any = None,
+        schedule: AsyncSchedule | None = None,
     ) -> None:
         if cfg.migration not in mig.POLICIES:
             raise ValueError(f"unknown migration policy {cfg.migration!r}")
-        if cfg.portfolio:
-            raise _later("the algorithm portfolio (IslandConfig.portfolio)")
-        if cfg.sync_policy == "async":
-            raise _later("async islands (sync_policy='async')")
-        if cfg.sync_policy != "barrier":
+        if cfg.sync_policy not in ("barrier", "async"):
             raise ValueError(f"unknown sync_policy {cfg.sync_policy!r}")
+        if cfg.sync_policy == "async" and cfg.migration == "starvation":
+            raise ValueError(
+                "async islands support ring|none migration only: starvation "
+                "elects its host by a global argmin over every island's live "
+                "count, which is inherently a barrier")
+        if cfg.max_staleness < 0:
+            raise ValueError("max_staleness must be >= 0")
+        if cfg.mailbox_slots < 1:
+            raise ValueError("mailbox_slots must be >= 1")
+        # With one island the mailbox is a self-loop no-op, so the engine
+        # keeps the barrier path.
+        self._async = cfg.sync_policy == "async" and cfg.n_islands > 1
+        if schedule is not None and not self._async:
+            raise ValueError(
+                "an AsyncSchedule needs sync_policy='async' and n_islands > 1")
+        if cfg.portfolio:
+            if algo_maker is not None:
+                raise ValueError(
+                    "cfg.portfolio selects per-island policies; pass "
+                    "algo_maker=None")
+            if cfg.n_islands <= 1:
+                raise ValueError(
+                    "cfg.portfolio requires n_islands > 1 — each island "
+                    "carries one policy")
+        elif algo_maker is None:
+            raise ValueError("algo_maker is required unless cfg.portfolio is set")
         if mesh is not None or mesh_cfg is not None or cfg.pop_axes is not None:
             raise _later("mesh sharding")
-        if algo_maker is None:
-            raise ValueError("algo_maker is required")
         self.algo_maker = algo_maker
         self.cfg = cfg
         self.params = dict(params or {})
         self.exec_cfg = exec_cfg
         self.round_callback = round_callback
         self.device = resolve_device(device)
+        self.schedule = schedule
+        # The schedule the last async run used (the record half of
+        # record/replay); pass it back as ``schedule`` to replay the run.
+        self.recorded_schedule: AsyncSchedule | None = None
+        # High-water mark of adopted-migrant staleness in the last async run
+        # (-1: nothing adopted), never above cfg.max_staleness.
+        self.last_max_staleness: int | None = None
         self._steppers: dict[tuple, tuple[Callable, BucketStepper]] = {}
 
     # -- engine ------------------------------------------------------------
@@ -157,14 +266,24 @@ class IslandOptimizer:
     def _evaluator(self, f: Function) -> Callable[[Tensor], Tensor]:
         return make_batch_evaluator(f, self.exec_cfg)
 
-    def _build(self, f: Function, evaluator: Callable[[Tensor], Tensor] | None = None
-               ) -> MetaHeuristic:
+    def _build(self, f: Function, evaluator: Callable[[Tensor], Tensor] | None = None):
+        """The run's policy object: a ``MetaHeuristic`` from ``algo_maker``,
+        or a ``core.portfolio.Portfolio`` in portfolio mode."""
         cfg = self.cfg
-        return self.algo_maker(f=f, evaluator=evaluator or self._evaluator(f),
-                               pop=cfg.pop, dim=cfg.dim, **self.params)
+        evaluator = evaluator or self._evaluator(f)
+        if cfg.portfolio:
+            from repro_torch.core import portfolio as pf  # late: pf imports the algos
+            return pf.build_portfolio(
+                pf.expand(cfg.portfolio, cfg.n_islands), f=f, evaluator=evaluator,
+                pop=cfg.pop, dim=cfg.dim, params=self.params)
+        return self.algo_maker(f=f, evaluator=evaluator, pop=cfg.pop, dim=cfg.dim,
+                               **self.params)
 
-    def _eval_totals(self, algo: MetaHeuristic) -> tuple[int, int]:
-        """(per-generation, init) evaluation totals across all islands."""
+    def _eval_totals(self, algo) -> tuple[int, int]:
+        """(per-generation, init) evaluation totals across all islands —
+        each island charged its own policy's count in portfolio mode."""
+        if self.cfg.portfolio:
+            return algo.per_gen_total, algo.init_total
         return (algo.evals_per_gen * self.cfg.n_islands,
                 algo.init_evals * self.cfg.n_islands)
 
@@ -176,51 +295,137 @@ class IslandOptimizer:
             return prng.split(keys, self.cfg.n_islands).reshape(-1, 2)
         return keys
 
-    def _round_fn(self, algo: MetaHeuristic) -> Callable[[State, Tensor], State]:
-        """``(state (J·I, ...), round keys (J, 2)) -> state``: one sync round
-        of every job in the bucket (a single ``(2,)`` key is one job).
-        Migration and incumbent sharing see ``(J, I, ...)`` views, so
-        nothing crosses from one job to another."""
+    def _gens(self, algo) -> Callable[[State, Tensor], State]:
+        """``(state, round keys (J, 2)) -> state`` after ``sync_every``
+        generations of every island of every job."""
         cfg = self.cfg
-        step = algo.step_override if algo.step_override is not None else algo.gen
+        if cfg.portfolio:
+            step = algo.step_stacked
+        else:
+            step = algo.step_override if algo.step_override is not None else algo.gen
+
+        def gens(state: State, keys: Tensor) -> State:
+            gen_keys = prng.split(keys, cfg.sync_every)             # (J, S, 2)
+            for g in range(cfg.sync_every):
+                state = step(state, self._island_keys(gen_keys[:, g]))
+            return state
+
+        return gens
+
+    def _adopter(self, algo) -> Callable[[State, Tensor], State] | None:
+        """``(state, adopted (J·I, P)) -> state``: the destination policy's
+        re-initialisation of adopted migrants, or None when the policy has
+        no per-individual state to touch. ``adopt_native`` is looked up at
+        each call."""
+        from repro_torch.core import portfolio as pf  # late: pf imports the algos
+        if self.cfg.portfolio:
+            return algo.adopt_stacked
+        if pf.has_adopt_state(algo.name):
+            return lambda state, mask: pf.adopt_native(algo.name, state, mask)
+        return None
+
+    def _round_fn(self, algo) -> Callable[..., State]:
+        """One sync round of every job in the bucket: ``(state (J·I, ...),
+        round keys (J, 2)) -> state`` (a single ``(2,)`` key is one job).
+        Migration and incumbent sharing see ``(J, I, ...)`` views, so
+        nothing crosses from one job to another.
+
+        In async mode the round also takes the tick's schedule rows,
+        ``(state, keys, step_row (I,), deliver_row (I,))``, which every job
+        shares; the state carries the mailbox leaves."""
+        cfg = self.cfg
+        gens = self._gens(algo)
+        adopt = self._adopter(algo)
         stacked = cfg.n_islands > 1
-        adopts = pf.has_adopt_state(algo.name)
+
+        def take_migrants(state: State, pop: Tensor, fit: Tensor) -> State:
+            # Slots whose contents changed hold adopted migrants.
+            old_pop, old_fit = state["pop"], state["fit"]
+            pop, fit = pop.reshape(old_pop.shape), fit.reshape(old_fit.shape)
+            new = {**state, "pop": pop, "fit": fit}
+            if adopt is None:
+                return new
+            return adopt(new, torch.any(pop != old_pop, dim=-1) | (fit != old_fit))
+
+        def share(state: State, n_jobs: int) -> State:
+            arg, val = _select_best(state, n_jobs)
+            bv, ba = state["best_val"], state["best_arg"]
+            return {**state,
+                    "best_val": val[:, None].expand(n_jobs, cfg.n_islands).reshape(bv.shape),
+                    "best_arg": arg[:, None].expand(n_jobs, cfg.n_islands, -1)
+                    .reshape(ba.shape)}
 
         def round_fn(state: State, key: Tensor) -> State:
             keys = key.reshape(-1, 2)
             n_jobs = keys.shape[0]
-            gen_keys = prng.split(keys, cfg.sync_every)             # (J, S, 2)
-            for g in range(cfg.sync_every):
-                state = step(state, self._island_keys(gen_keys[:, g]))
+            state = gens(state, keys)
             if stacked and cfg.migration != "none":
-                old_pop, old_fit = state["pop"], state["fit"]
-                alive = state.get("alive")
+                alive = None
+                if cfg.migration == "starvation":
+                    alive = (algo.migration_alive(state) if cfg.portfolio
+                             else state.get("alive"))
                 pop, fit = mig.migrate(
-                    cfg.migration, _by_job(old_pop, n_jobs), _by_job(old_fit, n_jobs),
-                    k=cfg.n_migrants, alive=None if alive is None else _by_job(alive, n_jobs))
-                pop, fit = pop.reshape(old_pop.shape), fit.reshape(old_fit.shape)
-                state = {**state, "pop": pop, "fit": fit}
-                if adopts:
-                    # Slots whose contents changed hold adopted migrants.
-                    adopted = torch.any(pop != old_pop, dim=-1) | (fit != old_fit)
-                    state = pf.adopt_native(algo.name, state, adopted)
+                    cfg.migration, _by_job(state["pop"], n_jobs),
+                    _by_job(state["fit"], n_jobs), k=cfg.n_migrants,
+                    alive=None if alive is None else _by_job(alive, n_jobs))
+                state = take_migrants(state, pop, fit)
             if stacked and cfg.share_incumbent:
-                arg, val = _select_best(state, n_jobs)
-                bv, ba = state["best_val"], state["best_arg"]
-                state = {**state,
-                         "best_val": val[:, None].expand(n_jobs, cfg.n_islands).reshape(bv.shape),
-                         "best_arg": arg[:, None].expand(n_jobs, cfg.n_islands, -1)
-                         .reshape(ba.shape)}
+                state = share(state, n_jobs)
             return state
 
-        return round_fn
+        def async_round(state: State, key: Tensor, step_row: Tensor,
+                        deliver_row: Tensor) -> State:
+            keys = key.reshape(-1, 2)
+            n_jobs = keys.shape[0]
+            policy = {k: v for k, v in state.items() if k not in mig.MAILBOX_KEYS}
+            box = {k: _by_job(state[k], n_jobs) for k in mig.MAILBOX_KEYS}
+            # Every island computes its generations from the global key
+            # table; the step mask selects, once and after them, which
+            # islands keep the result. The rest keep their exact leaves.
+            stepped = gens(policy, keys)
+            rows = step_row.repeat(n_jobs)
+            policy = {k: torch.where(rows.reshape(-1, *(1,) * (v.dim() - 1)), stepped[k], v)
+                      for k, v in policy.items()}
+            if cfg.migration == "ring":
+                pop = _by_job(policy["pop"], n_jobs)
+                fit = _by_job(policy["fit"], n_jobs)
+                box = mig.mailbox_post(box, pop, fit, cfg.n_migrants,
+                                       step_row & deliver_row)
+                pop, fit, box = mig.mailbox_adopt(box, pop, fit, cfg.max_staleness,
+                                                  step_row)
+                policy = take_migrants(policy, pop, fit)
+            if cfg.share_incumbent:
+                policy = share(policy, n_jobs)
+            box["round_ctr"] = box["round_ctr"] + step_row.to(torch.int32)
+            return {**policy, **{k: v.reshape(-1, *v.shape[2:]) for k, v in box.items()}}
 
-    def _init_state(self, algo: MetaHeuristic, ik: Tensor) -> State:
+        return async_round if self._async else round_fn
+
+    def _init_state(self, algo, ik: Tensor) -> State:
         """Fresh job- and island-stacked state from init keys ``ik`` ``(J,
-        2)``."""
-        return algo.init(self._island_keys(ik))
+        2)``; in async mode with the mailbox leaves merged in, so
+        checkpoints see one state."""
+        cfg = self.cfg
+        keys = self._island_keys(ik)
+        state = algo.init_stacked(keys) if cfg.portfolio else algo.init(keys)
+        if self._async:
+            state = {**state, **mig.mailbox_init(
+                keys.shape[0], cfg.mailbox_slots, cfg.n_migrants, cfg.dim,
+                device=keys.device)}
+        return state
 
-    def _warm_fn(self, algo: MetaHeuristic) -> Callable[[State, Tensor, Tensor], State]:
+    def _materialize_schedule(self, n_rounds: int) -> tuple[Tensor, Tensor]:
+        """Concrete ``(step, deliver)`` masks ``(n_rounds, I)`` for an async
+        run on the engine's device, recorded in ``recorded_schedule`` — the
+        record half of record/replay."""
+        sched = self.schedule if self.schedule is not None else AsyncSchedule()
+        step, deliver = sched.materialize(n_rounds, self.cfg.n_islands)
+        self.recorded_schedule = AsyncSchedule(step=step, deliver=deliver,
+                                               seed=sched.seed)
+        return (torch.as_tensor(step, device=self.device),
+                torch.as_tensor(deliver, device=self.device))
+
+    def _warm_fn(self, algo) -> Callable[[State, Tensor, Tensor], State]:
         """``(state (J·I, ...), warm (W, D), warm_fit (W,)) -> state``:
         immigration at init, the federation hop (``launch/federate.py``).
         Every job adopts the same candidates into island 0's worst slots by
@@ -228,7 +433,7 @@ class IslandOptimizer:
         per-individual state there, and island 0's incumbent is refreshed."""
         cfg = self.cfg
         n_isl = cfg.n_islands
-        adopts = pf.has_adopt_state(algo.name)
+        adopt = self._adopter(algo)
 
         def inject(state: State, w: Tensor, wf: Tensor) -> State:
             pop, fit = state["pop"], state["fit"]
@@ -241,12 +446,11 @@ class IslandOptimizer:
             pop = torch.cat([pop0[:, None], jpop[:, 1:]], 1).reshape(pop.shape)
             fit = torch.cat([fit0[:, None], jfit[:, 1:]], 1).reshape(fit.shape)
             state = {**state, "pop": pop, "fit": fit}
-            if adopts:
+            if adopt is not None:
                 changed = torch.any(pop0 != old_pop, dim=-1) | (fit0 != old_fit)
                 rest = torch.zeros_like(changed)[:, None].expand(-1, n_isl - 1, -1)
-                state = pf.adopt_native(
-                    algo.name, state, torch.cat([changed[:, None], rest], 1)
-                    .reshape(fit.shape))
+                state = adopt(state, torch.cat([changed[:, None], rest], 1)
+                              .reshape(fit.shape))
             new = incumbent(state, pop, fit)
             first = (torch.arange(fit.shape[0], device=fit.device) % n_isl) == 0
             return {**state,
@@ -328,7 +532,8 @@ class IslandOptimizer:
 
         ``warm`` (optional, ``(W, dim)``) are externally routed immigrants —
         federation migrants — adopted into the initial population before
-        round 0 (see :meth:`_warm_fn`)."""
+        round 0 (see :meth:`_warm_fn`). An async run materialises its
+        schedule first and records it in ``recorded_schedule``."""
         cfg = self.cfg
         algo = self._build(f)
         polish_pass, pp = self._polish(f)
@@ -336,10 +541,11 @@ class IslandOptimizer:
         n_rounds, per_round, n_polish, per_polish = self._budget(
             per_gen_total, init_total, pp)
         round_fn = self._round_fn(algo)
+        masks = self._materialize_schedule(n_rounds) if self._async else ()
         every = max(1, cfg.polish_every)
 
         def round_and_polish(state: State, r: int) -> State:
-            state = round_fn(state, round_keys[r])
+            state = round_fn(state, round_keys[r], *(m[r] for m in masks))
             if polish_pass is not None and (r + 1) % every == 0:
                 state = polish_pass(state)
             return state
@@ -359,8 +565,9 @@ class IslandOptimizer:
                 history[r] = torch.amin(state["best_val"])
             arg, val = _select_best(state)
             # The one device-to-host transfer of the run.
-            host = torch.cat([arg[0], val, history]).cpu().numpy()
-            arg, val, history = host[:cfg.dim], host[cfg.dim], host[cfg.dim + 1:]
+            host = torch.cat([arg[0], val, history, *_stale(state)]).cpu().numpy()
+            arg, val = host[:cfg.dim], host[cfg.dim]
+            history = host[cfg.dim + 1:cfg.dim + 1 + n_rounds]
         else:
             hist = []
             for r in range(n_rounds):
@@ -373,6 +580,9 @@ class IslandOptimizer:
             arg, val = _select_best(state)
             arg = arg[0].cpu().numpy()
             history = np.asarray(hist, dtype=np.float32)
+            host = torch.cat([val, *_stale(state)]).cpu().numpy()
+        if self._async:
+            self.last_max_staleness = int(host[-1])
 
         n_evals = init_total + n_rounds * per_round + n_polish * per_polish
         return OptimizeResult(arg=arg, value=float(val), n_evals=n_evals,
@@ -380,9 +590,9 @@ class IslandOptimizer:
 
     # -- jobs axis ---------------------------------------------------------
 
-    def bucket_stepper(self, f: Function) -> "BucketStepper":
-        """The cached host-stepped jobs-axis runner for objective ``f`` (see
-        :class:`BucketStepper`), keyed by ``Function.cache_token()``."""
+    def _stepper(self, f: Function) -> "BucketStepper":
+        """The cached :class:`BucketStepper` for objective ``f``, keyed by
+        ``Function.cache_token()``."""
         ck = f.cache_token()
         hit = self._steppers.get(ck)
         if hit is not None and hit[0] is f.fn:
@@ -391,29 +601,46 @@ class IslandOptimizer:
         self._steppers[ck] = (f.fn, stepper)
         return stepper
 
+    def bucket_stepper(self, f: Function) -> "BucketStepper":
+        """The cached host-stepped jobs-axis runner for objective ``f`` (see
+        :class:`BucketStepper`). As in the reference, portfolio buckets are
+        refused here: the scheduler runs them through ``minimize_many``,
+        without streaming or mid-run checkpoints."""
+        if self.cfg.portfolio:
+            raise ValueError(
+                "bucket_stepper does not support portfolio islands: the "
+                "service runs portfolio buckets resident through "
+                "minimize_many, as the reference does")
+        return self._stepper(f)
+
     def minimize_many(self, f: Function, keys: Tensor) -> list[OptimizeResult]:
         """Run one job per row of ``keys (J, 2)`` as one bucket.
 
         The scheduler's bucket primitive: all jobs share this optimizer's
         configuration and differ by key only. The bucket's state stays on
         the device and the results cross to the host in one transfer; each
-        job's result is bit-identical to ``minimize`` with its key."""
+        job's result is bit-identical to ``minimize`` with its key. An async
+        bucket replays one materialised schedule for every job."""
         if self.round_callback is not None:
             raise ValueError("minimize_many is device-resident only; "
                              "round_callback requires per-job minimize calls")
-        st = self.bucket_stepper(f)
+        st = self._stepper(f)
         state, round_keys = st.init(keys)
+        masks = self._materialize_schedule(st.n_rounds) if self._async else None
         n_jobs, dim = round_keys.shape[0], self.cfg.dim
         history = torch.empty((st.n_rounds, n_jobs), dtype=torch.float32,
                               device=self.device)
         for r in range(st.n_rounds):
-            state, history[r] = st.step(state, round_keys, r)
+            state, history[r] = st.step(state, round_keys, r, masks)
         args, vals = st.best(state)
-        host = torch.cat([args, vals[:, None], history.T], 1).cpu().numpy()
+        stale = [s.expand(n_jobs)[:, None] for s in _stale(state)]
+        host = torch.cat([args, vals[:, None], history.T, *stale], 1).cpu().numpy()
+        if self._async:
+            self.last_max_staleness = int(host[0, -1])
         return [OptimizeResult(arg=row[:dim], value=float(row[dim]),
                                n_evals=st.evals_done(st.n_rounds),
                                n_gens=st.n_rounds * self.cfg.sync_every,
-                               history=row[dim + 1:])
+                               history=row[dim + 1:dim + 1 + st.n_rounds])
                 for row in host]
 
 
@@ -427,7 +654,9 @@ class BucketStepper:
     checkpoint the bucket's state, while the trajectory stays
     bit-identical to ``minimize_many`` (the same init, key streams and
     round/polish/history order). State is job-major ``(J·I, ...)``; each
-    ``step`` returns the jobs' incumbent values ``(J,)`` on the device."""
+    ``step`` returns the jobs' incumbent values ``(J,)`` on the device. An
+    async bucket runs the all-ones schedule unless ``step`` is given the
+    masks (``minimize_many`` passes its materialised schedule)."""
 
     def __init__(self, opt: IslandOptimizer, f: Function) -> None:
         cfg = opt.cfg
@@ -443,6 +672,8 @@ class BucketStepper:
         self.every = max(1, cfg.polish_every)
         self.has_polish = self._polish_pass is not None
         self._round = opt._round_fn(algo)
+        self._async = opt._async
+        self._ones = torch.ones(cfg.n_islands, dtype=torch.bool, device=self.device)
         self._warm = opt._warm_fn(algo)
         self._warm_rows = lambda w: opt._warm_rows(f, w)
 
@@ -475,11 +706,19 @@ class BucketStepper:
         ks = prng.split(torch.as_tensor(keys).to("meta"))
         return self._opt._init_state(algo, ks[:, 1])
 
-    def step(self, state: State, round_keys: Tensor, r: int) -> tuple[State, Tensor]:
+    def step(self, state: State, round_keys: Tensor, r: int,
+             masks: tuple[Tensor, Tensor] | None = None) -> tuple[State, Tensor]:
         """Advance round ``r``: ``sync_every`` generations, migration,
         incumbent merge, and a polish on its cadence; returns the state and
-        each job's incumbent value ``(J,)``."""
-        state = self._round(state, round_keys[:, r])
+        each job's incumbent value ``(J,)``. An async bucket takes row ``r``
+        of ``masks`` (``(step, deliver)``, each ``(n_rounds, I)``), all ones
+        when not given."""
+        if not self._async:
+            state = self._round(state, round_keys[:, r])
+        elif masks is None:
+            state = self._round(state, round_keys[:, r], self._ones, self._ones)
+        else:
+            state = self._round(state, round_keys[:, r], masks[0][r], masks[1][r])
         if self.has_polish and (r + 1) % self.every == 0:
             state = self._polish_pass(state)
         n_jobs = round_keys.shape[0]
@@ -499,6 +738,14 @@ class BucketStepper:
 def _by_job(t: Tensor, n_jobs: int) -> Tensor:
     """``(J·I, ...)`` as ``(J, I, ...)``."""
     return t.reshape(n_jobs, -1, *t.shape[1:])
+
+
+def _stale(state: State) -> list[Tensor]:
+    """``[max stale_seen]`` as float32 ``(1,)`` for an async state, ``[]``
+    otherwise — appended to a run's one device-to-host transfer."""
+    if "stale_seen" not in state:
+        return []
+    return [state["stale_seen"].amax().float()[None]]
 
 
 def _select_best(state: State, n_jobs: int = 1) -> tuple[Tensor, Tensor]:

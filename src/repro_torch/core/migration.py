@@ -13,10 +13,21 @@ nothing moves between them.
               most ``k`` <= 2 migrants leave an island per sync round.
   none        isolated islands.
 
-The async mailbox comes in a later slice. Sorts are stable, as
-``jnp.argsort`` is, so ties pick the same slots in both packages. Neither
-policy reads a value back to the host: the host island is chosen on the
-device.
+Async mailbox: the staleness-bounded alternative to the lockstep
+exchange. Each island owns a fixed-shape ring buffer of migrant batches
+(``mailbox_init``); on the ticks it completes a round it posts its best-k to
+its ring successor's buffer tagged with its own round counter
+(``mailbox_post`` — a full ring overwrites the oldest entry), and adopts the
+newest entry whose staleness (receiver round minus sender tag) is at most
+``max_staleness`` through the same ``_replace_worst`` rule the barrier ring
+uses (``mailbox_adopt``). With every island on the barrier cadence and
+``max_staleness=0`` the adopted batch each tick is exactly the rolled
+migrant tensor ``ring`` computes. The mailbox functions take the same
+leading job dimensions, so the ring rolls within a job.
+
+Sorts are stable, as ``jnp.argsort`` is, so ties pick the same slots in both
+packages. Nothing here reads a value back to the host: the host island and
+the adopted slot are chosen on the device.
 """
 from __future__ import annotations
 
@@ -91,6 +102,104 @@ def starvation(pop: Tensor, fit: Tensor, k: int = 2,
     hpop2 = torch.where(starving[..., None, None], hpop2, hpop)
     hfit2 = torch.where(starving[..., None], hfit2, hfit)
     return pop.scatter(-3, rows, hpop2), fit.scatter(-2, slots, hfit2)
+
+
+# -- async staleness-bounded mailbox -------------------------------------------
+
+MAILBOX_KEYS = ("mbox_pop", "mbox_fit", "mbox_tag", "mbox_head",
+                "round_ctr", "stale_seen")
+
+
+def mailbox_init(n_islands: int, slots: int, k: int, dim: int,
+                 device: str | torch.device = "cpu") -> dict[str, Tensor]:
+    """Fresh per-island mailbox state (keys in :data:`MAILBOX_KEYS`), one
+    row per island (the engine passes its ``J·I`` rows):
+
+    * ``mbox_pop (I, S, k, D)`` / ``mbox_fit (I, S, k)`` — ``S`` ring slots
+      of k-migrant batches per island (empty slots carry +inf fitness);
+    * ``mbox_tag (I, S)`` int32 — the sender's round counter per slot, -1 =
+      empty;
+    * ``mbox_head (I,)`` int32 — each ring's write cursor (wraps = overwrite
+      oldest);
+    * ``round_ctr (I,)`` int32 — per-island completed-round counters, the
+      clocks staleness is measured against;
+    * ``stale_seen (I,)`` int32 — high-water mark of adopted-migrant
+      staleness (-1 until an adoption happens).
+    """
+    i, s = n_islands, slots
+    i32 = dict(dtype=torch.int32, device=device)
+    return {
+        "mbox_pop": torch.zeros((i, s, k, dim), device=device),
+        "mbox_fit": torch.full((i, s, k), torch.inf, device=device),
+        "mbox_tag": torch.full((i, s), -1, **i32),
+        "mbox_head": torch.zeros((i,), **i32),
+        "round_ctr": torch.zeros((i,), **i32),
+        "stale_seen": torch.full((i,), -1, **i32),
+    }
+
+
+def mailbox_post(mbox: dict[str, Tensor], pop: Tensor, fit: Tensor, k: int,
+                 post: Tensor) -> dict[str, Tensor]:
+    """Each island posts its best-k batch to its ring successor's mailbox.
+
+    ``pop (..., I, P, D)``, ``fit (..., I, P)`` and the mailbox leaves with
+    the same leading dimensions. ``post (..., I)`` gates per *sender*: an
+    island posts only on ticks it completed a round and the delivery
+    schedule fired (False models a dropped message; the batch is lost). The
+    batch lands at the receiver's write head tagged with the sender's
+    ``round_ctr``; a full ring overwrites the oldest entry."""
+    best = torch.argsort(fit, dim=-1, stable=True)[..., :k]          # (..., I, k)
+    mig = torch.gather(pop, -2, best.unsqueeze(-1).expand(*best.shape, pop.shape[-1]))
+    migf = torch.gather(fit, -1, best)
+    post = post.to(torch.int32).expand(mbox["round_ctr"].shape)
+    # i -> i+1: destination i receives from i-1
+    in_m, in_f = torch.roll(mig, 1, dims=-3), torch.roll(migf, 1, dims=-2)
+    in_t = torch.roll(mbox["round_ctr"], 1, dims=-1)
+    keep = torch.roll(post, 1, dims=-1) > 0                         # (..., I)
+    head = mbox["mbox_head"]
+    slots = mbox["mbox_tag"].shape[-1]
+    hit = keep[..., None] & (torch.arange(slots, device=head.device) == head[..., None])
+    return {**mbox,
+            "mbox_pop": torch.where(hit[..., None, None], in_m[..., None, :, :],
+                                    mbox["mbox_pop"]),
+            "mbox_fit": torch.where(hit[..., None], in_f[..., None, :], mbox["mbox_fit"]),
+            "mbox_tag": torch.where(hit, in_t[..., None], mbox["mbox_tag"]),
+            "mbox_head": torch.where(keep, (head + 1) % slots, head)}
+
+
+def mailbox_adopt(mbox: dict[str, Tensor], pop: Tensor, fit: Tensor,
+                  max_staleness: int, gate: Tensor
+                  ) -> tuple[Tensor, Tensor, dict[str, Tensor]]:
+    """Each island adopts the newest mailbox batch whose staleness — its own
+    ``round_ctr`` minus the sender's tag — is at most ``max_staleness``,
+    through the worst-k replacement rule the barrier ring uses.
+
+    Entries staler than the bound are never adopted (they age in the ring
+    until overwritten); an adopted slot is consumed (tag reset to -1) so a
+    batch is adopted at most once. ``gate (..., I)`` restricts adoption to
+    islands that completed a round this tick. The newest valid slot is the
+    first maximal tag, ``jnp.argmax``'s tie rule. ``stale_seen`` keeps the
+    high-water mark of adopted staleness. Returns ``(pop, fit, mbox)``."""
+    tags = mbox["mbox_tag"]                                        # (..., I, S)
+    stale = mbox["round_ctr"][..., None] - tags
+    keyed = torch.where((tags >= 0) & (stale <= max_staleness), tags, -1)
+    slots = torch.arange(tags.shape[-1], device=tags.device)
+    first_max = keyed == keyed.amax(dim=-1, keepdim=True)
+    slot = torch.where(first_max, slots, tags.shape[-1]).amin(dim=-1, keepdim=True)
+    take = (torch.gather(keyed, -1, slot)[..., 0] >= 0) & gate      # (..., I)
+    k, dim = mbox["mbox_pop"].shape[-2:]
+    m = torch.gather(mbox["mbox_pop"], -3,
+                     slot[..., None, None].expand(*slot.shape, k, dim))[..., 0, :, :]
+    f = torch.gather(mbox["mbox_fit"], -2, slot[..., None].expand(*slot.shape, k))[..., 0, :]
+    npop, nfit = _replace_worst(pop, fit, m, f)
+    pop = torch.where(take[..., None, None], npop, pop)
+    fit = torch.where(take[..., None], nfit, fit)
+    consumed = tags.scatter(-1, slot, -1)
+    st = torch.gather(stale, -1, slot)[..., 0]
+    seen = mbox["stale_seen"]
+    return pop, fit, {**mbox,
+                      "mbox_tag": torch.where(take[..., None], consumed, tags),
+                      "stale_seen": torch.where(take, torch.maximum(seen, st), seen)}
 
 
 def migrate(policy: str, pop: Tensor, fit: Tensor, k: int = 2,

@@ -29,10 +29,17 @@ Service hardening, as in the reference:
     are **load-shed** with :class:`SchedulerOverloaded` carrying a
     ``retry_after_ms`` hint.
 
+Portfolio buckets take the reference's resident path: the optimizer
+refuses them a stepper (``bucket_stepper`` raises ``ValueError``), so the
+bucket runs as one ``minimize_many`` with no streaming and no mid-run
+checkpoint, and a warm-started one as one ``minimize`` per job. Async
+buckets run stepped, on the all-ones schedule, and their checkpoints carry
+the mailbox leaves.
+
 Worker threads launch kernels on the current stream of the scheduler's
-device. A bucket the port cannot run yet (a portfolio, ``sync_policy=
-"async"``, ``devices > 1``) ends with status ``error`` and a message naming
-the layer that is not ported; the service keeps serving.
+device. A bucket the port cannot run yet (``devices > 1``) ends with status
+``error`` and a message naming the layer that is not ported; the service
+keeps serving.
 """
 from __future__ import annotations
 
@@ -251,11 +258,12 @@ class ShapeBucketScheduler:
                     sync_policy=req.sync_policy,
                     max_staleness=req.max_staleness,
                 )
-                # Portfolio and async configurations raise NotImplementedError
-                # here, inside flush_bucket's fault isolation: the bucket ends
-                # in error and the service keeps serving.
+                # Portfolio requests run heterogeneous per-island policies:
+                # `algo` is ignored and `params` maps policy name -> kwargs
+                # (build_portfolio thaws the frozen pair-tuples).
+                maker = None if req.portfolio else ALGORITHMS[req.algo]
                 opt = IslandOptimizer(
-                    ALGORITHMS[req.algo], cfg, params=dict(req.params),
+                    maker, cfg, params=dict(req.params),
                     exec_cfg=dataclasses.replace(
                         self.exec_cfg, backend=EXEC_BACKEND[req.backend]),
                     device=self.device)
@@ -370,7 +378,15 @@ class ShapeBucketScheduler:
         req0 = live[0].request
         try:
             opt = self._optimizer(req0)
-            self._run_stepped(item, opt.bucket_stepper(self._function(req0)))
+            f = self._function(req0)
+            try:
+                stepper = opt.bucket_stepper(f)
+            except ValueError:      # portfolio islands: no host stepping
+                stepper = None
+            if stepper is None:
+                self._run_resident(item, opt, f)
+            else:
+                self._run_stepped(item, stepper)
         except AbandonRun:
             raise
         except Exception as e:  # noqa: BLE001 — job-level fault isolation
@@ -386,6 +402,26 @@ class ShapeBucketScheduler:
         before it stopped) take seed 0 and are never reported."""
         return torch.stack([prng.PRNGKey(r.seed if r is not None else 0)
                             for r in reqs]).to(self.device)
+
+    def _run_resident(self, item: _RunItem, opt: IslandOptimizer, f) -> None:
+        """The reference's path for buckets without a stepper (portfolio
+        islands): one ``minimize_many`` — no streaming, no mid-run
+        preemption or checkpoint. A warm-started bucket runs one
+        ``minimize`` per job instead: warm is value-keyed into the
+        shape-class, so every row shares the same batch."""
+        jobs = [j for j in item.rows if j is not None and not j.finished()]
+        keys = self._keys([j.request for j in jobs])
+        warm = jobs[0].request.warm
+        if warm:
+            results = [opt.minimize(f, k, warm=np.asarray(warm, np.float32))
+                       for k in keys]
+        else:
+            results = opt.minimize_many(f, keys)
+        with self._mu:
+            self.n_dispatches += 1
+            self.n_jobs_run += len(jobs)
+            for j, res in zip(jobs, results):
+                self._finalize(j, "done", result=res)
 
     def _run_store(self, item: _RunItem) -> CheckpointStore | None:
         """Per-run checkpoint store under ``checkpoint_dir`` — the directory

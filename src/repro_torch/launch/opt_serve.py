@@ -55,9 +55,12 @@ separately from plain jobs because polish parameters join the shape-class:
 
 Request backends keep the reference's names: ``"pallas"`` runs the
 ``bench_eval`` kernel and ``"xla"`` the objective's torch form (``"cuda"``
-and ``"torch"`` are accepted too). Portfolio, async and sharded
-(``devices > 1``) requests are accepted and end with status ``error``
-naming the layer that is not ported yet; the service keeps serving.
+and ``"torch"`` are accepted too). Portfolio requests (``"portfolio":
+["de", "pso", "sa"]``, per-policy ``params``) run as one resident bucket
+without streaming; async requests (``"sync_policy": "async"``) run stepped.
+Sharded (``devices > 1``) requests are accepted and end with status
+``error`` naming the layer that is not ported yet; the service keeps
+serving.
 
 Batching policy (host-side queue): a bucket is dispatched when it reaches
 ``--max-batch`` queued jobs, when its oldest job ages past the ``--flush-ms``

@@ -253,25 +253,28 @@ def test_caches_are_lru_capped():
 
 
 def test_faults_are_isolated_per_bucket():
-    """A bad objective, a portfolio, async islands and a sharded request end
-    in ``error`` naming what failed; the other buckets finish, and the
+    """A bad objective, a bad backend, a sharded request and a portfolio or
+    async request the engine rejects end in ``error`` naming what failed;
+    a portfolio and an async bucket run; the other buckets finish, and the
     scheduler answers the next request."""
     sched = _sched()
     bad = {"fn": sched.submit(_req(fn="no_such_function")),
-           "portfolio": sched.submit(_req(portfolio=("de", "pso"))),
-           "async": sched.submit(_req(sync_policy="async")),
+           "portfolio": sched.submit(_req(portfolio=("de", "pso"),
+                                          params=(("sa", (("T0", 1.0),)),))),
+           "async": sched.submit(_req(sync_policy="async", migration="starvation")),
            "devices": sched.submit(_req(devices=2)),
            "backend": sched.submit(_req(backend="tpu"))}
-    ok = sched.submit(_req())
+    ok = [sched.submit(_req()), sched.submit(_req(portfolio=("de", "pso"))),
+          sched.submit(_req(sync_policy="async"))]
     sched.flush()
     errors = {k: sched.poll(v).error for k, v in bad.items()}
     assert all(sched.poll(v).status == "error" for v in bad.values())
     assert "KeyError" in errors["fn"]
-    assert "portfolio" in errors["portfolio"] and "not ported yet" in errors["portfolio"]
-    assert "async" in errors["async"] and "not ported yet" in errors["async"]
+    assert "not in the portfolio" in errors["portfolio"]
+    assert "async" in errors["async"] and "starvation" in errors["async"]
     assert "devices" in errors["devices"] and "not ported yet" in errors["devices"]
     assert "backend" in errors["backend"]
-    assert sched.poll(ok).status == "done"
+    assert all(sched.poll(j).status == "done" for j in ok)
     assert sched.result(sched.submit(_req(seed=7))).status == "done"
 
 
@@ -469,7 +472,7 @@ def test_service_batching_status_and_errors():
     assert svc.tick(now=time.monotonic() + 1e4) == 1     # the deadline flush
     assert svc.next_deadline() is None
     counts = {k.split("|")[0]: v["counts"] for k, v in svc.handle({"op": "status"})["buckets"].items()}
-    assert counts == {"sphere": {"done": 2}, "rastrigin": {"error": 1}}
+    assert counts == {"sphere": {"done": 2}, "rastrigin": {"done": 1}}
     out = svc.handle({"op": "result", "id": r1["id"]})
     assert out["status"] == "done" and len(out["arg"]) == 4
     json.dumps(out)
@@ -479,8 +482,8 @@ def test_service_batching_status_and_errors():
         reply, quit_ = tserve._handle_line(svc, payload)
         assert "error" in reply and not quit_
     stats = svc.handle({"op": "stats"})
-    # the async bucket ended in error before it ran: no dispatch
-    assert stats["dispatches"] == 1 and stats["max_batch"] == 2
+    # the one-island async bucket runs the barrier path: a dispatch of its own
+    assert stats["dispatches"] == 2 and stats["max_batch"] == 2
 
 
 JSONL_SCRIPT = [
