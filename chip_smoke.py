@@ -85,8 +85,28 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      portfolio on the card against the CPU, and the cell's single
      algorithms for the benchmark's claim (logged); E, a portfolio bucket
      and an async bucket of 3 jobs each through the service, every job
-     bit-identical to its standalone run, and a ``devices: 2`` request
-     ending in error.
+     bit-identical to its standalone run, and a request for more ranks than
+     the host can place ending in error;
+ 18. islands over ranks (``core/mesh.py``: one process per rank, spawned
+     by ``mesh.spawn``; nccl when the machine has a GPU per rank, gloo
+     with every rank on cuda:0 otherwise, each line naming its route and
+     its ranks' devices): A, phase 5's run on a 1-rank nccl mesh,
+     bit-identical to the unsharded run, in turns with it (ms/gen), whose
+     all-gathers and all-reduces go through NCCL (counted; the ring's hop
+     is the identity on one rank, so NCCL's send/recv does not run); B, the
+     same run over 2 and 4 ranks, bit-identical (ms/gen, each rank's
+     kernel launches and, by torch.profiler, all its device launches per
+     generation, the bytes each rank sends per round); C, the
+     steady-state starvation GA of phase 8 over 4 ranks (the all-gather
+     path), phase 17's mixed portfolio and straggler over 2, and 3 jobs of
+     phase 5's run through ``minimize_many`` over 2, each bit-identical to
+     its unsharded run (30, 30, 30 and 20 generations); D, a ``devices:
+     2`` request through the scheduler ending done with the value of the
+     same request at ``devices: 1``, and one the host cannot place ending
+     in error; E, ``distributed_map_reduce`` (sum, min, max of an
+     elementwise square) over 2 ranks against the CPU: min and max exact,
+     sum within rows x 2^-24 x sum|x^2|. The ranks record their own
+     launches and launch shapes, which come back to the phase.
 
 flash_attention and ssd_scan take two routes by the input's type: bfloat16
 runs the tensor-core kernels (``csrc/*_tc.cu``), float32 the CUDA-core
@@ -103,7 +123,7 @@ and, for ga_step and eval_select, the share of rows taken or accepted; the compi
 for their libraries are printed. The main-path runs of GA and SA also
 report the share of rows their fused kernel took or accepted.
 
-Phases 3-5, 7, 8, 10, 11, 13, 15, 16 and 17 are the main path: each run resets
+Phases 3-5, 7, 8, 10, 11, 13, 15, 16, 17 and 18 are the main path: each run resets
 the kernels' launch counters, drives its entry point
 (``IslandOptimizer.minimize``, ``explore_then_polish``, ``serve``, a prefill
 step, ``OptimizationService.handle``) and reads the counters right after. Each engine configuration is then profiled over a few rounds of a
@@ -203,8 +223,10 @@ MAIN_RUNS = {
     3: (Run("Table I fused", "de", 200, {**DE_TABLE1, "fused": True}),),
     4: (Run("Table I sync", "de", 20, {**DE_TABLE1, "barrier_mode": "sync"},
             profile=False),
+        # Not profiled: torch.profiler over the chunked path's 14,500
+        # device launches a generation took about 90 s of the run.
         Run("Table I chunked", "de", 50,
-            {**DE_TABLE1, "barrier_mode": "chunked"})),
+            {**DE_TABLE1, "barrier_mode": "chunked"}, profile=False)),
     5: (Run("8 islands fused ring", "de", 100, {**DE_TABLE1, "fused": True},
             seed=1, n_islands=8),),
     # PSO, GA and SA at Table I's objective and width; then the paper's
@@ -378,6 +400,35 @@ PORTFOLIO_RUNS = {17: (
                         jobs=SERVICE17_JOBS))}
 
 
+# Phase 18: islands over ranks (core/mesh.py), each rank a process. A: phase
+# 5's run on a 1-rank nccl mesh, in turns with the unsharded run; B: the same
+# run over 2 and 4 ranks; C: the steady-state GA of phase 8 (starvation: the
+# all-gather path) over 4 ranks, phase 17's mixed portfolio and straggler
+# over 2, and 3 jobs of phase 5's run through minimize_many over 2; each
+# bit-identical to its unsharded run. C runs at MESH_GENS generations.
+MESH_GENS = 30
+GA_STEADY = dataclasses.replace(MAIN_RUNS[8][1], gens=MESH_GENS, profile=False)
+MIXED18 = dataclasses.replace(MIXED_RUN, gens=MESH_GENS, profile=False)
+STRAGGLER18 = dataclasses.replace(STRAGGLER_RUN, gens=MESH_GENS)
+MANY18 = dataclasses.replace(DE8, label="3 jobs of phase 5's run", gens=20, profile=False,
+                             jobs=3)
+# B's runs of DE8 also count every device launch per generation on each
+# rank (torch.profiler, about 20 s a spawn); A's need not.
+DE8_A = dataclasses.replace(DE8, profile=False)
+MESH_RUNS = {1: (DE8_A,), 2: (DE8, MIXED18, STRAGGLER18, MANY18), 4: (DE8, GA_STEADY)}
+# A rank holds n_islands / ranks islands of every job: the shapes it
+# launches are those of a run with that many islands (phase 1's list).
+MESH_SHAPE_RUNS = tuple(dataclasses.replace(r, n_islands=r.n_islands // n)
+                        for n, runs in MESH_RUNS.items() for r in runs)
+# D: one devices: 2 request (8 fused DE islands, 2 rounds) through the
+# scheduler beside the same request at devices: 1, and one the host cannot
+# place; E: distributed_map_reduce of an elementwise square over 2 ranks.
+SERVICE18 = {**SERVICE_BASE, "n_islands": 8, "algo": "de",
+             "params": {**DE_TABLE1, "fused": True},
+             "max_evals": 8 * POP + 2 * SYNC_EVERY * 8 * POP}
+MAP_REDUCE_ROWS = 4096
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelRun:
     """One drive of the model serving path: ``entry`` "prefill" is
@@ -526,7 +577,7 @@ def launch_shapes(r: Run) -> dict[str, set[tuple[int, ...]]]:
 
 def _all_runs():
     for table in (MAIN_RUNS, CARD_VS_CPU_RUNS, {15: (HYBRID_RUN,), 16: SERVICE_RUNS},
-                  PORTFOLIO_RUNS):
+                  PORTFOLIO_RUNS, {18: MESH_SHAPE_RUNS}):
         for runs in table.values():
             yield from runs
 
@@ -756,9 +807,9 @@ def port_modules() -> types.SimpleNamespace:
     from repro_torch import prng
     from repro_torch.configs import popt_bench
     from repro_torch.core import (ALGORITHMS, AbandonRun, AsyncSchedule, ExecutorConfig,
-                                  IslandConfig, IslandOptimizer,
-                                  ShapeBucketScheduler, de, explore_then_polish,
-                                  explore_then_polish_many, migration)
+                                  IslandConfig, IslandOptimizer, OptRequest,
+                                  ShapeBucketScheduler, de, executor, explore_then_polish,
+                                  explore_then_polish_many, mesh, migration)
     from repro_torch.launch.opt_serve import OptimizationService
     from repro_torch.optim import descent
     from repro_torch.functions import benchmarks as bm
@@ -772,7 +823,8 @@ def port_modules() -> types.SimpleNamespace:
         prng=prng, de=de, bm=bm, bench_eval=bench_eval, de_step=de_step,
         eval_select=eval_select, pso_step=pso_step, ga_step=ga_step,
         flash_attention=flash_attention, ssd_scan=ssd_scan,
-        ALGORITHMS=ALGORITHMS, migration=migration,
+        ALGORITHMS=ALGORITHMS, migration=migration, mesh=mesh, executor=executor,
+        OptRequest=OptRequest,
         _build=_build, ExecutorConfig=ExecutorConfig, IslandConfig=IslandConfig,
         AsyncSchedule=AsyncSchedule,
         IslandOptimizer=IslandOptimizer, get_config=get_config, serve=serve,
@@ -1167,9 +1219,9 @@ def _objective(c: Ctx, r: Run):
 
 
 def _algo_opt(c: Ctx, r: Run, gens: int | None = None, round_callback=None,
-              device=None):
+              device=None, mesh_cfg=None):
     """The engine for run ``r`` (``gens`` generations if given) on the
-    ``cuda`` backend."""
+    ``cuda`` backend, over the island mesh ``mesh_cfg`` if given."""
     rt = c.rt
     gens = r.gens if gens is None else gens
     polish = (_polish_events(r, gens) * r.n_islands * min(r.polish["polish_topk"], r.pop)
@@ -1188,7 +1240,8 @@ def _algo_opt(c: Ctx, r: Run, gens: int | None = None, round_callback=None,
     return rt.IslandOptimizer(None if r.portfolio else rt.ALGORITHMS[r.algo], cfg,
                               params=params, exec_cfg=rt.ExecutorConfig(backend="cuda"),
                               round_callback=round_callback, schedule=schedule,
-                              device=c.dev if device is None else device)
+                              device=c.dev if device is None else device,
+                              mesh_cfg=mesh_cfg)
 
 
 def _init_best(c: Ctx, opt, f, seed: int) -> float:
@@ -1232,8 +1285,8 @@ def _count_adoptions(c: Ctx):
     orig = mig.migrate
     seen = []
 
-    def counting(policy, pop, fit, k=2, alive=None):
-        new_pop, new_fit = orig(policy, pop, fit, k, alive)
+    def counting(policy, pop, fit, k=2, alive=None, group=None):
+        new_pop, new_fit = orig(policy, pop, fit, k, alive, group)
         seen.append((c.torch.any(new_pop != pop, dim=-1) | (new_fit != fit)).sum())
         return new_pop, new_fit
 
@@ -1304,6 +1357,7 @@ def main_path_phases() -> dict[str, set[int]]:
         out[k].add(16)
     for k in POP_KERNELS:
         out[k].add(17)
+        out[k].add(18)
     return out
 
 
@@ -1764,8 +1818,8 @@ def _card_values(c: Ctx):
     isl = sys.modules["repro_torch.core.islands"]
     orig = isl.make_batch_evaluator
 
-    def maker(f, cfg):
-        ev = orig(f, cfg)
+    def maker(f, cfg, group=None):
+        ev = orig(f, cfg, group)
         return lambda x: ev(x.to(c.dev)).cpu()
 
     isl.make_batch_evaluator = maker
@@ -1982,8 +2036,8 @@ def _phase17_card_vs_cpu(c: Ctx) -> dict:
 def _phase17_service(c: Ctx) -> dict:
     """E: a portfolio bucket (resident, as the reference runs it) and an
     async bucket (stepped) through OptimizationService.handle, every job
-    bit-identical to its standalone minimize; a devices: 2 request ends in
-    error."""
+    bit-identical to its standalone minimize; a request for more ranks
+    than the host can place ends in error."""
     import shutil
     shutil.rmtree(SERVICE_DIR / "phase17", ignore_errors=True)
     svc = _service(c, "phase17")
@@ -1995,13 +2049,13 @@ def _phase17_service(c: Ctx) -> dict:
         _same_runs(f"E: {name} bucket", got, want)
         out[name] = {"jobs": len(got), "seconds_standalone": t_seq, "seconds_bucket": t_b,
                      "n_evals": got[0].n_evals, "best": [r.value for r in got]}
-    (jid,) = _submit(svc, {**SERVICE17["async"], "devices": 2}, [0])
+    (jid,) = _submit(svc, {**SERVICE17["async"], "devices": 4096}, [0])
     svc.handle({"op": "flush"})
-    require(svc.scheduler.drain(timeout=300), "E: the devices: 2 bucket did not finish")
+    require(svc.scheduler.drain(timeout=300), "E: the devices: 4096 bucket did not finish")
     resp = svc.scheduler.poll(jid)
     require(resp.status == "error" and "devices" in (resp.error or ""),
-            f"E: devices: 2 ended {resp.status} {resp.error}")
-    out["devices_2"] = resp.error
+            f"E: devices: 4096 ended {resp.status} {resp.error}")
+    out["devices_4096"] = resp.error
     svc.scheduler.close()
     log(f"phase 17: E, the service: {json.dumps(out)}")
     return out
@@ -2020,6 +2074,275 @@ def phase_portfolio_async(c: Ctx) -> dict:
     c.add_launches(counts)
     require(counts["de_step"] and counts["pso_step"] and counts["eval_select"]
             and counts["ga_step"], f"E: launches {counts}")
+    return out
+
+
+# -- islands over ranks (phase 18) ----------------------------------------------------
+
+def _square(x):
+    """The map of phase 18 E: elementwise, so the card and the CPU give
+    the same bits before the reduction."""
+    return x * x
+
+
+def _tally_bytes(mesh) -> dict:
+    """Wrap the mesh's collectives to count, per kind, the bytes this rank
+    sends in them (a ring hop sends its tensor once; an all-gather and an
+    all-reduce contribute the rank's tensor)."""
+    moved = {}
+    for name in ("ring_shift", "all_gather_rows", "all_reduce"):
+        orig = getattr(mesh, name)
+
+        def counting(x, *a, _orig=orig, _name=name, **kw):
+            moved[_name] = moved.get(_name, 0) + x.numel() * x.element_size()
+            return _orig(x, *a, **kw)
+
+        setattr(mesh, name, counting)
+    return moved
+
+
+def _tally_issued(dist) -> dict:
+    """Wrap the ``torch.distributed`` calls the mesh's collectives make, to
+    count those that reach the process group's backend."""
+    issued = {}
+    for name in ("batch_isend_irecv", "all_gather", "all_reduce"):
+        orig = getattr(dist, name)
+
+        def counting(*a, _orig=orig, _name=name, **kw):
+            issued[_name] = issued.get(_name, 0) + 1
+            return _orig(*a, **kw)
+
+        setattr(dist, name, counting)
+    return issued
+
+
+def _mesh_call(c: Ctx, r: Run, mesh_cfg, gens: int | None = None):
+    """``minimize`` of run ``r`` (``minimize_many`` of its ``jobs`` seeds
+    r.seed, r.seed + 1, ...) over ``mesh_cfg``, or unsharded for None."""
+    prng = c.rt.prng
+    opt = _algo_opt(c, dataclasses.replace(r, jobs=1), gens=gens, mesh_cfg=mesh_cfg)
+    f = _objective(c, r)
+    if r.jobs > 1:
+        keys = c.torch.stack([prng.PRNGKey(r.seed + j) for j in range(r.jobs)])
+        return opt.minimize_many(f, keys.to(c.dev))
+    return [opt.minimize(f, prng.PRNGKey(r.seed))]
+
+
+def _device_launches_per_gen(c: Ctx, r: Run, mesh_cfg) -> float:
+    """Device launches (every kernel and copy, by ``torch.profiler``) per
+    generation of run ``r`` over ``mesh_cfg`` on this process: a 2-round
+    run less a 1-round run (init and the run's end cancel), per
+    generation. Device activity only: recording the host's operators too
+    costs about 40 s for these runs. None off the card."""
+    torch = c.torch
+    if c.dev.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+    counts = []
+    for rounds in (1, 2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _mesh_call(c, r, mesh_cfg, gens=rounds * r.sync_every)
+            c.sync()
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA))
+    return (counts[1] - counts[0]) / r.sync_every
+
+
+def _mesh_rank(runs, xs, device: str) -> dict:
+    """A spawned rank of phase 18: each run warmed up with one round, then
+    driven in place over the group (launch counters reset just before,
+    read just after; bytes this rank sent in collectives); optionally
+    distributed_map_reduce of _square over ``xs``. The rank runs on its
+    own GPU on the nccl route, on ``device`` on gloo. Every rank's counts,
+    bytes and launch shapes are gathered to rank 0, which returns them
+    with its results."""
+    t_in = time.perf_counter()
+    import torch
+    import torch.distributed as dist
+    rt = port_modules()
+    size, rank, backend = dist.get_world_size(), dist.get_rank(), dist.get_backend()
+    c = Ctx(torch, rt, f"cuda:{rank}" if backend == "nccl" else device)
+    record_launch_shapes(c)
+    c.phase = 18
+    moved, issued = _tally_bytes(rt.mesh), _tally_issued(dist)
+    cfg = rt.mesh.MeshConfig(devices=size, backend=backend)
+    out = []
+    for r in runs:
+        t_run = time.perf_counter()
+        _mesh_call(c, r, cfg, gens=r.sync_every)
+        c.sync()
+        c.reset()
+        moved.clear()
+        issued.clear()
+        t0 = time.perf_counter()
+        res = _mesh_call(c, r, cfg)
+        c.sync()
+        wall = time.perf_counter() - t0
+        out.append({"label": r.label, "results": res, "wall_s": wall,
+                    "ms_per_gen": wall / res[0].n_gens * 1e3,
+                    "counts": c.counts(), "bytes": dict(moved), "issued": dict(issued)})
+        if r.profile:
+            t_prof = time.perf_counter()
+            out[-1]["device_launches_per_gen"] = _device_launches_per_gen(c, r, cfg)
+            out[-1]["profile_s"] = time.perf_counter() - t_prof
+        out[-1]["run_s"] = time.perf_counter() - t_run
+    mr = None
+    if xs is not None:
+        m = cfg.build(c.dev)
+        mr = {op: rt.executor.distributed_map_reduce(m, m.axis, _square, op, xs.to(c.dev)).cpu()
+              for op in ("sum", "min", "max")}
+    mine = {"runs": [{k: v.get(k) for k in ("counts", "bytes", "ms_per_gen", "run_s",
+                                            "profile_s", "device_launches_per_gen")}
+                     for v in out],
+            "shapes": c.shapes.get(18, set()), "device": str(c.dev)}
+    every = [None] * size
+    dist.all_gather_object(every, mine)
+    return {"runs": out, "ranks": every, "map_reduce": mr, "backend": backend,
+            "rank_s": time.perf_counter() - t_in}
+
+
+def _spawn_ranks(c: Ctx, n: int, runs, backend: str, xs=None) -> dict:
+    """``_mesh_rank`` on ``n`` spawned ranks: its result, the launch shapes
+    of every rank filed under phase 18, the launches added to the kernel
+    table, and the spawn's own seconds: its wall less rank 0's time in
+    ``_mesh_rank`` (process start, imports, joining the group, returning)."""
+    t0 = time.perf_counter()
+    out = c.rt.mesh.spawn(n, _mesh_rank, runs, xs, c.dev.type, backend=backend, timeout=600)
+    out["spawn_s"] = time.perf_counter() - t0 - out["rank_s"]
+    for rank in out["ranks"]:
+        c.shapes.setdefault(18, set()).update(rank["shapes"])
+        for run in rank["runs"]:
+            c.add_launches(run["counts"])
+    return out
+
+
+def _mesh_line(n: int, out: dict, i: int, r: Run) -> dict:
+    """What phase 18 prints of run ``i`` of a spawn: route, ranks' devices,
+    ms/gen, each rank's launches per generation and bytes sent per round."""
+    gens = out["runs"][i]["results"][0].n_gens
+    rounds = gens // r.sync_every
+    return {"ranks": n, "backend": out["backend"],
+            "rank_devices": [k["device"] for k in out["ranks"]],
+            "ms_per_gen": out["runs"][i]["ms_per_gen"], "gens": gens,
+            "launches_per_gen_per_rank": [
+                {k: v / gens for k, v in k_["runs"][i]["counts"].items() if v}
+                for k_ in out["ranks"]],
+            "bytes_sent_per_round_per_rank": [
+                {k: v / rounds for k, v in k_["runs"][i]["bytes"].items()}
+                for k_ in out["ranks"]],
+            "device_launches_per_gen_per_rank": [k_["runs"][i]["device_launches_per_gen"]
+                                                 for k_ in out["ranks"]],
+            "rank_seconds_run_and_profile": [(k_["runs"][i]["run_s"], k_["runs"][i]["profile_s"])
+                                             for k_ in out["ranks"]],
+            "value": out["runs"][i]["results"][0].value}
+
+
+def phase_mesh(c: Ctx) -> dict:
+    """Phase 18 (see the module docstring): A-E. Every sharded run is held
+    bit for bit to its unsharded run; each printed line names its route
+    and its ranks' devices; the last line gives the seconds of each part."""
+    torch, rt = c.torch, c.rt
+    parts, t_last = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        parts[name] = now - t_last[0]
+        t_last[0] = now
+
+    def timed_unsharded(r):
+        c.sync()
+        t0 = time.perf_counter()
+        res = _mesh_call(c, r, None)
+        c.sync()
+        return res, (time.perf_counter() - t0) * 1e3 / res[0].n_gens
+
+    # A: the degenerate mesh in turns with the unsharded run.
+    _mesh_call(c, DE8, None, gens=DE8.sync_every)
+    base, ms_a1 = timed_unsharded(DE8)
+    one = _spawn_ranks(c, 1, MESH_RUNS[1] * 2, rt.mesh.default_backend(c.dev, 1))
+    again, ms_a2 = timed_unsharded(DE8)
+    _same_runs("18 A: unsharded run repeated", again, base)
+    for run in one["runs"]:
+        _same_runs("18 A: 1-rank mesh against the unsharded run", run["results"], base)
+        # The run's incumbents are all-gathered and its history all-reduced
+        # through the group; the ring's hop to oneself is the identity.
+        require(run["issued"].get("all_gather", 0) > 0 and run["issued"].get("all_reduce", 0) > 0
+                and "batch_isend_irecv" not in run["issued"],
+                f"18 A: collectives issued on the 1-rank group {run['issued']}")
+    out = {"A": {"backend": one["backend"], "rank_devices": [k["device"] for k in one["ranks"]],
+                 "ms_per_gen_in_turns": {"unsharded": [ms_a1, ms_a2],
+                                         "1 rank": [r["ms_per_gen"] for r in one["runs"]]},
+                 f"{one['backend']}_calls_per_run": one["runs"][0]["issued"],
+                 "ring_hop": "identity on one rank: no send/recv issued",
+                 "spawn_s": one["spawn_s"]}}
+    log(f"phase 18: A, {DE8.label} on a 1-rank {one['backend']} mesh, bit-identical, in turns: "
+        f"{json.dumps(out['A'])}")
+    lap("A")
+
+    # B and C: 2 ranks (B; C's portfolio, straggler and jobs; E's map/reduce)
+    # and 4 ranks (B; C's starvation GA).
+    xs = torch.rand((MAP_REDUCE_ROWS, DIM), generator=torch.Generator().manual_seed(18)) * 4 - 2
+    spawns = {}
+    for n in (2, 4):
+        spawns[n] = _spawn_ranks(c, n, MESH_RUNS[n], rt.mesh.default_backend(c.dev, n),
+                                 xs if n == 2 else None)
+        lap(f"{n} ranks")
+    for n, sp in spawns.items():
+        for i, r in enumerate(MESH_RUNS[n]):
+            want = base if r is DE8 else _mesh_call(c, r, None)
+            _same_runs(f"18 {r.label} over {n} ranks against the unsharded run",
+                       sp["runs"][i]["results"], want)
+            key = "B" if r is DE8 else "C"
+            line = _mesh_line(n, sp, i, r)
+            out.setdefault(key, {})[f"{r.label}, {n} ranks"] = line
+            log(f"phase 18: {key}, {r.label} over {n} ranks, bit-identical: {json.dumps(line)}")
+        out.setdefault("spawn_s", {})[n] = sp["spawn_s"]
+    log(f"phase 18: spawn seconds outside the ranks' work: {json.dumps(out['spawn_s'])}")
+    lap("unsharded references")
+
+    # D: the service.
+    route2 = rt.mesh.MeshConfig(devices=2).build(c.dev).backend   # the route D's request takes
+    sched = rt.ShapeBucketScheduler(device=c.dev)
+    spawn_timeout, rt.mesh.SPAWN_TIMEOUT = rt.mesh.SPAWN_TIMEOUT, 300.0  # D's deadline
+    req = {**SERVICE18, "seed": 3}
+    two = sched.submit(rt.OptRequest.from_dict({**req, "devices": 2}))
+    one_ = sched.submit(rt.OptRequest.from_dict(req))
+    many = 2 * rt.mesh.GLOO_MAX_RANKS
+    bad = sched.submit(rt.OptRequest.from_dict({**req, "n_islands": many, "devices": many}))
+    t0 = time.perf_counter()
+    try:
+        sched.flush()
+    finally:
+        rt.mesh.SPAWN_TIMEOUT = spawn_timeout
+    wall = time.perf_counter() - t0
+    r2, r1, rb = sched.poll(two), sched.poll(one_), sched.poll(bad)
+    require(r2.status == "done" and r1.status == "done",
+            f"18 D: devices 2 {r2.status} {r2.error}, devices 1 {r1.status} {r1.error}")
+    _same_runs("18 D: the devices: 2 request against devices: 1", [r2.result], [r1.result])
+    require(rb.status == "error" and "devices" in (rb.error or ""),
+            f"18 D: the unplaceable request ended {rb.status} {rb.error}")
+    out["D"] = {"backend": route2, "value": r2.result.value, "seconds": wall,
+                "unplaceable": rb.error}
+    log(f"phase 18: D, a devices: 2 request through the scheduler ({route2}) done, equal to "
+        f"devices: 1; an unplaceable one in error: {json.dumps(out['D'])}")
+    lap("D")
+
+    # E: distributed_map_reduce against the CPU. min and max exact; sum within
+    # float32 rounding of the reduction order, |err| <= rows * 2^-24 * sum|x^2|.
+    sq = (xs * xs).double()
+    mr = spawns[2]["map_reduce"]
+    bound = MAP_REDUCE_ROWS * 2.0 ** -24 * sq.abs().sum(0)
+    err = (mr["sum"].double() - sq.sum(0)).abs()
+    require(torch.equal(mr["min"], (xs * xs).amin(0)) and torch.equal(mr["max"], (xs * xs).amax(0)),
+            "18 E: min or max differs from the CPU's")
+    require(bool((err <= bound).all()), f"18 E: sum error {float(err.max()):.3g} over the bound")
+    out["E"] = {"backend": spawns[2]["backend"], "rows": MAP_REDUCE_ROWS, "dim": DIM,
+                "sum_max_abs_err": float(err.max()), "sum_err_over_bound": float((err / bound).max()),
+                "min_max_exact": True}
+    log(f"phase 18: E, distributed_map_reduce over 2 ranks against the CPU: {json.dumps(out['E'])}")
+    sched.close()
+    lap("E")
+    log(f"phase 18: seconds by part: {json.dumps(parts)}")
     return out
 
 
@@ -2706,10 +3029,11 @@ def ptxas_summary(entries: list[dict]) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2751,7 +3075,8 @@ def main() -> int:
              **{n: card_vs_cpu_phase(n) for n in CARD_VS_CPU_RUNS},
              **{n: run_model_phase(n) for n in MODEL_RUNS},
              **{n: model_card_vs_cpu_phase(n) for n in CARD_VS_CPU_MODEL_RUNS},
-             15: phase_hybrid, 16: phase_service, 17: phase_portfolio_async}
+             15: phase_hybrid, 16: phase_service, 17: phase_portfolio_async,
+             18: phase_mesh}
     for num in sorted(steps):
         if num not in phases:
             continue
@@ -2807,6 +3132,7 @@ def main() -> int:
             row.update(cuda_core_ms=k.get("cuda_core_ms"), float32_source=f"src/repro_torch/kernels/"
                        f"csrc/{name}.cu", sass=k.get("sass"))
         rows.append(row)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     if not ok:

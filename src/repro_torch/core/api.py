@@ -88,7 +88,7 @@ class OptRequest:
     n_migrants: int = 2
     share_incumbent: bool = False
     backend: str = "xla"            # xla | pallas (the port also takes torch | cuda)
-    devices: int = 1                # island sharding over devices (later slice)
+    devices: int = 1                # ranks the islands shard over (core/mesh.py)
     params: tuple[tuple[str, Any], ...] = ()  # extra algo kwargs, hashable
     polish: str = "none"            # none | asd | fcg | avd | bfgs
     polish_every: int = 1           # sync rounds between polish events

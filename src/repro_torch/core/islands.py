@@ -60,7 +60,22 @@ polished in one batch through the engine's own evaluator, so on the card
 each probe batch is one ``bench_eval`` launch pair. The pass draws nothing,
 so it leaves the key chain as it was.
 
-Meshes raise ``NotImplementedError``.
+A :class:`~repro_torch.core.mesh.MeshConfig` (``mesh_cfg``) makes the
+engine *distributed*: SPMD over ``torch.distributed``, one process (rank) per
+shard. Each rank runs this same engine on its own block of ``n_islands /
+devices`` islands (``(J·I_l, ...)`` rows with jobs folded in: island block
+``r`` of every job). Every rank derives the global key tables and schedule
+masks and takes its rows (``mesh.local_rows``), so each island draws what
+it draws unsharded; the ring migration and the async mailbox hop one
+boundary batch to the next rank, starvation and incumbent sharing
+all-gather, the history point is a minimum over ranks and the result an
+all-gather of the islands' incumbents with the first-minimum rule. A fixed
+seed gives the same result, bit for bit, at every rank count. Called from
+one process the engine spawns its ranks (``mesh.spawn``) and returns rank
+0's result; called inside a group of ``devices`` ranks (``torchrun``) it
+runs in place. ``mesh`` (a built :class:`~repro_torch.core.mesh.Mesh`) with
+``cfg.pop_axes`` and one island splits each evaluation's rows over the
+ranks instead, and ``minimize_many`` over a ``mesh`` splits the jobs.
 """
 from __future__ import annotations
 
@@ -71,6 +86,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng, resolve_device
+from repro_torch.core import mesh as mesh_mod
 from repro_torch.core import migration as mig
 from repro_torch.core.api import OptimizeResult
 from repro_torch.core.executor import ExecutorConfig, make_batch_evaluator
@@ -82,8 +98,7 @@ State = dict[str, Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class IslandConfig:
-    """Engine topology + budget. Same fields as the JAX engine's config;
-    the ones marked "later slice" must keep their defaults here."""
+    """Engine topology + budget. Same fields as the JAX engine's config."""
 
     n_islands: int = 1
     pop: int = 64                 # per-island population capacity
@@ -93,8 +108,8 @@ class IslandConfig:
     n_migrants: int = 2           # paper: at most 2 leave an island per round
     share_incumbent: bool = False # broadcast the global best at each round
     max_evals: int = 100_000      # Fig.4 budget unit: function evaluations
-    island_axes: tuple[str, ...] = ("data",)  # mesh axes (later slice)
-    pop_axes: tuple[str, ...] | None = None   # mesh axes (later slice)
+    island_axes: tuple[str, ...] = ("data",)  # parity: the port's meshes have one axis
+    pop_axes: tuple[str, ...] | None = None   # split each evaluation over `mesh` (one island)
     polish: str = "none"          # none | asd | fcg | avd | bfgs
     polish_every: int = 1         # sync rounds between polish events
     polish_topk: int = 4          # per-island candidates polished per event
@@ -190,17 +205,15 @@ class AsyncSchedule:
 AlgoMaker = Callable[..., MetaHeuristic]
 
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: later slice")
-
-
 class IslandOptimizer:
     """popt4jlib OptimizerIntf over the island engine.
 
     ``device=None`` runs on CUDA and raises if no GPU is present; pass
     ``device="cpu"`` for the plain PyTorch path. In portfolio mode
     (``cfg.portfolio``) ``algo_maker`` is ``None`` and ``params`` maps each
-    policy name to its maker's keyword arguments."""
+    policy name to its maker's keyword arguments. ``mesh_cfg`` shards the
+    islands over ranks; ``mesh`` (with ``cfg.pop_axes`` and one island)
+    shards each evaluation's rows, and the jobs of ``minimize_many``."""
 
     def __init__(
         self,
@@ -244,14 +257,31 @@ class IslandOptimizer:
                     "carries one policy")
         elif algo_maker is None:
             raise ValueError("algo_maker is required unless cfg.portfolio is set")
-        if mesh is not None or mesh_cfg is not None or cfg.pop_axes is not None:
-            raise _later("mesh sharding")
         self.algo_maker = algo_maker
         self.cfg = cfg
         self.params = dict(params or {})
         self.exec_cfg = exec_cfg
         self.round_callback = round_callback
         self.device = resolve_device(device)
+        # Island sharding: a MeshConfig lays the island axis over ranks. The
+        # placement is checked here, as the reference builds its mesh here.
+        self.mesh = mesh
+        self.mesh_cfg = mesh_cfg
+        self._island_mesh: mesh_mod.Mesh | None = None
+        if mesh_cfg is not None:
+            if mesh is not None:
+                raise ValueError(
+                    "mesh (population sharding) and mesh_cfg (island "
+                    "sharding) are mutually exclusive")
+            if cfg.n_islands <= 1:
+                raise ValueError("island sharding requires n_islands > 1")
+            mesh_cfg.local_islands(cfg.n_islands)   # divisibility check
+            self._island_mesh = mesh_cfg.build(self.device)
+        # This rank's view of the island mesh while the engine runs in place
+        # in a group (None: unsharded), and the row-splitting group of the
+        # population-sharded evaluator.
+        self._shard: mesh_mod.Group | None = None
+        self._pop_group: mesh_mod.Group | None = None
         self.schedule = schedule
         # The schedule the last async run used (the record half of
         # record/replay); pass it back as ``schedule`` to replay the run.
@@ -264,7 +294,67 @@ class IslandOptimizer:
     # -- engine ------------------------------------------------------------
 
     def _evaluator(self, f: Function) -> Callable[[Tensor], Tensor]:
-        return make_batch_evaluator(f, self.exec_cfg)
+        """The engine's batch evaluator for ``f`` (memoized by the
+        executor), its rows split over ``_pop_group`` when one is set."""
+        return make_batch_evaluator(f, self.exec_cfg, self._pop_group)
+
+    # -- sharding ----------------------------------------------------------
+
+    @property
+    def _n_local(self) -> int:
+        """Islands this rank holds (all of them unsharded)."""
+        return self.cfg.n_islands // (self._shard.size if self._shard else 1)
+
+    def _local(self, t: Tensor, dim: int = 0) -> Tensor:
+        """This rank's block of a global per-island table along ``dim``."""
+        if self._shard is None:
+            return t
+        return mesh_mod.local_rows(t, self._shard.rank, self._n_local, dim)
+
+    def _reduce(self, t: Tensor, op: str) -> Tensor:
+        """``op`` over the ranks of the island mesh (identity unsharded)."""
+        return mesh_mod.all_reduce(t, op, self._shard)
+
+    def _best(self, state: State, n_jobs: int = 1) -> tuple[Tensor, Tensor]:
+        """Each job's incumbent over every island of every rank: the
+        islands' ``best_val``/``best_arg`` all-gathered in global island
+        order (as they are, unsharded), then the first minimum: ``((J, D),
+        (J,))``."""
+        g = self._shard
+        bv = mesh_mod.all_gather_rows(_by_job(state["best_val"], n_jobs), g, dim=1)
+        ba = mesh_mod.all_gather_rows(_by_job(state["best_arg"], n_jobs), g, dim=1)
+        gi = torch.argmin(bv, dim=1)            # the first island on ties
+        jobs = torch.arange(n_jobs, device=gi.device)
+        return ba[jobs, gi], bv[jobs, gi]
+
+    def _stale(self, state: State) -> list[Tensor]:
+        """``[max stale_seen over every island]`` as float32 ``(1,)`` for an
+        async state, ``[]`` otherwise."""
+        return [self._reduce(t, "max") for t in _stale(state)]
+
+    def _spawned(self, method: str, f: Function, *args: Any) -> Any:
+        """Run ``self.<method>(f, *args)`` on freshly spawned ranks of this
+        optimizer's mesh and return rank 0's result; the run's record
+        (``recorded_schedule``, ``last_max_staleness``) comes back with it.
+        The kernel libraries are built here first, so the ranks only load
+        them."""
+        if self.round_callback is not None:
+            raise ValueError("round_callback cannot run in spawned ranks; "
+                             "run the mesh in place (torchrun)")
+        m = self._island_mesh or self.mesh
+        if self.device.type == "cuda":
+            from repro_torch.kernels import _build
+            _build.library("bench_eval")          # builds every source
+        recipe = dict(algo_maker=self.algo_maker, cfg=self.cfg, params=self.params,
+                      exec_cfg=self.exec_cfg, device=self.device, mesh=self.mesh,
+                      mesh_cfg=self.mesh_cfg, schedule=self.schedule)
+        args = tuple(a.cpu() if isinstance(a, Tensor) else a for a in args)
+        out, sched, stale = mesh_mod.spawn(m.devices, _rank_call, recipe, method, f, args,
+                                           backend=m.backend)
+        if sched is not None:
+            self.recorded_schedule = sched
+        self.last_max_staleness = stale
+        return out
 
     def _build(self, f: Function, evaluator: Callable[[Tensor], Tensor] | None = None):
         """The run's policy object: a ``MetaHeuristic`` from ``algo_maker``,
@@ -273,9 +363,12 @@ class IslandOptimizer:
         evaluator = evaluator or self._evaluator(f)
         if cfg.portfolio:
             from repro_torch.core import portfolio as pf  # late: pf imports the algos
-            return pf.build_portfolio(
+            port = pf.build_portfolio(
                 pf.expand(cfg.portfolio, cfg.n_islands), f=f, evaluator=evaluator,
                 pop=cfg.pop, dim=cfg.dim, params=self.params)
+            if self._shard is not None:
+                port.block = (self._shard.rank * self._n_local, self._n_local)
+            return port
         return self.algo_maker(f=f, evaluator=evaluator, pop=cfg.pop, dim=cfg.dim,
                                **self.params)
 
@@ -290,9 +383,11 @@ class IslandOptimizer:
     def _island_keys(self, keys: Tensor) -> Tensor:
         """``(J·I, 2)`` per-island keys from one key per job ``(J, 2)``:
         ``split(key, I)`` when islands are stacked, the key itself for a
-        single island — the JAX engine's vmap-or-not rule, job by job."""
+        single island — the JAX engine's vmap-or-not rule, job by job.
+        Sharded, every rank splits the global table and keeps its islands'
+        rows, ``(J·I_l, 2)``."""
         if self.cfg.n_islands > 1:
-            return prng.split(keys, self.cfg.n_islands).reshape(-1, 2)
+            return self._local(prng.split(keys, self.cfg.n_islands), 1).reshape(-1, 2)
         return keys
 
     def _gens(self, algo) -> Callable[[State, Tensor], State]:
@@ -348,12 +443,13 @@ class IslandOptimizer:
             return adopt(new, torch.any(pop != old_pop, dim=-1) | (fit != old_fit))
 
         def share(state: State, n_jobs: int) -> State:
-            arg, val = _select_best(state, n_jobs)
+            # Sharded, the islands' incumbents are all-gathered first.
+            arg, val = self._best(state, n_jobs)
             bv, ba = state["best_val"], state["best_arg"]
+            n_isl = bv.shape[0] // n_jobs
             return {**state,
-                    "best_val": val[:, None].expand(n_jobs, cfg.n_islands).reshape(bv.shape),
-                    "best_arg": arg[:, None].expand(n_jobs, cfg.n_islands, -1)
-                    .reshape(ba.shape)}
+                    "best_val": val[:, None].expand(n_jobs, n_isl).reshape(bv.shape),
+                    "best_arg": arg[:, None].expand(n_jobs, n_isl, -1).reshape(ba.shape)}
 
         def round_fn(state: State, key: Tensor) -> State:
             keys = key.reshape(-1, 2)
@@ -367,7 +463,8 @@ class IslandOptimizer:
                 pop, fit = mig.migrate(
                     cfg.migration, _by_job(state["pop"], n_jobs),
                     _by_job(state["fit"], n_jobs), k=cfg.n_migrants,
-                    alive=None if alive is None else _by_job(alive, n_jobs))
+                    alive=None if alive is None else _by_job(alive, n_jobs),
+                    group=self._shard)
                 state = take_migrants(state, pop, fit)
             if stacked and cfg.share_incumbent:
                 state = share(state, n_jobs)
@@ -376,6 +473,7 @@ class IslandOptimizer:
         def async_round(state: State, key: Tensor, step_row: Tensor,
                         deliver_row: Tensor) -> State:
             keys = key.reshape(-1, 2)
+            step_row, deliver_row = self._local(step_row), self._local(deliver_row)
             n_jobs = keys.shape[0]
             policy = {k: v for k, v in state.items() if k not in mig.MAILBOX_KEYS}
             box = {k: _by_job(state[k], n_jobs) for k in mig.MAILBOX_KEYS}
@@ -390,7 +488,7 @@ class IslandOptimizer:
                 pop = _by_job(policy["pop"], n_jobs)
                 fit = _by_job(policy["fit"], n_jobs)
                 box = mig.mailbox_post(box, pop, fit, cfg.n_migrants,
-                                       step_row & deliver_row)
+                                       step_row & deliver_row, group=self._shard)
                 pop, fit, box = mig.mailbox_adopt(box, pop, fit, cfg.max_staleness,
                                                   step_row)
                 policy = take_migrants(policy, pop, fit)
@@ -430,12 +528,15 @@ class IslandOptimizer:
         immigration at init, the federation hop (``launch/federate.py``).
         Every job adopts the same candidates into island 0's worst slots by
         migration's worst-k rule, the destination policy re-initialises its
-        per-individual state there, and island 0's incumbent is refreshed."""
-        cfg = self.cfg
-        n_isl = cfg.n_islands
+        per-individual state there, and island 0's incumbent is refreshed.
+        Sharded, island 0 is rank 0's first island; the other ranks keep
+        their state."""
+        n_isl = self._n_local
         adopt = self._adopter(algo)
 
         def inject(state: State, w: Tensor, wf: Tensor) -> State:
+            if self._shard is not None and self._shard.rank > 0:
+                return state
             pop, fit = state["pop"], state["fit"]
             n_jobs = pop.shape[0] // n_isl
             jpop, jfit = _by_job(pop, n_jobs), _by_job(fit, n_jobs)
@@ -533,8 +634,22 @@ class IslandOptimizer:
         ``warm`` (optional, ``(W, dim)``) are externally routed immigrants —
         federation migrants — adopted into the initial population before
         round 0 (see :meth:`_warm_fn`). An async run materialises its
-        schedule first and records it in ``recorded_schedule``."""
+        schedule first and records it in ``recorded_schedule``. Over a mesh
+        the run goes to the ranks (spawned, or in place inside a group);
+        every rank returns the same result."""
         cfg = self.cfg
+        if self._island_mesh is not None:
+            if self.round_callback is not None:
+                raise ValueError(
+                    "round_callback requires the unsharded engine: the "
+                    "host-stepped loop does not run over a mesh of ranks")
+            self._shard = self._island_mesh.local_group()
+            if self._shard is None:
+                return self._spawned("minimize", f, key, warm)
+        elif self.mesh is not None and cfg.n_islands == 1 and cfg.pop_axes is not None:
+            self._pop_group = self.mesh.local_group()
+            if self._pop_group is None:
+                return self._spawned("minimize", f, key, warm)
         algo = self._build(f)
         polish_pass, pp = self._polish(f)
         per_gen_total, init_total = self._eval_totals(algo)
@@ -563,9 +678,11 @@ class IslandOptimizer:
             for r in range(n_rounds):
                 state = round_and_polish(state, r)
                 history[r] = torch.amin(state["best_val"])
-            arg, val = _select_best(state)
+            # Sharded: the minimum over ranks of each round's point, exact.
+            history = self._reduce(history, "min")
+            arg, val = self._best(state)
             # The one device-to-host transfer of the run.
-            host = torch.cat([arg[0], val, history, *_stale(state)]).cpu().numpy()
+            host = torch.cat([arg[0], val, history, *self._stale(state)]).cpu().numpy()
             arg, val = host[:cfg.dim], host[cfg.dim]
             history = host[cfg.dim + 1:cfg.dim + 1 + n_rounds]
         else:
@@ -577,10 +694,10 @@ class IslandOptimizer:
                 if cfg.n_islands == 1:
                     ba, bv = ba[0], bv[0]
                 self.round_callback(r, ba, bv)
-            arg, val = _select_best(state)
+            arg, val = self._best(state)
             arg = arg[0].cpu().numpy()
             history = np.asarray(hist, dtype=np.float32)
-            host = torch.cat([val, *_stale(state)]).cpu().numpy()
+            host = torch.cat([val, *self._stale(state)]).cpu().numpy()
         if self._async:
             self.last_max_staleness = int(host[-1])
 
@@ -603,9 +720,13 @@ class IslandOptimizer:
 
     def bucket_stepper(self, f: Function) -> "BucketStepper":
         """The cached host-stepped jobs-axis runner for objective ``f`` (see
-        :class:`BucketStepper`). As in the reference, portfolio buckets are
-        refused here: the scheduler runs them through ``minimize_many``,
-        without streaming or mid-run checkpoints."""
+        :class:`BucketStepper`). As in the reference, portfolio and sharded
+        buckets are refused here: the scheduler runs them through
+        ``minimize_many``, without streaming or mid-run checkpoints."""
+        if self._island_mesh is not None or self.mesh is not None:
+            raise ValueError(
+                "bucket_stepper requires the unsharded engine: the "
+                "host-stepped loop does not run over a mesh of ranks")
         if self.cfg.portfolio:
             raise ValueError(
                 "bucket_stepper does not support portfolio islands: the "
@@ -620,10 +741,54 @@ class IslandOptimizer:
         configuration and differ by key only. The bucket's state stays on
         the device and the results cross to the host in one transfer; each
         job's result is bit-identical to ``minimize`` with its key. An async
-        bucket replays one materialised schedule for every job."""
+        bucket replays one materialised schedule for every job.
+
+        With ``mesh_cfg`` every rank holds island block ``r`` of every job;
+        with a ``mesh`` the jobs are padded to a multiple of the ranks, each
+        rank runs its share unsharded and the results are gathered in job
+        order."""
         if self.round_callback is not None:
             raise ValueError("minimize_many is device-resident only; "
                              "round_callback requires per-job minimize calls")
+        if self._island_mesh is not None:
+            self._shard = self._island_mesh.local_group()
+            if self._shard is None:
+                return self._spawned("minimize_many", f, keys)
+        elif self.mesh is not None:
+            group = self.mesh.local_group()
+            if group is None:
+                return self._spawned("minimize_many", f, keys)
+            self._pop_group = None       # each rank evaluates its own jobs' rows
+            return self._many_over_jobs(f, keys, group)
+        return self._many(f, keys)
+
+    def _many_over_jobs(self, f: Function, keys: Tensor,
+                        group: mesh_mod.Group) -> list[OptimizeResult]:
+        """``minimize_many`` with the jobs split over ``group``: the keys
+        padded with copies of the first to a multiple of the ranks, this
+        rank's share run unsharded, every job's ``(arg, value, history)``
+        all-gathered in job order (and the staleness high-water mark
+        reduced)."""
+        keys = torch.as_tensor(keys)
+        n_jobs, dim = keys.shape[0], self.cfg.dim
+        pad = (-n_jobs) % group.size
+        if pad:
+            keys = torch.cat([keys, keys[:1].expand(pad, 2)])
+        mine = self._many(f, mesh_mod.local_rows(keys, group.rank, keys.shape[0] // group.size))
+        stale = -1.0 if self.last_max_staleness is None else float(self.last_max_staleness)
+        rows = torch.as_tensor(np.stack([np.concatenate([r.arg, [r.value], r.history, [stale]])
+                                         for r in mine]).astype(np.float32))
+        rows = mesh_mod.all_gather_rows(rows, group)[:n_jobs].numpy()
+        if self._async:
+            self.last_max_staleness = int(rows[:, -1].max())
+        return [OptimizeResult(arg=row[:dim], value=float(row[dim]),
+                               n_evals=mine[0].n_evals, n_gens=mine[0].n_gens,
+                               history=row[dim + 1:-1])
+                for row in rows]
+
+    def _many(self, f: Function, keys: Tensor) -> list[OptimizeResult]:
+        """The jobs-axis run on this process (this rank's islands when
+        sharded)."""
         st = self._stepper(f)
         state, round_keys = st.init(keys)
         masks = self._materialize_schedule(st.n_rounds) if self._async else None
@@ -632,8 +797,9 @@ class IslandOptimizer:
                               device=self.device)
         for r in range(st.n_rounds):
             state, history[r] = st.step(state, round_keys, r, masks)
+        history = self._reduce(history, "min")
         args, vals = st.best(state)
-        stale = [s.expand(n_jobs)[:, None] for s in _stale(state)]
+        stale = [s.expand(n_jobs)[:, None] for s in self._stale(state)]
         host = torch.cat([args, vals[:, None], history.T, *stale], 1).cpu().numpy()
         if self._async:
             self.last_max_staleness = int(host[0, -1])
@@ -726,13 +892,25 @@ class BucketStepper:
 
     def best(self, state: State) -> tuple[Tensor, Tensor]:
         """Each job's incumbent ``(args (J, D), vals (J,))``."""
-        return _select_best(state, state["best_val"].shape[0] // self.cfg.n_islands)
+        return self._opt._best(state, state["best_val"].shape[0] // self._opt._n_local)
 
     def evals_done(self, rounds: int) -> int:
         """Evaluations one job has used after ``rounds`` rounds, by the rule
         ``minimize`` charges."""
         n_polish = rounds // self.every if self.has_polish else 0
         return self.init_evals + rounds * self.per_round + n_polish * self.per_polish
+
+
+def _rank_call(recipe: dict, method: str, f: Function, args: tuple):
+    """A spawned rank: rebuild the optimizer (on this rank's device), run
+    ``method`` in place over the group, and return ``(result, recorded
+    schedule, staleness high-water mark)``."""
+    group = (recipe["mesh_cfg"].build(recipe["device"]) if recipe["mesh_cfg"] is not None
+             else recipe["mesh"]).local_group()
+    recipe = {**recipe, "device": mesh_mod.rank_device(recipe["device"], group)}
+    opt = IslandOptimizer(**recipe)
+    out = getattr(opt, method)(f, *args)
+    return out, opt.recorded_schedule, opt.last_max_staleness
 
 
 def _by_job(t: Tensor, n_jobs: int) -> Tensor:
@@ -746,15 +924,6 @@ def _stale(state: State) -> list[Tensor]:
     if "stale_seen" not in state:
         return []
     return [state["stale_seen"].amax().float()[None]]
-
-
-def _select_best(state: State, n_jobs: int = 1) -> tuple[Tensor, Tensor]:
-    """Each job's incumbent ``((J, D), (J,))`` from job- and island-stacked
-    state (first island on ties)."""
-    bv = _by_job(state["best_val"], n_jobs)
-    gi = torch.argmin(bv, dim=1)
-    jobs = torch.arange(n_jobs, device=gi.device)
-    return _by_job(state["best_arg"], n_jobs)[jobs, gi], bv[jobs, gi]
 
 
 def _chain_split(key: Tensor, n: int) -> Tensor:

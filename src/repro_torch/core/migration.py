@@ -25,6 +25,15 @@ uses (``mailbox_adopt``). With every island on the barrier cadence and
 migrant tensor ``ring`` computes. The mailbox functions take the same
 leading job dimensions, so the ring rolls within a job.
 
+Sharded form (``group``, a ``core.mesh.Group``; ``None`` is the unsharded
+engine): each rank holds its block of ``I_local = I / ranks`` islands. The
+ring becomes a local roll plus one hop of the boundary island's migrants to
+the next rank (``mesh.ring_shift``, the reference's ``ppermute``; with jobs
+folded in, one hop carries every job's ``(k, D)`` batch and their fitness);
+starvation gathers the island-stacked arrays (``mesh.all_gather_rows``),
+runs the policy unchanged on the copy and keeps the rank's block; the
+mailbox post hops like the ring. Both forms compute identical values.
+
 Sorts are stable, as ``jnp.argsort`` is, so ties pick the same slots in both
 packages. Nothing here reads a value back to the host: the host island and
 the adopted slot are chosen on the device.
@@ -32,6 +41,8 @@ the adopted slot are chosen on the device.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import mesh
 
 Tensor = torch.Tensor
 
@@ -53,25 +64,59 @@ def _replace_worst(pop: Tensor, fit: Tensor, mig: Tensor, migf: Tensor):
     return (pop.scatter(-2, wrows, newp), fit.scatter(-1, worst, newf))
 
 
-def ring(pop: Tensor, fit: Tensor, k: int = 2):
-    """Counter-clock-wise ring migration of the best-k per island."""
-    if pop.shape[-3] <= 1:
+def _sharded(group: mesh.Group | None) -> bool:
+    return group is not None and group.size > 1
+
+
+def _from_prev(x: Tensor, prev: Tensor, dim: int) -> Tensor:
+    """``x`` shifted by one along island dimension ``dim``, ``prev`` (the
+    island before this block's first) in front: the block of the global
+    roll by one."""
+    return torch.cat([prev.unsqueeze(dim), x.narrow(dim, 0, x.shape[dim] - 1)], dim)
+
+
+def _roll_in(mig: Tensor, migf: Tensor,
+             group: mesh.Group | None) -> tuple[Tensor, Tensor]:
+    """The batches ``mig (..., I, k, D)``, ``migf (..., I, k)`` rolled by one
+    island, i -> i+1. The first island's batch is the previous rank's last
+    (one ``mesh.ring_shift`` hop, packed as ``(..., k, D + 1)``); unsharded
+    or on one rank the hop is the identity, so it is this block's own last."""
+    last = mesh.ring_shift(torch.cat([mig[..., -1, :, :], migf[..., -1, :, None]], -1), group)
+    return _from_prev(mig, last[..., :-1], -3), _from_prev(migf, last[..., -1], -2)
+
+
+def ring(pop: Tensor, fit: Tensor, k: int = 2, group: mesh.Group | None = None):
+    """Counter-clock-wise ring migration of the best-k per island. Sharded,
+    the roll by one crosses to the next rank with the last local island's
+    migrants and their fitness."""
+    if pop.shape[-3] <= 1 and not _sharded(group):
         return pop, fit
     best = torch.argsort(fit, dim=-1, stable=True)[..., :k]          # (..., I, k)
     mig = torch.gather(pop, -2, best.unsqueeze(-1).expand(*best.shape, pop.shape[-1]))
     migf = torch.gather(fit, -1, best)
     # i -> i+1: destination i receives from i-1
-    mig = torch.roll(mig, 1, dims=-3)
-    migf = torch.roll(migf, 1, dims=-2)
+    mig, migf = _roll_in(mig, migf, group)
     return _replace_worst(pop, fit, mig, migf)
 
 
 def starvation(pop: Tensor, fit: Tensor, k: int = 2,
-               alive: Tensor | None = None):
+               alive: Tensor | None = None, group: mesh.Group | None = None):
     """DGA starvation-based immigration: the weakest island hosts everyone's
     best. ``alive`` ``(..., I, P)`` marks live individuals (aging model;
     dead slots carry +inf fitness), ``isfinite(fit)`` when not given.
-    Migrants land in the host's worst (dead first) slots."""
+    Migrants land in the host's worst (dead first) slots.
+
+    The host is an argmin over every island, so the sharded form gathers
+    ``pop``, ``fit`` and ``alive`` from every rank, runs the policy on the
+    gathered copy and keeps this rank's block (its own allocation)."""
+    if _sharded(group):
+        gpop = mesh.all_gather_rows(pop, group, dim=-3)
+        gfit = mesh.all_gather_rows(fit, group, dim=-2)
+        galive = None if alive is None else mesh.all_gather_rows(alive, group, dim=-2)
+        npop, nfit = starvation(gpop, gfit, k, galive)
+        n = pop.shape[-3]
+        return (mesh.local_rows(npop, group.rank, n, -3).clone(),
+                mesh.local_rows(nfit, group.rank, n, -2).clone())
     n_isl, P, D = pop.shape[-3:]
     if n_isl <= 1:
         return pop, fit
@@ -139,7 +184,7 @@ def mailbox_init(n_islands: int, slots: int, k: int, dim: int,
 
 
 def mailbox_post(mbox: dict[str, Tensor], pop: Tensor, fit: Tensor, k: int,
-                 post: Tensor) -> dict[str, Tensor]:
+                 post: Tensor, group: mesh.Group | None = None) -> dict[str, Tensor]:
     """Each island posts its best-k batch to its ring successor's mailbox.
 
     ``pop (..., I, P, D)``, ``fit (..., I, P)`` and the mailbox leaves with
@@ -147,15 +192,19 @@ def mailbox_post(mbox: dict[str, Tensor], pop: Tensor, fit: Tensor, k: int,
     island posts only on ticks it completed a round and the delivery
     schedule fired (False models a dropped message; the batch is lost). The
     batch lands at the receiver's write head tagged with the sender's
-    ``round_ctr``; a full ring overwrites the oldest entry."""
+    ``round_ctr``; a full ring overwrites the oldest entry. Sharded, the
+    boundary island's batch crosses to the next rank as the ring's does:
+    one hop of migrants and fitness, one of tag and post flag."""
     best = torch.argsort(fit, dim=-1, stable=True)[..., :k]          # (..., I, k)
     mig = torch.gather(pop, -2, best.unsqueeze(-1).expand(*best.shape, pop.shape[-1]))
     migf = torch.gather(fit, -1, best)
     post = post.to(torch.int32).expand(mbox["round_ctr"].shape)
+    tag = mbox["round_ctr"]
     # i -> i+1: destination i receives from i-1
-    in_m, in_f = torch.roll(mig, 1, dims=-3), torch.roll(migf, 1, dims=-2)
-    in_t = torch.roll(mbox["round_ctr"], 1, dims=-1)
-    keep = torch.roll(post, 1, dims=-1) > 0                         # (..., I)
+    in_m, in_f = _roll_in(mig, migf, group)
+    tp = mesh.ring_shift(torch.stack([tag[..., -1], post[..., -1]], -1), group)
+    in_t = _from_prev(tag, tp[..., 0], -1)
+    keep = _from_prev(post, tp[..., 1], -1) > 0                     # (..., I)
     head = mbox["mbox_head"]
     slots = mbox["mbox_tag"].shape[-1]
     hit = keep[..., None] & (torch.arange(slots, device=head.device) == head[..., None])
@@ -203,13 +252,14 @@ def mailbox_adopt(mbox: dict[str, Tensor], pop: Tensor, fit: Tensor,
 
 
 def migrate(policy: str, pop: Tensor, fit: Tensor, k: int = 2,
-            alive: Tensor | None = None):
+            alive: Tensor | None = None, group: mesh.Group | None = None):
     """Dispatch to a migration policy by name: ring | starvation | none.
-    ``alive`` is read by starvation only."""
+    ``alive`` is read by starvation only; ``group`` selects the sharded
+    form."""
     if policy == "ring":
-        return ring(pop, fit, k)
+        return ring(pop, fit, k, group)
     if policy == "starvation":
-        return starvation(pop, fit, k, alive)
+        return starvation(pop, fit, k, alive, group)
     if policy == "none":
         return pop, fit
     raise ValueError(f"unknown migration policy {policy!r}")

@@ -300,6 +300,11 @@ class Portfolio:
     With a single distinct policy every entry point calls that policy on
     the whole state; otherwise each policy's rows are gathered, stepped as
     one group and scattered back (:meth:`step_stacked`).
+
+    ``block`` ``(start, n)`` (set by a sharded engine) says the rows are
+    islands ``start .. start + n - 1`` of each job: the index tables are
+    then built from that block of ``branch_of``, as the reference passes a
+    shard its local block of the branch table.
     """
 
     def __init__(self, names: tuple[str, ...],
@@ -315,6 +320,7 @@ class Portfolio:
         # alive=None default does.
         self.owns_alive = np.asarray(
             [REGISTRY[n].needs_alive for n in names])
+        self.block: tuple[int, int] | None = None
         self._rows: dict[tuple, list[Tensor]] = {}
 
     @property
@@ -335,18 +341,21 @@ class Portfolio:
 
     def _layout(self, n_rows: int, device) -> tuple[list[Tensor], Tensor, Tensor]:
         """For ``n_rows`` job-major rows on ``device``: each policy's row
-        indices (in the order of ``policies``), each row's policy index, and
-        whether each row's policy owns ``alive`` — cached per row count and
-        device, so a generation copies no index table to the card."""
-        ck = (n_rows, str(device))
+        indices (in the order of ``policies``; empty for a policy with no
+        island in ``block``), each row's policy index, and whether each
+        row's policy owns ``alive`` — cached per row count, device and
+        block, so a generation copies no index table to the card."""
+        ck = (n_rows, str(device), self.block)
         hit = self._rows.get(ck)
         if hit is None:
-            reps = n_rows // len(self.branch_of)
-            branch = np.tile(self.branch_of, reps)
+            isl = (slice(None) if self.block is None
+                   else slice(self.block[0], self.block[0] + self.block[1]))
+            reps = n_rows // len(self.branch_of[isl])
+            branch = np.tile(self.branch_of[isl], reps)
             hit = ([torch.as_tensor(np.flatnonzero(branch == b), device=device)
                     for b in range(self.n_branches)],
                    torch.as_tensor(branch, device=device),
-                   torch.as_tensor(np.tile(self.owns_alive, reps), device=device))
+                   torch.as_tensor(np.tile(self.owns_alive[isl], reps), device=device))
             self._rows[ck] = hit
         return hit
 
@@ -357,6 +366,8 @@ class Portfolio:
         n = keys.shape[0]
         out: State = {}
         for p, rows in zip(self.policies, self._layout(n, keys.device)[0]):
+            if not len(rows):          # no island of this policy in the block
+                continue
             sub = (None if state is None
                    else {k: v.index_select(0, rows) for k, v in state.items()})
             for k, v in call(p, sub, keys.index_select(0, rows)).items():

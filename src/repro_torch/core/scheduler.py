@@ -29,17 +29,19 @@ Service hardening, as in the reference:
     are **load-shed** with :class:`SchedulerOverloaded` carrying a
     ``retry_after_ms`` hint.
 
-Portfolio buckets take the reference's resident path: the optimizer
-refuses them a stepper (``bucket_stepper`` raises ``ValueError``), so the
-bucket runs as one ``minimize_many`` with no streaming and no mid-run
-checkpoint, and a warm-started one as one ``minimize`` per job. Async
-buckets run stepped, on the all-ones schedule, and their checkpoints carry
-the mailbox leaves.
+Portfolio and sharded (``devices > 1``) buckets take the reference's
+resident path: the optimizer refuses them a stepper (``bucket_stepper``
+raises ``ValueError``), so the bucket runs as one ``minimize_many`` with no
+streaming, no mid-run cancel and no mid-run checkpoint, and a warm-started
+one as one ``minimize`` per job. A sharded request gets its own
+``MeshConfig(devices)``, whose route ``core.mesh.default_backend`` picks
+(nccl with a GPU per rank, gloo otherwise), so its bucket runs on spawned
+ranks; one the host cannot place ends in ``error`` inside its own bucket.
+Async buckets run stepped, on the all-ones schedule, and their checkpoints
+carry the mailbox leaves.
 
 Worker threads launch kernels on the current stream of the scheduler's
-device. A bucket the port cannot run yet (``devices > 1``) ends with status
-``error`` and a message naming the layer that is not ported; the service
-keeps serving.
+device.
 """
 from __future__ import annotations
 
@@ -62,7 +64,8 @@ from repro_torch import prng, resolve_device
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.core.api import OptimizeResult, OptRequest, OptResponse
 from repro_torch.core.executor import ExecutorConfig
-from repro_torch.core.islands import IslandConfig, IslandOptimizer, _later
+from repro_torch.core.islands import IslandConfig, IslandOptimizer
+from repro_torch.core.mesh import MeshConfig
 from repro_torch.functions import get as get_function
 
 BucketKey = tuple
@@ -242,9 +245,6 @@ class ShapeBucketScheduler:
             opt = self._lru_get(self._optimizers, key)
             if opt is None:
                 from repro_torch.core import ALGORITHMS  # late: core/__init__ imports us
-                if req.devices > 1:
-                    raise _later(f"island sharding over {req.devices} devices "
-                                 "(OptRequest.devices, core/mesh.py)")
                 if req.backend not in EXEC_BACKEND:
                     raise ValueError(f"unknown backend {req.backend!r}; expected "
                                      f"one of {sorted(EXEC_BACKEND)}")
@@ -262,11 +262,17 @@ class ShapeBucketScheduler:
                 # `algo` is ignored and `params` maps policy name -> kwargs
                 # (build_portfolio thaws the frozen pair-tuples).
                 maker = None if req.portfolio else ALGORITHMS[req.algo]
+                # Sharded requests get their own island mesh; its placement
+                # check raises inside flush_bucket's fault isolation when the
+                # host cannot place the ranks, so one impossible request
+                # cannot take the service down.
+                mesh_cfg = (MeshConfig(devices=req.devices)
+                            if req.devices > 1 else None)
                 opt = IslandOptimizer(
                     maker, cfg, params=dict(req.params),
                     exec_cfg=dataclasses.replace(
                         self.exec_cfg, backend=EXEC_BACKEND[req.backend]),
-                    device=self.device)
+                    device=self.device, mesh_cfg=mesh_cfg)
                 self._lru_put(self._optimizers, key, opt)
             return opt
 
@@ -381,7 +387,7 @@ class ShapeBucketScheduler:
             f = self._function(req0)
             try:
                 stepper = opt.bucket_stepper(f)
-            except ValueError:      # portfolio islands: no host stepping
+            except ValueError:      # portfolio or sharded: no host stepping
                 stepper = None
             if stepper is None:
                 self._run_resident(item, opt, f)
@@ -405,8 +411,8 @@ class ShapeBucketScheduler:
 
     def _run_resident(self, item: _RunItem, opt: IslandOptimizer, f) -> None:
         """The reference's path for buckets without a stepper (portfolio
-        islands): one ``minimize_many`` — no streaming, no mid-run
-        preemption or checkpoint. A warm-started bucket runs one
+        islands, sharded requests): one ``minimize_many`` — no streaming,
+        no mid-run preemption or checkpoint. A warm-started bucket runs one
         ``minimize`` per job instead: warm is value-keyed into the
         shape-class, so every row shares the same batch."""
         jobs = [j for j in item.rows if j is not None and not j.finished()]

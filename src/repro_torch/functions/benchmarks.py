@@ -91,6 +91,15 @@ class Function:
         shift = None if self.shift is None else self.shift.numpy().tobytes()
         return (self.name, fn_token(self.fn), shift, self.bias)
 
+    def __reduce__(self):
+        """Pickle field by field, without the per-device copies of the
+        shift, so an objective can be sent to the ranks of a mesh. ``fn``
+        travels as pickle sends it: a module-level function or a picklable
+        callable (such as the shifted Rosenbrock's); a closure or lambda does
+        not pickle, so run such an objective in place, under ``torchrun``."""
+        return (Function, (self.name, self.fn, self.lo, self.hi, self.f_star,
+                           self.smooth, self.shift, self.bias))
+
 
 def on_device(t: Tensor, device: torch.device, copies: dict) -> Tensor:
     """``t`` on ``device``, copied once and kept in ``copies`` (keyed by
@@ -270,6 +279,23 @@ def shift_vector(dim: int, seed: int = 2008, lo: float = -90.0,
     return prng.uniform(prng.PRNGKey(seed, device), (dim,), lo, hi)
 
 
+class ShiftedRosenbrock:
+    """The CEC'2008 shifted Rosenbrock's objective, ``rosenbrock(x - o + 1)
+    + bias``, as a picklable callable: it pickles as ``(o, bias)``, so a
+    copy in another process computes the same bits."""
+
+    def __init__(self, o: Tensor, bias: float) -> None:
+        self.o, self.bias = o, bias
+        self.copies: dict = {}          # per-device copies of ``o``
+
+    def __call__(self, x: Tensor) -> Tensor:
+        z = x - on_device(self.o, x.device, self.copies) + 1.0
+        return rosenbrock(z) + self.bias
+
+    def __reduce__(self):
+        return (ShiftedRosenbrock, (self.o, self.bias))
+
+
 def make_shifted_rosenbrock(dim: int, seed: int = 2008, bias: float = 390.0,
                             shift: Tensor | None = None) -> Function:
     """CEC'2008 shifted Rosenbrock, ``rosenbrock(x - o + 1) + bias``, with
@@ -277,14 +303,9 @@ def make_shifted_rosenbrock(dim: int, seed: int = 2008, bias: float = 390.0,
     o = shift_vector(dim, seed) if shift is None else shift.float().cpu()
     if tuple(o.shape) != (dim,):
         raise ValueError(f"shift has shape {tuple(o.shape)}, expected ({dim},)")
-    copies: dict = {}
-
-    def fn(x: Tensor) -> Tensor:
-        z = x - on_device(o, x.device, copies) + 1.0
-        return rosenbrock(z) + bias
-
+    fn = ShiftedRosenbrock(o, bias)
     return Function("shifted_rosenbrock", fn, -100.0, 100.0, f_star=bias,
-                    shift=o, bias=bias, _shift_copies=copies)
+                    shift=o, bias=bias, _shift_copies=fn.copies)
 
 
 # ---------------------------------------------------------------------------

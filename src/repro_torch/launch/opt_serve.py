@@ -58,9 +58,10 @@ Request backends keep the reference's names: ``"pallas"`` runs the
 and ``"torch"`` are accepted too). Portfolio requests (``"portfolio":
 ["de", "pso", "sa"]``, per-policy ``params``) run as one resident bucket
 without streaming; async requests (``"sync_policy": "async"``) run stepped.
-Sharded (``devices > 1``) requests are accepted and end with status
-``error`` naming the layer that is not ported yet; the service keeps
-serving.
+Sharded (``"devices": N`` > 1) requests run as resident buckets on N
+spawned ranks (``core/mesh.py``: nccl with a GPU per rank, gloo on the CPU
+or with several ranks on one card); a request the host cannot place ends
+in ``error`` inside its own bucket.
 
 Batching policy (host-side queue): a bucket is dispatched when it reaches
 ``--max-batch`` queued jobs, when its oldest job ages past the ``--flush-ms``

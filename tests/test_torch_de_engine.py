@@ -20,6 +20,7 @@ from repro.functions import benchmarks as jbm  # noqa: E402
 from repro_torch import convert, prng  # noqa: E402
 from repro_torch import core as tcore  # noqa: E402
 from repro_torch.core import migration as tmig  # noqa: E402
+from repro_torch.core.mesh import MeshConfig  # noqa: E402
 from repro_torch.functions import benchmarks as tbm  # noqa: E402
 
 RTOL = 1e-4
@@ -160,8 +161,10 @@ def _de_opt(cfg, **kw):
 
 
 @pytest.mark.parametrize("later,error,match", [
-    # Population sharding over a mesh (IslandConfig.pop_axes).
-    (lambda: _de_opt(dict(pop_axes=("data",))), NotImplementedError, "later slice"),
+    # Population sharding names its mesh axes in IslandConfig.pop_axes;
+    # without a mesh the reference accepts and ignores them, and so does the
+    # port: the run is the plain engine's.
+    (lambda: _de_opt(dict(pop_axes=("data",), max_evals=2000)), None, None),
     # Async islands and portfolios are ported: what raises is the
     # reference's validation (async starvation; an algo_maker with a
     # portfolio).
@@ -169,9 +172,18 @@ def _de_opt(cfg, **kw):
      ValueError, "starvation"),
     (lambda: _de_opt(dict(portfolio=("de", "pso"), n_islands=2)),
      ValueError, "algo_maker=None"),
-    (lambda: _de_opt(dict(), mesh_cfg=object()), NotImplementedError, "later slice"),
+    # Island sharding is ported (core/mesh.py): what raises is the
+    # reference's refusal of a mesh over one island.
+    (lambda: _de_opt(dict(), mesh_cfg=MeshConfig(devices=2)), ValueError, "n_islands > 1"),
 ], ids=["pop_axes", "async", "portfolio", "mesh"])
 def test_later_slice_features_raise(later, error, match):
+    if error is None:
+        f = tbm.FUNCTIONS["sphere"]
+        want = _de_opt(dict(max_evals=2000)).minimize(f, prng.PRNGKey(1))
+        got = later().minimize(f, prng.PRNGKey(1))
+        assert got.value == want.value
+        np.testing.assert_array_equal(got.history, want.history)
+        return
     with pytest.raises(error, match=match):
         later()
 

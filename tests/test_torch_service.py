@@ -253,16 +253,17 @@ def test_caches_are_lru_capped():
 
 
 def test_faults_are_isolated_per_bucket():
-    """A bad objective, a bad backend, a sharded request and a portfolio or
-    async request the engine rejects end in ``error`` naming what failed;
-    a portfolio and an async bucket run; the other buckets finish, and the
-    scheduler answers the next request."""
+    """A bad objective, a bad backend, a sharded request the host cannot
+    place and a portfolio or async request the engine rejects end in
+    ``error`` naming what failed; a portfolio and an async bucket run; the
+    other buckets finish, and the scheduler answers the next request. (A
+    placeable sharded request runs: tests/test_torch_mesh.py.)"""
     sched = _sched()
     bad = {"fn": sched.submit(_req(fn="no_such_function")),
            "portfolio": sched.submit(_req(portfolio=("de", "pso"),
                                           params=(("sa", (("T0", 1.0),)),))),
            "async": sched.submit(_req(sync_policy="async", migration="starvation")),
-           "devices": sched.submit(_req(devices=2)),
+           "devices": sched.submit(_req(devices=4096)),
            "backend": sched.submit(_req(backend="tpu"))}
     ok = [sched.submit(_req()), sched.submit(_req(portfolio=("de", "pso"))),
           sched.submit(_req(sync_policy="async"))]
@@ -272,7 +273,7 @@ def test_faults_are_isolated_per_bucket():
     assert "KeyError" in errors["fn"]
     assert "not in the portfolio" in errors["portfolio"]
     assert "async" in errors["async"] and "starvation" in errors["async"]
-    assert "devices" in errors["devices"] and "not ported yet" in errors["devices"]
+    assert "devices" in errors["devices"] and "multiple" in errors["devices"]
     assert "backend" in errors["backend"]
     assert all(sched.poll(j).status == "done" for j in ok)
     assert sched.result(sched.submit(_req(seed=7))).status == "done"
