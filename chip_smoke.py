@@ -17,7 +17,9 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      kernels), ga_step and eval_select also on unaligned views; de_step and
      pso_step on a NaN lane (a NaN DE trial must keep its parent, a NaN PSO
      velocity stay NaN), as their plain versions clip; bench_eval also at
-     128,000 rows;
+     128,000 rows; flash_attention at every model case with its mask
+     (gemma2's local and global layers, zamba2's hd 112, gemma's hd 256)
+     and at wide head dims in both types;
   2. the draws on the card against the CPU: threefry, uniform, randint
      bitwise; normal and categorical to the last bit or ulp;
   3. Table I fused: 1 island, pop 800, shifted Rosenbrock-1000, 200 gens;
@@ -59,10 +61,12 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      reference's accounting;
  16. the multi-job service through ``OptimizationService.handle`` (one
      worker thread, checkpoints under build/service) at Table I's width:
-     A, 8 fused DE jobs, in turns with their 8 standalone ``minimize`` runs
+     A, 8 fused DE jobs of 6 rounds, in turns with their 8 standalone
+     ``minimize`` runs
      (jobs/s), then profiled as a bucket of 8 and of 1 (ms per round,
      launches per round, the device's idle share); B, 4 fused PSO jobs; C,
-     2 hybrid jobs (HYBRID_CONFIG, 8 rounds) and
+     2 hybrid jobs (HYBRID_CONFIG's chunked DE, polished every 2 rounds,
+     2 rounds) and
      ``explore_then_polish_many``; D, 2 fused DE jobs warm-started from A's
      incumbents; every job bit-identical to its standalone run; E, bucket A
      killed at round 5 and finished by a fresh scheduler's ``resume``, bit
@@ -103,15 +107,30 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      its unsharded run (30, 30, 30 and 20 generations); D, a ``devices:
      2`` request through the scheduler ending done with the value of the
      same request at ``devices: 1``, and one the host cannot place ending
-     in error; E, ``distributed_map_reduce`` (sum, min, max of an
+     in error (A also runs C's 3 jobs through ``minimize_many`` with the
+     jobs split over the 1-rank group, ``mesh=``, their rows all-gathered
+     on the rank's device, bit-identical to the unsharded run); E, ``distributed_map_reduce`` (sum, min, max of an
      elementwise square) over 2 ranks against the CPU: min and max exact,
      sum within rows x 2^-24 x sum|x^2|. The ranks record their own
-     launches and launch shapes, which come back to the phase.
+     launches and launch shapes, which come back to the phase;
+ 19. granite-3-8b, gemma-7b, gemma2-9b and zamba2-7b at full width and
+     depth, bf16, random weights (each drawn once on the card, the last
+     arch's freed first; the peak memory reset per arch): ``serve`` at
+     batch 4 x 2048 with 16 decode steps for granite and gemma-7b; gemma2
+     ``serve`` at 1 x 6144 (past its 4096 window) and a prefill at 2 x
+     4096; zamba2 prefill at 2 x 2048 (81 ssd_scan and 13 flash launches)
+     and ``serve`` at batch 2 with a 64-token prompt stepped token by
+     token;
+ 20. the four archs of 19 at full width, 2 layers (zamba2 6: one shared
+     application), float32 and bfloat16, on the card against the CPU as
+     in phase 12 (prefill 2 x 256, zamba2 2 x 512; serve with 8 greedy
+     steps teacher-forced, zamba2 from a 64-token prompt).
 
 flash_attention and ssd_scan take two routes by the input's type: bfloat16
 runs the tensor-core kernels (``csrc/*_tc.cu``), float32 the CUDA-core
 kernels. After the phases, the kernel timings put the CUDA-core design
-(through its C entry at bf16) beside each tensor-core kernel, and count the tensor-core
+(through its C entry at bf16) beside each tensor-core kernel, time both at
+every case the model phases launch them at, and count the tensor-core
 instructions in the tensor-core kernels' SASS (``cuobjdump``). The four
 kernels on csrc/eval_row.cuh are timed at every shape the main path gives
 them (bench_eval at Table I's population and the chunked path's 100 x
@@ -123,7 +142,7 @@ and, for ga_step and eval_select, the share of rows taken or accepted; the compi
 for their libraries are printed. The main-path runs of GA and SA also
 report the share of rows their fused kernel took or accepted.
 
-Phases 3-5, 7, 8, 10, 11, 13, 15, 16, 17 and 18 are the main path: each run resets
+Phases 3-5, 7, 8, 10, 11, 13, 15, 16, 17, 18 and 19 are the main path: each run resets
 the kernels' launch counters, drives its entry point
 (``IslandOptimizer.minimize``, ``explore_then_polish``, ``serve``, a prefill
 step, ``OptimizationService.handle``) and reads the counters right after. Each engine configuration is then profiled over a few rounds of a
@@ -304,17 +323,20 @@ FUSED_KERNEL = {"de": "de_step", "pso": "pso_step", "ga": "ga_step",
 
 # Phase 16: the multi-job service at Table I's width (shifted Rosenbrock-1000,
 # pop 800, 1 island, sync_every 10, the pallas backend), as OptRequest dicts.
-# A: fused DE, 10 rounds (800 + 10 x 10 x 800 evaluations); B: fused PSO, the
-# same budget; C: HYBRID_CONFIG's chunked DE with its polish, 8 rounds and
-# one polish event (800 + 8 x 10 x 800 + 2 x 2 x 4,008).
+# A: fused DE, 6 rounds (800 + 6 x 10 x 800 evaluations); B: fused PSO, 10
+# rounds; C: HYBRID_CONFIG's chunked DE with its polish, which fires every 2
+# rounds here (HYBRID_CONFIG: 8), 2 rounds and so one polish event (800 + 2
+# x 10 x 800 + 2 x 2 x 4,008). A's and C's depth is cut (from 10 and 8
+# rounds) to keep the script inside its time limit; every check stays.
+SERVICE_POLISH = {**HYBRID_POLISH, "polish_every": 2}
 SERVICE_BASE = {"fn": "shifted_rosenbrock", "dim": DIM, "pop": POP, "n_islands": 1,
                 "sync_every": SYNC_EVERY, "backend": "pallas"}
 SERVICE_BUCKETS = {
     "A": {**SERVICE_BASE, "algo": "de", "params": {**DE_TABLE1, "fused": True},
-          "max_evals": 80_800},
+          "max_evals": 48_800},
     "B": {**SERVICE_BASE, "algo": "pso", "params": {"fused": True}, "max_evals": 80_800},
     "C": {**SERVICE_BASE, "algo": "de", "params": {**DE_TABLE1, "barrier_mode": "chunked"},
-          **HYBRID_POLISH, "max_evals": 80_832},
+          **SERVICE_POLISH, "max_evals": 32_832},
 }
 SERVICE_JOBS = {"A": 8, "B": 4, "C": 2, "D": 2}
 # The federation of phase 16: two workers on the card, two legs of
@@ -325,12 +347,12 @@ FED_SYNC = 5
 # phase 16 (the killed and cancelled runs repeat A) and the federation's
 # jobs, as runs of the tables above, for phase 1's shape list.
 SERVICE_RUNS = (
-    Run("16 A", "de", 100, SERVICE_BUCKETS["A"]["params"], n_islands=SERVICE_JOBS["A"]),
-    Run("16 A, one job", "de", 100, SERVICE_BUCKETS["A"]["params"]),
+    Run("16 A", "de", 60, SERVICE_BUCKETS["A"]["params"], n_islands=SERVICE_JOBS["A"]),
+    Run("16 A, one job", "de", 60, SERVICE_BUCKETS["A"]["params"]),
     Run("16 B", "pso", 100, SERVICE_BUCKETS["B"]["params"], n_islands=SERVICE_JOBS["B"]),
-    Run("16 C", "de", 80, SERVICE_BUCKETS["C"]["params"], n_islands=SERVICE_JOBS["C"],
-        polish=HYBRID_POLISH),
-    Run("16 D", "de", 100, SERVICE_BUCKETS["A"]["params"], n_islands=SERVICE_JOBS["D"]),
+    Run("16 C", "de", 20, SERVICE_BUCKETS["C"]["params"], n_islands=SERVICE_JOBS["C"],
+        polish=SERVICE_POLISH),
+    Run("16 D", "de", 60, SERVICE_BUCKETS["A"]["params"], n_islands=SERVICE_JOBS["D"]),
     Run("16 F", "de", 100, DE_TABLE1, sync_every=FED_SYNC),
 )
 
@@ -448,16 +470,29 @@ class ModelRun:
     compute_dtype: str = "bfloat16"
 
 
-# The kernel of each architecture's prefill; the cache-filling prefill of a
-# recurrent arch steps through the prompt token by token and launches none.
-MODEL_KERNEL = {"llama3.2-1b": "flash_attention", "mamba2-370m": "ssd_scan"}
+# The kernels of each architecture's prefill; the cache-filling prefill of a
+# recurrent arch steps through the prompt token by token and launches no
+# ssd_scan (zamba2's shared attention launches flash once per application
+# at its first token).
+MODEL_KERNEL = {"llama3.2-1b": ("flash_attention",), "mamba2-370m": ("ssd_scan",),
+                "granite-3-8b": ("flash_attention",), "gemma-7b": ("flash_attention",),
+                "gemma2-9b": ("flash_attention",),
+                "zamba2-7b": ("ssd_scan", "flash_attention")}
 
-# The model serving path at full width and depth, bf16 (phases 10-11).
+# The model serving path at full width and depth, bf16 (phases 10-11 and
+# 19). gemma2-9b's 6144-token prompt is longer than its 4096 window, so
+# its local layers mask differently from its global ones.
 MODEL_RUNS = {
     10: (ModelRun("llama3.2-1b serve", "llama3.2-1b", "serve", 4, 2048, 32),
          ModelRun("llama3.2-1b prefill", "llama3.2-1b", "prefill", 1, 4096)),
     11: (ModelRun("mamba2-370m prefill", "mamba2-370m", "prefill", 4, 2048),
          ModelRun("mamba2-370m serve", "mamba2-370m", "serve", 4, 64, 32)),
+    19: (ModelRun("granite-3-8b serve", "granite-3-8b", "serve", 4, 2048, 16),
+         ModelRun("gemma-7b serve", "gemma-7b", "serve", 4, 2048, 16),
+         ModelRun("gemma2-9b serve", "gemma2-9b", "serve", 1, 6144, 16),
+         ModelRun("gemma2-9b prefill", "gemma2-9b", "prefill", 2, 4096),
+         ModelRun("zamba2-7b prefill", "zamba2-7b", "prefill", 2, 2048),
+         ModelRun("zamba2-7b serve", "zamba2-7b", "serve", 2, 64, 16)),
 }
 # Full width, 2 layers, float32 and bfloat16: the card with its kernels
 # against the plain path on the CPU, on the same weights (phase 12).
@@ -479,6 +514,20 @@ CARD_VS_CPU_MODEL_RUNS = {
                   n_layers=2),
          ModelRun("mamba2-370m serve, 2 layers, bf16", "mamba2-370m", "serve", 2, 64, 8,
                   n_layers=2)),
+    # The four archs of phase 19 at full width: 2 layers (gemma2-9b: one
+    # local, one global), 6 for zamba2-7b (one shared attention
+    # application), in float32 and bfloat16, one arch at a time (its weights
+    # drawn once on the card and copied to the CPU). zamba2's prefill spans two
+    # 256-token chunks; its serve prompt is stepped through token by token,
+    # 64 tokens as mamba2's.
+    20: tuple(ModelRun(f"{arch} {entry}, {n} layers, {label}", arch, entry, 2,
+                       (512 if arch == "zamba2-7b" else 256) if entry == "prefill"
+                       else (64 if arch == "zamba2-7b" else 256),
+                       0 if entry == "prefill" else 8, n_layers=n, compute_dtype=dtype)
+              for arch, n in (("granite-3-8b", 2), ("gemma-7b", 2), ("gemma2-9b", 2),
+                              ("zamba2-7b", 6))
+              for dtype, label in (("float32", "f32"), ("bfloat16", "bf16"))
+              for entry in ("prefill", "serve")),
 }
 
 
@@ -1219,9 +1268,10 @@ def _objective(c: Ctx, r: Run):
 
 
 def _algo_opt(c: Ctx, r: Run, gens: int | None = None, round_callback=None,
-              device=None, mesh_cfg=None):
+              device=None, mesh_cfg=None, mesh=None):
     """The engine for run ``r`` (``gens`` generations if given) on the
-    ``cuda`` backend, over the island mesh ``mesh_cfg`` if given."""
+    ``cuda`` backend, over the island mesh ``mesh_cfg`` if given, or with
+    ``minimize_many``'s jobs split over the placed ``mesh``."""
     rt = c.rt
     gens = r.gens if gens is None else gens
     polish = (_polish_events(r, gens) * r.n_islands * min(r.polish["polish_topk"], r.pop)
@@ -1241,7 +1291,7 @@ def _algo_opt(c: Ctx, r: Run, gens: int | None = None, round_callback=None,
                               params=params, exec_cfg=rt.ExecutorConfig(backend="cuda"),
                               round_callback=round_callback, schedule=schedule,
                               device=c.dev if device is None else device,
-                              mesh_cfg=mesh_cfg)
+                              mesh_cfg=mesh_cfg, mesh=mesh)
 
 
 def _init_best(c: Ctx, opt, f, seed: int) -> float:
@@ -1351,7 +1401,8 @@ def main_path_phases() -> dict[str, set[int]]:
                 out[k].add(phase)
     for phase, runs in MODEL_RUNS.items():
         for r in runs:
-            out[MODEL_KERNEL[r.arch]].add(phase)
+            for k in MODEL_KERNEL[r.arch]:
+                out[k].add(phase)
     out["bench_eval"].add(15)
     for k in ("bench_eval", "de_step", "pso_step"):
         out[k].add(16)
@@ -1566,6 +1617,7 @@ def _standalone(c: Ctx, req: dict, seeds, warm=None) -> tuple[list, float]:
 def _same_runs(label: str, got, want) -> None:
     """A job's result bit-identical to its standalone run."""
     import numpy as np
+    require(len(got) == len(want), f"{label}: {len(got)} results against {len(want)}")
     for g, w in zip(got, want):
         require(g.value == w.value and g.n_evals == w.n_evals and g.n_gens == w.n_gens
                 and np.array_equal(g.arg, w.arg) and np.array_equal(g.history, w.history),
@@ -1642,17 +1694,17 @@ def phase_service(c: Ctx) -> dict:
     clock = RoundClock(c)
     got, t_b = _flush_and_collect(svc, _submit(svc, req, seeds), clock)
     _same_runs("C", got, seq)
-    every = HYBRID_POLISH["polish_every"]
+    every = SERVICE_POLISH["polish_every"]
     rounds = got[0].n_gens // SYNC_EVERY
     rule = (POP + rounds * SYNC_EVERY * POP
-            + rounds // every * HYBRID_POLISH["polish_topk"]
-            * _polish_per_point(SERVICE_RUNS[3], HYBRID_POLISH["polish_steps"]))
+            + rounds // every * SERVICE_POLISH["polish_topk"]
+            * _polish_per_point(SERVICE_RUNS[3], SERVICE_POLISH["polish_steps"]))
     require(rounds // every >= 1 and all(r.n_evals == rule == req["max_evals"] for r in got),
             f"C: n_evals {[r.n_evals for r in got]}, the reference's rule {rule}")
     opt = rt.IslandOptimizer(
         rt.ALGORITHMS["de"], rt.IslandConfig(
             pop=POP, dim=DIM, sync_every=SYNC_EVERY, max_evals=req["max_evals"],
-            **HYBRID_POLISH), params=dict(req["params"]),
+            **SERVICE_POLISH), params=dict(req["params"]),
         exec_cfg=rt.ExecutorConfig(backend="cuda"), device=c.dev)
     pcfg = rt.descent.PolishConfig(steps=STAGE2_STEPS)
     t0 = time.perf_counter()
@@ -2148,11 +2200,12 @@ def _device_launches_per_gen(c: Ctx, r: Run, mesh_cfg) -> float:
     return (counts[1] - counts[0]) / r.sync_every
 
 
-def _mesh_rank(runs, xs, device: str) -> dict:
+def _mesh_rank(runs, xs, device: str, jobs: Run | None = None) -> dict:
     """A spawned rank of phase 18: each run warmed up with one round, then
     driven in place over the group (launch counters reset just before,
     read just after; bytes this rank sent in collectives); optionally
-    distributed_map_reduce of _square over ``xs``. The rank runs on its
+    distributed_map_reduce of _square over ``xs``, and ``minimize_many`` of
+    run ``jobs`` with its jobs split over the group (``mesh=``). The rank runs on its
     own GPU on the nccl route, on ``device`` on gloo. Every rank's counts,
     bytes and launch shapes are gathered to rank 0, which returns them
     with its results."""
@@ -2191,23 +2244,31 @@ def _mesh_rank(runs, xs, device: str) -> dict:
         m = cfg.build(c.dev)
         mr = {op: rt.executor.distributed_map_reduce(m, m.axis, _square, op, xs.to(c.dev)).cpu()
               for op in ("sum", "min", "max")}
+    over_jobs = None
+    if jobs is not None:
+        opt = _algo_opt(c, dataclasses.replace(jobs, jobs=1), mesh=cfg.build(c.dev))
+        keys = torch.stack([rt.prng.PRNGKey(jobs.seed + j) for j in range(jobs.jobs)])
+        issued.clear()
+        over_jobs = {"results": opt.minimize_many(_objective(c, jobs), keys.to(c.dev)),
+                     "issued": dict(issued)}
     mine = {"runs": [{k: v.get(k) for k in ("counts", "bytes", "ms_per_gen", "run_s",
                                             "profile_s", "device_launches_per_gen")}
                      for v in out],
             "shapes": c.shapes.get(18, set()), "device": str(c.dev)}
     every = [None] * size
     dist.all_gather_object(every, mine)
-    return {"runs": out, "ranks": every, "map_reduce": mr, "backend": backend,
-            "rank_s": time.perf_counter() - t_in}
+    return {"runs": out, "ranks": every, "map_reduce": mr, "jobs_over_mesh": over_jobs,
+            "backend": backend, "rank_s": time.perf_counter() - t_in}
 
 
-def _spawn_ranks(c: Ctx, n: int, runs, backend: str, xs=None) -> dict:
+def _spawn_ranks(c: Ctx, n: int, runs, backend: str, xs=None, jobs=None) -> dict:
     """``_mesh_rank`` on ``n`` spawned ranks: its result, the launch shapes
     of every rank filed under phase 18, the launches added to the kernel
     table, and the spawn's own seconds: its wall less rank 0's time in
     ``_mesh_rank`` (process start, imports, joining the group, returning)."""
     t0 = time.perf_counter()
-    out = c.rt.mesh.spawn(n, _mesh_rank, runs, xs, c.dev.type, backend=backend, timeout=600)
+    out = c.rt.mesh.spawn(n, _mesh_rank, runs, xs, c.dev.type, jobs, backend=backend,
+                          timeout=600)
     out["spawn_s"] = time.perf_counter() - t0 - out["rank_s"]
     for rank in out["ranks"]:
         c.shapes.setdefault(18, set()).update(rank["shapes"])
@@ -2259,7 +2320,8 @@ def phase_mesh(c: Ctx) -> dict:
     # A: the degenerate mesh in turns with the unsharded run.
     _mesh_call(c, DE8, None, gens=DE8.sync_every)
     base, ms_a1 = timed_unsharded(DE8)
-    one = _spawn_ranks(c, 1, MESH_RUNS[1] * 2, rt.mesh.default_backend(c.dev, 1))
+    one = _spawn_ranks(c, 1, MESH_RUNS[1] * 2, rt.mesh.default_backend(c.dev, 1),
+                       jobs=MANY18)
     again, ms_a2 = timed_unsharded(DE8)
     _same_runs("18 A: unsharded run repeated", again, base)
     for run in one["runs"]:
@@ -2269,7 +2331,15 @@ def phase_mesh(c: Ctx) -> dict:
         require(run["issued"].get("all_gather", 0) > 0 and run["issued"].get("all_reduce", 0) > 0
                 and "batch_isend_irecv" not in run["issued"],
                 f"18 A: collectives issued on the 1-rank group {run['issued']}")
+    # The jobs of MANY18 split over the 1-rank group (mesh=): their rows
+    # all-gathered through the group on the rank's device.
+    jobs = one["jobs_over_mesh"]
+    _same_runs("18 A: 3 jobs over a 1-rank mesh= against the unsharded minimize_many",
+               jobs["results"], _mesh_call(c, MANY18, None))
+    require(jobs["issued"].get("all_gather", 0) > 0,
+            f"18 A: the jobs' gather was not issued on the group {jobs['issued']}")
     out = {"A": {"backend": one["backend"], "rank_devices": [k["device"] for k in one["ranks"]],
+                 "jobs_over_mesh_calls": jobs["issued"],
                  "ms_per_gen_in_turns": {"unsharded": [ms_a1, ms_a2],
                                          "1 rank": [r["ms_per_gen"] for r in one["runs"]]},
                  f"{one['backend']}_calls_per_run": one["runs"][0]["issued"],
@@ -2351,12 +2421,25 @@ def phase_mesh(c: Ctx) -> dict:
 # Bounds of tests/test_kernels.py: flash attention absolute, the SSD scan
 # relative to the reference's largest |y|.
 FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+# bfloat16 flash is also held row by row to a share of the plain row's rms.
+# A row that sees n keys of normal scores has |out| about sqrt(e / n), 0.02
+# at n = 6144, so the absolute 2e-2 is about as large as what it compares
+# there and passes a fault that moves such rows by 0.01. Both outputs round
+# once to 8 significant bits and may differ by one unit in the last place:
+# 2^-7 of an element, and an element reaches about 4.5 times its row's rms
+# (the largest of 256 normals), 0.035 of the rms. The bound is 2^-4 of the row's rms; a tile
+# fault moves a late row's largest column by several tenths of its rms
+# (_flash_faults checks that the bound rejects two planted faults).
+FLASH_ROW_TOL = 2.0 ** -4
 SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # tests/test_kernels.py's own cases: flash (BH, S, T, hd) causal in both
 # types, its masks (window, softcap, causal) at (2, 192, 192, 64) float32;
-# ssd (BH, S, P, N, chunk) in both types, B/C per scan row.
+# ssd (BH, S, P, N, chunk) in both types, B/C per scan row. Head dims past
+# 128 (the kernels' 256-column instances) with and without gemma2's mask.
 FLASH_SUITE = ((2, 128, 128, 64), (2, 256, 256, 64), (2, 128, 256, 128), (2, 100, 200, 64))
 FLASH_MASKS = ((64, 0.0, True), (0, 50.0, True), (0, 0.0, False), (32, 30.0, True))
+FLASH_WIDE = (((2, 200, 256), 300, (0, 0.0, True)), ((2, 200, 256), 200, (64, 50.0, True)),
+              ((3, 130, 200), 130, (0, 0.0, False)))
 SSD_SUITE = ((3, 128, 32, 16, 32), (3, 256, 64, 64, 64), (3, 256, 64, 128, 128))
 # Logits of the card within this share of the CPU's largest |logit|. In
 # bfloat16: a value keeps 8 significant bits, so one rounding moves it by up
@@ -2376,25 +2459,76 @@ def model_cfg(rt, r: ModelRun):
     return dataclasses.replace(rt.get_config(r.arch), **over)
 
 
-def model_cases(rt, r: ModelRun) -> dict[str, tuple]:
-    """The kernel launch run ``r`` makes per prefill: ``{kernel: (case,
-    launches)}``. A flash case is ((BH, S, hd), T, dtype); an ssd case
-    ((BH, S, P), N, H, chunk, dtype), B/C shared by the H heads of a row."""
+def model_cases(rt, r: ModelRun) -> dict[str, list[tuple[tuple, int]]]:
+    """The kernel launches run ``r`` makes per prefill: ``{kernel: [(case,
+    launches), ...]}``. A flash case is ((BH, S, hd), T, dtype, (window,
+    softcap, causal)); an ssd case ((BH, S, P), N, H, chunk, dtype), B/C
+    shared by the H heads of a row. gemma2's local (even) and global (odd)
+    layers are two flash cases; the hybrid launches flash once per shared
+    application, in serve at its first prompt token (position 0, S = 1)."""
     cfg = model_cfg(rt, r)
+    dt = r.compute_dtype
+
+    def flash(S, n, window):
+        return (((r.batch * cfg.n_heads, S, cfg.hd), S, dt, (window, cfg.attn_softcap, True)), n)
+
+    window = max(cfg.window, 0)
+    out = {}
     if cfg.block_pattern == "attn":
-        return {"flash_attention": (((r.batch * cfg.n_heads, r.seq, cfg.hd), r.seq,
-                                     r.compute_dtype), cfg.n_layers)}
-    if r.entry == "serve":
-        return {}
-    return {"ssd_scan": (((r.batch * cfg.ssm_heads, r.seq, cfg.ssm_head_dim), cfg.ssm_state,
-                          cfg.ssm_heads, min(cfg.ssm_chunk, r.seq), r.compute_dtype),
-                         cfg.n_layers)}
+        n_local = (cfg.n_layers + 1) // 2 if cfg.local_global_pattern else cfg.n_layers
+        out["flash_attention"] = [flash(r.seq, n_local, window),
+                                  flash(r.seq, cfg.n_layers - n_local, 0)]
+    else:
+        if r.entry == "prefill":
+            out["ssd_scan"] = [(((r.batch * cfg.ssm_heads, r.seq, cfg.ssm_head_dim),
+                                 cfg.ssm_state, cfg.ssm_heads, min(cfg.ssm_chunk, r.seq), dt),
+                                cfg.n_layers)]
+        if cfg.block_pattern == "ssm+shared_attn":
+            out["flash_attention"] = [flash(r.seq if r.entry == "prefill" else 1,
+                                            cfg.n_layers // cfg.shared_attn_every, window)]
+    return {k: [(case, n) for case, n in v if n] for k, v in out.items()}
 
 
 def _model_runs():
     for table in (MODEL_RUNS, CARD_VS_CPU_MODEL_RUNS):
         for runs in table.values():
             yield from runs
+
+
+def _row_err(got, want) -> float:
+    """Largest over rows (last axis) of max |got - want| over the rms of
+    want's row."""
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean(-1).sqrt()
+    return float(((g - w).abs().amax(-1) / (rms + 1e-6)).max())
+
+
+def _flash_faults(c: Ctx, q, k, v, kw: dict, want) -> dict[str, tuple[float, float]]:
+    """What a faulty kernel would return, which the row bound must reject:
+    the kernel on keys and values whose next-to-last whole 64-key tile
+    repeats the tile before it (a kernel that reuses a tile; only the last
+    rows, which see the most keys, see it), and on a case longer than
+    its window, the kernel with window 0 (a local layer run as a global
+    one). Self-attention cases (S = T) of 256 keys or more take the first,
+    cases longer than their window the second. {fault: (row error, abs
+    error)} against the true plain output."""
+    fa = c.rt.flash_attention
+    S, T = q.shape[1], k.shape[1]
+    faulty = {}
+    if S == T >= 256:
+        t0 = T // 64 * 64 - 128
+        k2, v2 = k.clone(), v.clone()
+        k2[:, t0:t0 + 64], v2[:, t0:t0 + 64] = k[:, t0 - 64:t0], v[:, t0 - 64:t0]
+        faulty["tile reused"] = fa.flash_attention(q, k2, v2, **kw)
+    if kw["window"] and S > kw["window"]:
+        faulty["window 0"] = fa.flash_attention(q, k, v, **{**kw, "window": 0})
+    out = {}
+    for name, got in faulty.items():
+        out[name] = (_row_err(got, want), float((got.float() - want.float()).abs().max()))
+        require(out[name][0] >= FLASH_ROW_TOL,
+                f"flash_attention {tuple(q.shape)} {kw}: the row bound passes a planted "
+                f"fault ({name}): row err {out[name][0]:.3g}")
+    return out
 
 
 def _flash_check(c: Ctx, gen, shape, T, dtype, mask=(0, 0.0, True)) -> float:
@@ -2412,6 +2546,20 @@ def _flash_check(c: Ctx, gen, shape, T, dtype, mask=(0, 0.0, True)) -> float:
     err = float((got.float() - want.float()).abs().max())
     require(got.dtype == dt and err < FLASH_TOL[dtype],
             f"flash_attention {shape} T {T} {dtype} mask {mask}: abs err {err:.3g}")
+    if dtype == "bfloat16":
+        row = _row_err(got, want)
+        require(row < FLASH_ROW_TOL, f"flash_attention {shape} T {T} {dtype} mask {mask}: "
+                f"row err {row:.3g} of the row's rms")
+        kf = c.kern["flash_attention"]
+        kf["max_row_err"] = max(kf.get("max_row_err", 0.0), row)
+        for name, (f_row, f_abs) in _flash_faults(c, q, k, v, kw, want).items():
+            low = kf.setdefault("planted_faults", {}).setdefault(
+                name, {"cases": 0, "min_row_err": math.inf, "min_abs_err": math.inf,
+                       "under_abs_bound": 0})
+            low["cases"] += 1
+            low["min_row_err"] = min(low["min_row_err"], f_row)
+            low["min_abs_err"] = min(low["min_abs_err"], f_abs)
+            low["under_abs_bound"] += f_abs < FLASH_TOL[dtype]
     return err
 
 
@@ -2449,12 +2597,16 @@ def check_model_kernels(c: Ctx) -> None:
     gen = c.torch.Generator(device=c.dev).manual_seed(11)
     flash, ssd = set(), set()
     for r in _model_runs():
-        for k, (case, _) in model_cases(c.rt, r).items():
-            (flash if k == "flash_attention" else ssd).add(case)
+        for k, cases in model_cases(c.rt, r).items():
+            (flash if k == "flash_attention" else ssd).update(case for case, _ in cases)
     worst = {"flash_attention": 0.0, "ssd_scan": 0.0}
-    for shape, T, dtype in sorted(flash):
+    for shape, T, dtype, mask in sorted(flash):
         worst["flash_attention"] = max(worst["flash_attention"],
-                                       _flash_check(c, gen, shape, T, dtype))
+                                       _flash_check(c, gen, shape, T, dtype, mask))
+    for shape, T, mask in FLASH_WIDE:
+        for dtype in ("float32", "bfloat16"):
+            worst["flash_attention"] = max(worst["flash_attention"],
+                                           _flash_check(c, gen, shape, T, dtype, mask))
     for BH, S, T, hd in FLASH_SUITE:
         for dtype in ("float32", "bfloat16"):
             worst["flash_attention"] = max(worst["flash_attention"],
@@ -2470,8 +2622,12 @@ def check_model_kernels(c: Ctx) -> None:
             worst["ssd_scan"] = max(worst["ssd_scan"],
                                     _ssd_check(c, gen, (BH, S, P), N, 1, chunk, dtype))
     log(f"phase 1: flash_attention at the model cases {sorted(flash)}, the suite's "
-        f"{len(FLASH_SUITE)} shapes and {len(FLASH_MASKS)} masks x 2 types: max abs err "
-        f"{worst['flash_attention']:.3g} (bounds {FLASH_TOL})")
+        f"{len(FLASH_SUITE)} shapes and {len(FLASH_MASKS)} masks and {len(FLASH_WIDE)} wide "
+        f"head dims x 2 types: max abs err "
+        f"{worst['flash_attention']:.3g} (bounds {FLASH_TOL}); bf16 max row err "
+        f"{c.kern['flash_attention']['max_row_err']:.3g} of the row's rms (bound "
+        f"{FLASH_ROW_TOL}); planted faults, each rejected by the row bound: "
+        f"{json.dumps(c.kern['flash_attention']['planted_faults'])}")
     log(f"phase 1: ssd_scan at the model cases {sorted(ssd)} and the suite's "
         f"{len(SSD_SUITE)} shapes x 2 types: max err {worst['ssd_scan']:.3g} of max |y| "
         f"(bounds {SSD_TOL})")
@@ -2479,7 +2635,10 @@ def check_model_kernels(c: Ctx) -> None:
 
 class ModelParams:
     """``init_params(PRNGKey(0))`` on the card for one configuration at a
-    time (llama3.2-1b's float32 weights are 5 GB), and its CPU copy."""
+    time (gemma2-9b's float32 weights are 37 GB; the last configuration's
+    are dropped first), and its CPU copy. The card's peak memory is reset
+    before each init, so a run's peak counts from its weights' draw; the
+    init's seconds and peak are logged."""
 
     def __init__(self):
         self.key, self.card, self.cpu = None, None, None
@@ -2488,7 +2647,16 @@ class ModelParams:
         key = (cfg.name, cfg.n_layers)
         if key != self.key:
             self.key, self.card, self.cpu = key, None, None
+            torch = c.torch
+            if c.dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
             self.card = c.rt.T.init_params(c.rt.prng.PRNGKey(0, c.dev), cfg)
+            c.sync()
+            peak = torch.cuda.max_memory_allocated() / 1e9 if c.dev.type == "cuda" else None
+            log(f"phase {c.phase}: init_params {cfg.name}, {cfg.n_layers} layers: "
+                f"{time.perf_counter() - t0:.1f} s, {c.rt.T.param_count(self.card) / 1e9:.3f} "
+                f"G parameters, peak memory {peak} GB")
         if cpu and self.cpu is None:
             self.cpu = c.rt.T.tree_map(lambda t: t.cpu(), self.card)
         return self.cpu if cpu else self.card
@@ -2546,8 +2714,21 @@ def profile_decode(c: Ctx, cfg, params, batch: int, prompt_len: int, steps: int 
                     for t, k, n in rows[:4]]}
 
 
+# The warm-up serve and the decode profile's own cache-filling prefill of
+# a recurrent arch take this many prompt tokens: it steps token by token
+# (on an H100 80GB HBM3 at 700 W, 6.3 s for mamba2-370m's 64 tokens at
+# batch 4, 12.9 s for zamba2-7b's at batch 2), and a short prompt runs the
+# same per-token launches. An attention arch's prefill is one launch per
+# layer at the prompt's shape, so it keeps the whole prompt.
+RECURRENT_WARM_PROMPT = 8
+
+
+def _warm_prompt(cfg, seq: int) -> int:
+    return seq if cfg.block_pattern == "attn" else min(seq, RECURRENT_WARM_PROMPT)
+
+
 def _want_model_counts(c: Ctx, r: ModelRun) -> dict[str, int]:
-    want = {k: n for k, (_, n) in model_cases(c.rt, r).items()}
+    want = {k: sum(n for _, n in cases) for k, cases in model_cases(c.rt, r).items()}
     return {k: want.get(k, 0) for k in KERNELS}
 
 
@@ -2580,7 +2761,7 @@ def _model_main(c: Ctx, phase: int, r: ModelRun) -> dict:
         _check_logits(c, cfg, logits, r.batch, r.label)
         out = {"prefill_ms": wall * 1e3, "prefill_tok_per_s": r.batch * r.seq / wall}
     else:
-        rt.serve.serve(cfg, r.batch, r.seq, 2, device=c.dev, params=params)
+        rt.serve.serve(cfg, r.batch, _warm_prompt(cfg, r.seq), 2, device=c.dev, params=params)
         c.sync()
         c.reset()
         toks, tp, td = rt.serve.serve(cfg, r.batch, r.seq, r.decode_steps, device=c.dev,
@@ -2606,7 +2787,7 @@ def _model_main(c: Ctx, phase: int, r: ModelRun) -> dict:
     log(f"phase {phase}: {r.label} (batch {r.batch}, seq {r.seq}, layers {cfg.n_layers}, "
         f"{cfg.compute_dtype}): {json.dumps(out)}")
     if r.entry == "serve":
-        prof = profile_decode(c, cfg, params, r.batch, r.seq)
+        prof = profile_decode(c, cfg, params, r.batch, _warm_prompt(cfg, r.seq))
         log(f"phase {phase}: {r.label} decode profile: {json.dumps(prof)}")
         out["decode_profile"] = prof
     return out
@@ -2896,76 +3077,138 @@ def sass_counts(c: Ctx) -> None:
 
 
 def model_kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
-    """flash_attention at llama3.2-1b's serve prefill (batch 4 x 2048, 32
-    heads of 64, bf16) and ssd_scan at mamba2-370m's prefill (batch 4 x
-    2048, 32 heads, P 64, N 128, chunk 256, bf16 x/B/C): kernel, the
-    CUDA-core design through its C entry at bf16 (in turns with the kernel:
-    old, new, new, old), plain version, bound, and for flash attention the
-    library call ``scaled_dot_product_attention(q, k, v, is_causal=True)``."""
+    """flash_attention and ssd_scan at every case of the model phases' runs
+    (``MODEL_RUNS``), bf16: kernel, plain version, library call and bound
+    (``_time_flash_case``, ``_time_ssd_case``). A kernel's own row takes its
+    first case (llama3.2-1b's serve prefill, batch 4 x 2048, 32 heads of 64;
+    mamba2-370m's prefill, batch 4 x 2048, 32 heads, P 64, N 128, chunk
+    256), where the kernel is timed in turns with the CUDA-core design
+    through its C entry at bf16 (old, new, new, old)."""
     torch, rt = c.torch, c.rt
     fa, ss, b = rt.flash_attention, rt.ssd_scan, rt._build
     gen = torch.Generator(device=c.dev).manual_seed(3)
     bf16 = torch.bfloat16
+    flash, ssd = _timed_cases(rt)
+    kf, ks = c.kern["flash_attention"], c.kern["ssd_scan"]
+    kf["shapes"] = [_time_flash_case(c, rates, gen, label, shape, mask)
+                    for (shape, _, _, mask), label in flash.items()]
+    ks["shapes"] = [_time_ssd_case(c, rates, gen, label, shape, N, H, Q)
+                    for (shape, N, H, Q, _), label in ssd.items()]
+    for k_ in (kf, ks):
+        k_.update({key: k_["shapes"][0][key]
+                   for key in ("plain_ms", "library_ms", "bound_ms", "bound_by")})
 
-    def bound(name: str, nbytes: float, nops: float, peak: float) -> None:
-        c.kern[name].update(
-            bound_ms=max(nbytes / rates["bytes"], nops / peak) * 1e3,
-            bound_by="bytes" if nbytes / rates["bytes"] >= nops / peak else "operations")
-
-    B, H, S, hd = 4, 32, 2048, 64
-    q, k, v = (torch.randn((B * H, S, hd), generator=gen, device=c.dev).to(bf16)
-               for _ in range(3))
-    kf = c.kern["flash_attention"]
+    (shape, T, _, (window, softcap, causal)) = next(iter(flash))
+    BH, S, hd = shape
+    q, k, v = (torch.randn(sh, generator=gen, device=c.dev).to(bf16)
+               for sh in (shape, (BH, T, hd), (BH, T, hd)))
     old_out = torch.empty_like(q)
 
     def flash_cuda_cores():
-        b.launch("flash_attention", c.dev, q, k, v, old_out, B * H, S, S, hd,
-                 fa.DTYPES[bf16], fa.scale_of(hd), 1, 0, 0.0)
+        b.launch("flash_attention", c.dev, q, k, v, old_out, BH, S, T, hd,
+                 fa.DTYPES[bf16], fa.scale_of(hd), int(causal), window, softcap)
 
     kf["ms"], kf["cuda_core_ms"], turns = _alternate(
-        flash_cuda_cores, lambda: fa.flash_attention(q, k, v, causal=True), reps=20)
+        flash_cuda_cores, lambda: fa.flash_attention(q, k, v, causal=causal, window=window,
+                                                     softcap=softcap), reps=20)
     log(f"timing flash_attention CUDA-core design / tensor-core / tensor-core / CUDA-core: {turns}")
-    kf["plain_ms"] = time_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True), reps=5)
-    q4, k4, v4 = (t.view(B, H, S, hd) for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    kf["library_ms"] = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), reps=20)
-    # q, k, v read and the output written once, bf16; 4 flops per (query,
-    # key, dim) for the two products, the causal half of the pairs.
-    bound("flash_attention", 2 * 4 * B * H * S * hd, 4 * B * H * S * S * hd / 2,
-          rates["bfloat16"])
-    del q, k, v, q4, k4, v4, old_out
+    del q, k, v, old_out
 
-    BH, P, N, Q = B * H, 64, 128, 256
-    args = _ssd_inputs(c, gen, (BH, S, P), N, H, "bfloat16")
-    ks = c.kern["ssd_scan"]
+    (shape, N, H, Q, _) = next(iter(ssd))
+    args = _ssd_inputs(c, gen, shape, N, H, "bfloat16")
     y_old = torch.empty_like(args[0])
 
     def ssd_cuda_cores():
-        b.launch("ssd_scan", c.dev, *args, y_old, BH, S, P, N, H, ss.DTYPES[bf16])
+        b.launch("ssd_scan", c.dev, *args, y_old, *shape, N, H, ss.DTYPES[bf16])
 
     ks["ms"], ks["cuda_core_ms"], turns = _alternate(
         ssd_cuda_cores, lambda: ss.ssd_scan(*args, chunk=Q), reps=20)
     log(f"timing ssd_scan CUDA-core design / tensor-core / tensor-core / CUDA-core: {turns}")
-    ks["plain_ms"] = time_ms(lambda: ss.ssd_ref(*args), reps=2, warmup=1)
-    ks["library_ms"] = None
-    # x read and y written (bf16), B and C once per batch row (bf16), dt
-    # and A (f32). Operations of the chunked form at the kernel's chunk
-    # (64 steps): C B^T on the causal half of each (64, 64) tile once per
-    # batch row (the heads share it), its decay-weighted product with x dt
-    # per head, C times the carried state and the state update per head.
-    Qk = ss.TC_CHUNK
-    n_chunks = -(-S // Qk)
-    nbytes = 2 * 2 * BH * S * P + 2 * 2 * B * S * N + 4 * BH * S + 4 * BH
-    nops = n_chunks * Qk * (Qk + 1) * (B * N + BH * P) + BH * n_chunks * 4 * Qk * N * P
-    bound("ssd_scan", nbytes, nops, rates["bfloat16"])
-    for name, shape in (("flash_attention", (B * H, S, hd)), ("ssd_scan", (BH, S, P))):
-        k_ = c.kern[name]
-        lib = k_.get("library_ms")
-        log(f"timing {name} at {shape} bf16: kernel {k_['ms']:.4f} ms, CUDA-core design "
-            f"{k_['cuda_core_ms']:.4f} ms, plain {k_['plain_ms']:.4f} ms, bound "
-            f"{k_['bound_ms']:.4f} ms ({k_['bound_by']}), "
+    del args, y_old
+    for name, k_ in (("flash_attention", kf), ("ssd_scan", ks)):
+        lib = k_["library_ms"]
+        log(f"timing {name} at {tuple(k_['shapes'][0]['shape'])} bf16: kernel {k_['ms']:.4f} "
+            f"ms, CUDA-core design {k_['cuda_core_ms']:.4f} ms, plain {k_['plain_ms']:.4f} ms, "
+            f"bound {k_['bound_ms']:.4f} ms ({k_['bound_by']}), "
             f"library {'none' if lib is None else f'{lib:.4f} ms'}")
     sass_counts(c)
+
+
+def _timed_cases(rt) -> tuple[dict, dict]:
+    """Every model-kernel case of the model phases' runs with the first run
+    that launches it: flash {((BH, S, hd), T, dtype, mask): label}, ssd
+    {((BH, S, P), N, H, chunk, dtype): label}."""
+    flash, ssd = {}, {}
+    for runs in MODEL_RUNS.values():
+        for r in runs:
+            for k, cases in model_cases(rt, r).items():
+                for case, _ in cases:
+                    (flash if k == "flash_attention" else ssd).setdefault(case, r.label)
+    return flash, ssd
+
+
+def _causal_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal mask of ``window`` (0: none) keeps over
+    S = T positions."""
+    w = S if window <= 0 or window >= S else window
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def _time_flash_case(c: Ctx, rates, gen, label: str, shape, mask) -> dict:
+    """flash_attention at one case of the model phases, bf16, S = T: kernel, plain
+    version, SDPA (only where it computes the same function: no softcap,
+    no window) and the bound (q, k, v read and the output written once; 4
+    operations per kept (query, key) pair per head dim)."""
+    torch, fa = c.torch, c.rt.flash_attention
+    BH, S, hd = shape
+    window, softcap, causal = mask
+    q, k, v = (torch.randn(shape, generator=gen, device=c.dev).to(torch.bfloat16)
+               for _ in range(3))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=10)
+    plain = time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw), reps=2, warmup=1)
+    lib = None
+    if window == 0 and softcap == 0.0 and causal:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        q4, k4, v4 = (t.view(1, BH, S, hd) for t in (q, k, v))
+        lib = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), reps=10)
+    nbytes, nops = 2 * 4 * BH * S * hd, 4 * BH * _causal_pairs(S, window) * hd
+    b_bytes, b_ops = nbytes / rates["bytes"], nops / rates["bfloat16"]
+    out = {"label": label, "shape": list(shape), "mask": list(mask), "ms": ms,
+           "plain_ms": plain, "library_ms": lib, "bound_ms": max(b_bytes, b_ops) * 1e3,
+           "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+    log(f"timing flash_attention {json.dumps(out)}")
+    return out
+
+
+def _ssd_work(Qk: int, BH: int, H: int, S: int, P: int, N: int) -> tuple[int, int]:
+    """(bytes, operations) of one ssd_scan: x read and y written (bf16), B
+    and C once per batch row (bf16), dt and A (f32); the chunked form at
+    the kernel's chunk Qk: C B^T on the causal half of each (Qk, Qk) tile
+    once per batch row (the heads share it), its decay-weighted product
+    with x dt per head, C times the carried state and the state update per
+    head."""
+    B, n_chunks = BH // H, -(-S // Qk)
+    nbytes = 2 * 2 * BH * S * P + 2 * 2 * B * S * N + 4 * BH * S + 4 * BH
+    nops = n_chunks * Qk * (Qk + 1) * (B * N + BH * P) + BH * n_chunks * 4 * Qk * N * P
+    return nbytes, nops
+
+
+def _time_ssd_case(c: Ctx, rates, gen, label: str, shape, N: int, H: int, chunk: int) -> dict:
+    """ssd_scan at one prefill shape, bf16: kernel, plain version and the
+    bound (``_ssd_work``); no library call computes it."""
+    ss = c.rt.ssd_scan
+    BH, S, P = shape
+    args = _ssd_inputs(c, gen, shape, N, H, "bfloat16")
+    ms = time_ms(lambda: ss.ssd_scan(*args, chunk=chunk), reps=10)
+    plain = time_ms(lambda: ss.ssd_ref(*args), reps=2, warmup=1)
+    nbytes, nops = _ssd_work(ss.TC_CHUNK, BH, H, S, P, N)
+    b_bytes, b_ops = nbytes / rates["bytes"], nops / rates["bfloat16"]
+    out = {"label": label, "shape": list(shape), "N": N, "heads": H, "ms": ms,
+           "plain_ms": plain, "library_ms": None, "bound_ms": max(b_bytes, b_ops) * 1e3,
+           "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+    log(f"timing ssd_scan {json.dumps(out)}")
+    return out
 
 
 # The kernels on csrc/eval_row.cuh, whose compiler reports the run prints.
@@ -3029,7 +3272,7 @@ def ptxas_summary(entries: list[dict]) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20",
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -3059,6 +3302,13 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t_build:.1f} s into {_build.build_dir()}")
     for name in (*KERNELS, *TC_LIBRARY.values()):
         if name in ROW_KERNELS:
+            continue
+        if name.startswith("flash_attention"):
+            # Every instance of both routes (the <256> ones among them):
+            # registers, shared memory and spills.
+            entries = ptxas_entries(_build.ptxas_report(name))
+            c.kern["flash_attention"].setdefault("ptxas", {})[name] = entries
+            log(f"ptxas {name}: {json.dumps(entries)}")
             continue
         regs = [ln.strip() for ln in _build.ptxas_report(name).splitlines()
                 if "registers" in ln]
@@ -3130,7 +3380,10 @@ def main() -> int:
             # The CUDA-core design at the same shape (the float32 route), and
             # the tensor-core instructions in the bf16 route's SASS.
             row.update(cuda_core_ms=k.get("cuda_core_ms"), float32_source=f"src/repro_torch/kernels/"
-                       f"csrc/{name}.cu", sass=k.get("sass"))
+                       f"csrc/{name}.cu", sass=k.get("sass"), shapes=k.get("shapes"),
+                       ptxas=k.get("ptxas"))
+        if name == "flash_attention":
+            row.update(max_row_err=k.get("max_row_err"), planted_faults=k.get("planted_faults"))
         rows.append(row)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     print(json.dumps({"kernels": rows}))

@@ -776,9 +776,11 @@ class IslandOptimizer:
             keys = torch.cat([keys, keys[:1].expand(pad, 2)])
         mine = self._many(f, mesh_mod.local_rows(keys, group.rank, keys.shape[0] // group.size))
         stale = -1.0 if self.last_max_staleness is None else float(self.last_max_staleness)
+        # Gathered on this rank's device, as every other collective here: a
+        # group built on nccl refuses host tensors (gloo stages them itself).
         rows = torch.as_tensor(np.stack([np.concatenate([r.arg, [r.value], r.history, [stale]])
-                                         for r in mine]).astype(np.float32))
-        rows = mesh_mod.all_gather_rows(rows, group)[:n_jobs].numpy()
+                                         for r in mine]).astype(np.float32), device=self.device)
+        rows = mesh_mod.all_gather_rows(rows, group)[:n_jobs].cpu().numpy()
         if self._async:
             self.last_max_staleness = int(rows[:, -1].max())
         return [OptimizeResult(arg=row[:dim], value=float(row[dim]),

@@ -46,10 +46,20 @@ using popt::from_f;
 using popt::to_f;
 
 // Shared memory floats for padded head dim HDP: Qt, Kt [HDP][LD], Vs [BN][HDP],
-// Pt [BN][LD].
+// Pt [BN][LD]. At 256: 222,208 bytes, one block an SM (the opt-in ceiling
+// is 232,448).
 template <int HDP>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * HDP * LD + BN * HDP + BN * LD);
+}
+
+// Blocks an SM holds by shared memory (228 KiB an SM, 1 KiB reserved a
+// block), at most 2: __launch_bounds__ caps registers at 65,536 / (256 x
+// that), which buys occupancy only where shared memory allows it. 2 below
+// hd 128, 1 at 128 and 256.
+template <int HDP>
+constexpr int min_blocks() {
+  return 2 * (smem_bytes<HDP>() + 1024) <= 233472 ? 2 : 1;
 }
 
 // Output column j (< HDP / 16) of thread tx: groups of four, 64 apart.
@@ -60,7 +70,7 @@ __device__ __forceinline__ int out_col(int tx, int j) {
 }
 
 template <typename T, int HDP>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, min_blocks<HDP>())
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int S, int Tk, int hd,
              float scale, int causal, int window, float softcap) {
@@ -233,20 +243,21 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int BH,
                 float softcap, cudaStream_t s) {
   if (hd <= 32) return launch<T, 32>(q, k, v, o, BH, S, Tk, hd, scale, causal, window, softcap, s);
   if (hd <= 64) return launch<T, 64>(q, k, v, o, BH, S, Tk, hd, scale, causal, window, softcap, s);
-  return launch<T, 128>(q, k, v, o, BH, S, Tk, hd, scale, causal, window, softcap, s);
+  if (hd <= 128) return launch<T, 128>(q, k, v, o, BH, S, Tk, hd, scale, causal, window, softcap, s);
+  return launch<T, 256>(q, k, v, o, BH, S, Tk, hd, scale, causal, window, softcap, s);
 }
 
 }  // namespace
 
 // q (BH, S, hd), k and v (BH, T, hd), out (BH, S, hd), all contiguous, of
-// type `dtype` (0 float32, 1 bfloat16); 1 <= hd <= 128. Launches on `stream`
+// type `dtype` (0 float32, 1 bfloat16); 1 <= hd <= 256. Launches on `stream`
 // and returns cudaGetLastError() (cudaErrorInvalidValue for a shape or type
 // the kernel does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int BH, int S, int Tk, int hd,
                                       int dtype, float scale, int causal,
                                       int window, float softcap, void* stream) {
-  if (hd < 1 || hd > 128 || Tk < 1 || BH > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd < 1 || hd > 256 || Tk < 1 || BH > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (BH <= 0 || S <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

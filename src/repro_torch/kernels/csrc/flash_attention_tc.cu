@@ -2,7 +2,7 @@
 // Hopper's tensor cores (wgmma). The float32 route stays in that file.
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention (pallas_call
-// at :99) for bfloat16 q, k, v (BH, S, hd) / (BH, T, hd), 1 <= hd <= 128.
+// at :99) for bfloat16 q, k, v (BH, S, hd) / (BH, T, hd), 1 <= hd <= 256.
 //
 // Arithmetic, as the Pallas kernel and flash_attention.cu: s = (q . k) *
 // scale in float32; c * tanh(s / c) when c > 0; -1e30 where a key is past T,
@@ -16,16 +16,22 @@
 // and 40 us of memory. Design: one block of two warpgroups per (bh, 128
 // query rows), query tiles issued last-first so the longest causal rows
 // start first; each warpgroup owns 64 rows. Q is staged once; 64-key tiles
-// of K and V pass through a three-stage ring in shared memory, the copies
-// of the next two tiles in flight while one is computed, one block barrier
-// a tile (TMA would need 16-byte row strides, which hd not a multiple of 8
+// of K and V pass through a ring of kStages<HDP> stages in shared memory,
+// the copies of the next kStages - 1 tiles in flight while one is
+// computed, one block barrier a tile (TMA would need 16-byte row strides, which hd not a multiple of 8
 // lacks; the copies here fall back to plain loads for such hd). S = Q K^T is a wgmma
 // m64n64k16 with both operands K-major in shared memory and a float32
 // accumulator; the online softmax runs on that accumulator in registers,
 // row max and sum over the 4 lanes of a quad; P is packed to bf16 in
 // registers as the A operand of O += P V (wgmma, V read MN-major with the
-// transpose bit). hd is padded to 16, 32, 64 or 128 in shared memory (zero
-// columns). Key tiles wholly above a warpgroup's diagonal or outside its
+// transpose bit; m64n256k16 at hd 256, whose accumulator is 128 floats a
+// thread). hd is padded to 16, 32, 64, 128 or 256 in shared memory (zero
+// columns). At 256 the ring has two stages: Q's 64 KiB and three stages of
+// K and V (3 x 2 x 32 KiB) would need 256 KiB, over the 227 KiB a block
+// may hold; two stages take 192 KiB, the next tile's copies in flight
+// while one is computed. The descriptors' byte offsets at 256 (4096 along
+// M/N of Q and K, 4096 along K of V) are 256 after the shift by 4, inside
+// their 14-bit fields. Key tiles wholly above a warpgroup's diagonal or outside its
 // window are skipped, per 64-row tile exactly as in flash_attention.cu;
 // tiles wholly inside every row's valid keys skip the mask arithmetic.
 #include <cstdint>
@@ -48,11 +54,12 @@ using namespace popt;
 template <int HDP> constexpr uint32_t kVLbo = HDP * 16;
 constexpr uint32_t kVSbo = 128;
 
-constexpr int kStages = 3;          // K/V ring depth
+// K/V ring depth: three stages, two at hd 256 (shared memory).
+template <int HDP> constexpr int kStages = HDP >= 256 ? 2 : 3;
 template <int HDP> __host__ __device__ constexpr int q_bytes() { return kWG * BM * HDP * 2; }
 template <int HDP> __host__ __device__ constexpr int kv_bytes() { return BN * HDP * 2; }
 template <int HDP> __host__ __device__ constexpr int smem_bytes() {
-  return q_bytes<HDP>() + 2 * kStages * kv_bytes<HDP>();
+  return q_bytes<HDP>() + 2 * kStages<HDP> * kv_bytes<HDP>();
 }
 
 // Rows [r0, r0 + rows) of a (n_rows, hd) matrix into the core-matrix layout
@@ -105,10 +112,11 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, int S, int Tk, int hd,
                 float scale, int causal, int window, float softcap, int vec) {
   constexpr int NO = HDP / 2;     // output accumulator floats per thread
+  constexpr int ST = kStages<HDP>;
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* Qs = smem;
   uint8_t* Ks = smem + q_bytes<HDP>();          // stage s at + s * kv_bytes
-  uint8_t* Vs = Ks + kStages * kv_bytes<HDP>();
+  uint8_t* Vs = Ks + ST * kv_bytes<HDP>();
 
   const int bh = blockIdx.y;
   const int qb0 = (gridDim.x - 1 - blockIdx.x) * (kWG * BM);
@@ -132,14 +140,14 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (w == wg) { kt_begin = b; kt_end = e; }
   }
 
-  // Q and the first two key tiles; tile kt goes to stage (kt - blo) % 3.
+  // Q and the first ST - 1 key tiles, one copy group each (Q with the
+  // first); tile kt goes to stage (kt - blo) % ST.
   stage_tile<HDP>(Qs, qb, qb0, kWG * BM, S, hd, vec, tid);
-  stage_tile<HDP>(Ks, kb, blo * BN, BN, Tk, hd, vec, tid);
-  stage_tile<HDP>(Vs, vb, blo * BN, BN, Tk, hd, vec, tid);
-  cp_async_commit();
-  if (blo + 1 < bhi) {
-    stage_tile<HDP>(Ks + kv_bytes<HDP>(), kb, (blo + 1) * BN, BN, Tk, hd, vec, tid);
-    stage_tile<HDP>(Vs + kv_bytes<HDP>(), vb, (blo + 1) * BN, BN, Tk, hd, vec, tid);
+#pragma unroll
+  for (int j = 0; j < ST - 1; ++j) {
+    if (blo + j >= bhi) break;
+    stage_tile<HDP>(Ks + j * kv_bytes<HDP>(), kb, (blo + j) * BN, BN, Tk, hd, vec, tid);
+    stage_tile<HDP>(Vs + j * kv_bytes<HDP>(), vb, (blo + j) * BN, BN, Tk, hd, vec, tid);
     cp_async_commit();
   }
 
@@ -150,18 +158,18 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;   // this thread's rows
   const uint32_t q_base = smem_addr(Qs + wg * BM * HDP * 2);
 
-  for (int kt = blo, st = 0; kt < bhi; ++kt, st = st == kStages - 1 ? 0 : st + 1) {
-    // Tile kt is in once at most the next tile's copies are pending; after
-    // the barrier every thread is done with the stage tile kt - 1 used,
-    // which tile kt + 2 then fills.
-    if (kt + 1 < bhi) cp_async_wait<1>();
+  for (int kt = blo, st = 0; kt < bhi; ++kt, st = st == ST - 1 ? 0 : st + 1) {
+    // Tile kt is in once at most the ST - 2 tiles after it are pending;
+    // after the barrier every thread is done with the stage tile kt - 1
+    // used, which tile kt + ST - 1 then fills.
+    if (kt + ST - 2 < bhi) cp_async_wait<ST - 2>();
     else cp_async_wait<0>();
     fence_proxy_async();
     __syncthreads();
-    if (kt + 2 < bhi) {
-      const int nx = st == 0 ? 2 : st - 1;
-      stage_tile<HDP>(Ks + nx * kv_bytes<HDP>(), kb, (kt + 2) * BN, BN, Tk, hd, vec, tid);
-      stage_tile<HDP>(Vs + nx * kv_bytes<HDP>(), vb, (kt + 2) * BN, BN, Tk, hd, vec, tid);
+    if (kt + ST - 1 < bhi) {
+      const int nx = st == 0 ? ST - 1 : st - 1;
+      stage_tile<HDP>(Ks + nx * kv_bytes<HDP>(), kb, (kt + ST - 1) * BN, BN, Tk, hd, vec, tid);
+      stage_tile<HDP>(Vs + nx * kv_bytes<HDP>(), vb, (kt + ST - 1) * BN, BN, Tk, hd, vec, tid);
       cp_async_commit();
     }
 
@@ -290,18 +298,19 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 }  // namespace
 
 // q (BH, S, hd), k and v (BH, T, hd), out (BH, S, hd), all contiguous
-// bfloat16; 1 <= hd <= 128. Launches on `stream` and returns
+// bfloat16; 1 <= hd <= 256. Launches on `stream` and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a shape it does not take).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v,
                                          void* out, int BH, int S, int Tk, int hd,
                                          float scale, int causal, int window,
                                          float softcap, void* stream) {
-  if (hd < 1 || hd > 128 || Tk < 1 || BH > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd < 1 || hd > 256 || Tk < 1 || BH > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (BH <= 0 || S <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = hd % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
   if (hd <= 16) return launch<16>(q, k, v, out, BH, S, Tk, hd, scale, causal, window, softcap, vec, s);
   if (hd <= 32) return launch<32>(q, k, v, out, BH, S, Tk, hd, scale, causal, window, softcap, vec, s);
   if (hd <= 64) return launch<64>(q, k, v, out, BH, S, Tk, hd, scale, causal, window, softcap, vec, s);
-  return launch<128>(q, k, v, out, BH, S, Tk, hd, scale, causal, window, softcap, vec, s);
+  if (hd <= 128) return launch<128>(q, k, v, out, BH, S, Tk, hd, scale, causal, window, softcap, vec, s);
+  return launch<256>(q, k, v, out, BH, S, Tk, hd, scale, causal, window, softcap, vec, s);
 }

@@ -25,7 +25,7 @@ TC_LAUNCHES = 0
 
 # Element types the kernel takes, by the code its C entry expects.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 NEG_INF = -1e30
 
 

@@ -1,7 +1,7 @@
 """Step functions: prefill and decode, as the serving loop calls them.
 
-Counterpart of ``repro.launch.steps`` (the training step comes with a later
-slice). Each is a plain function of (params, [state], batch); PyTorch runs
+Counterpart of ``repro.launch.steps`` (the training step comes with the
+training slice). Each is a plain function of (params, [state], batch); PyTorch runs
 eagerly, so there is nothing to compile.
 """
 from __future__ import annotations
@@ -58,7 +58,7 @@ def make_prefill_decode(cfg: ModelConfig):
         toks = batch.get("tokens")
         if toks is None:
             raise NotImplementedError("frontend embeddings are ported in a "
-                                      "later slice of the model stack (ROADMAP A14)")
+                                      "later slice of the model stack")
         logits = torch.zeros((toks.shape[0], cfg.padded_vocab),
                              dtype=torch.float32, device=toks.device)
         for t in range(toks.shape[1]):

@@ -3,8 +3,9 @@
 One decoder-stack config expresses dense GQA transformers, MoE, SSM
 (Mamba2/SSD), hybrids and modality-stub frontends, field for field as in the
 JAX package, so a config built for one package reads the same in the other.
-The port runs the ``attn`` and ``ssm`` block patterns (llama3.2-1b,
-mamba2-370m); ``models.transformer`` raises for the rest. The TPU roofline
+The port runs the ``attn``, ``ssm`` and ``ssm+shared_attn`` block
+patterns (llama3.2-1b, granite-3-8b, gemma-7b, gemma2-9b, mamba2-370m,
+zamba2-7b); ``models.transformer`` raises for MoE and the frontends. The TPU roofline
 constants of the JAX module are left out: H100 values come with the port of
 the planning tools.
 """

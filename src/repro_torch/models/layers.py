@@ -10,13 +10,18 @@ the JAX package picks ``_attend_direct`` or ``_attend_chunked`` (one
 function, two XLA schedules), and through the KV cache at position 0. A
 call at a later cache position (a decode step) keeps the grouped einsum of
 ``_attend_direct_g``. The mask takes the query positions to be
-``cache_pos + 0..S-1``, as every caller passes them. MoE (``init_moe``,
-``moe``) and gemma2's alternating local/global layers come with a later
-slice.
+``cache_pos + 0..S-1``, as every caller passes them. gemma2's local and
+global layers differ only by the window each call is given
+(``layer_is_local``). MoE (``init_moe``, ``moe``) comes with a later slice.
+
+Parameters are drawn leaf by leaf with :func:`normal_leaf`, one layer's key
+at a time and a large leaf in blocks of rows, so that a full-size init
+never holds the int64 temporaries of a whole stacked leaf.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any
 
 import numpy as np
@@ -41,6 +46,31 @@ def dtype_of(name: str) -> torch.dtype:
 def inv_sqrt(n: int) -> float:
     """``1 / sqrt(n)`` rounded as the reference computes it in float32."""
     return float(np.float32(1.0) / np.sqrt(np.float32(n)))
+
+
+# Elements one ``prng.normal`` call draws at most: threefry's int64
+# temporaries (several of 8 bytes per element) stay near half a gigabyte
+# each. gemma2-9b's stacked ``w_gate`` alone is 2.16 G elements.
+DRAW_BLOCK = 1 << 26
+
+
+def normal_leaf(key: Tensor, shape: tuple[int, ...], mul: float) -> Tensor:
+    """``prng.normal(key, shape) * mul`` for ``key`` ``(..., 2)`` with
+    leading key axes (the layer axis), bit for bit: each leading key is
+    drawn alone, and a draw of more than :data:`DRAW_BLOCK` elements in
+    blocks of rows whose counters continue where the last block's
+    stopped."""
+    lead = tuple(key.shape[:-1])
+    out = torch.empty((*lead, *shape), dtype=torch.float32, device=key.device)
+    keys, rows_out = key.reshape(-1, 2), out.reshape(-1, *shape)
+    row = math.prod(shape[1:])
+    step = max(1, DRAW_BLOCK // max(row, 1))
+    for i in range(keys.shape[0]):
+        for r0 in range(0, shape[0], step):
+            r1 = min(shape[0], r0 + step)
+            rows_out[i, r0:r1] = prng.normal(keys[i], (r1 - r0, *shape[1:]),
+                                             start=r0 * row) * mul
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -89,10 +119,10 @@ def init_attn(key: Tensor, cfg: ModelConfig) -> Params:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     k = prng.split(key, 4)
     return {
-        "wq": prng.normal(k[..., 0, :], (d, h * hd)) * inv_sqrt(d),
-        "wk": prng.normal(k[..., 1, :], (d, kv * hd)) * inv_sqrt(d),
-        "wv": prng.normal(k[..., 2, :], (d, kv * hd)) * inv_sqrt(d),
-        "wo": prng.normal(k[..., 3, :], (h * hd, d)) * inv_sqrt(h * hd),
+        "wq": normal_leaf(k[..., 0, :], (d, h * hd), inv_sqrt(d)),
+        "wk": normal_leaf(k[..., 1, :], (d, kv * hd), inv_sqrt(d)),
+        "wv": normal_leaf(k[..., 2, :], (d, kv * hd), inv_sqrt(d)),
+        "wo": normal_leaf(k[..., 3, :], (h * hd, d), inv_sqrt(h * hd)),
     }
 
 
@@ -139,16 +169,15 @@ def _attend_flash(q, k, v, window, softcap_val):
 
 
 def attention(params: Params, x: Tensor, cfg: ModelConfig, *,
+              layer_is_local: bool = False,
               positions: Tensor | None = None,
               kv_cache: tuple[Tensor, Tensor] | None = None,
               cache_pos: int | None = None):
     """GQA attention. Training/prefill when kv_cache is None (returns y,
     (k, v)); through the cache when it is given (returns y and the cache,
-    whose tensors are written in place at ``cache_pos``, a host integer)."""
-    if cfg.local_global_pattern:
-        raise NotImplementedError(
-            "alternating local/global attention layers (gemma2) are not "
-            "ported yet (ROADMAP A14)")
+    whose tensors are written in place at ``cache_pos``, a host integer).
+    With ``cfg.local_global_pattern`` (gemma2) a local layer attends within
+    ``cfg.window`` and a global layer to every earlier position."""
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     cd = dtype_of(cfg.compute_dtype)
@@ -163,6 +192,8 @@ def attention(params: Params, x: Tensor, cfg: ModelConfig, *,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     window = cfg.window if cfg.window > 0 else 0
+    if cfg.local_global_pattern and not layer_is_local:
+        window = 0
     rep = H // KV
 
     if kv_cache is not None:
@@ -199,9 +230,9 @@ def init_mlp(key: Tensor, cfg: ModelConfig, d_ff: int | None = None) -> Params:
     d, f = cfg.d_model, d_ff or cfg.d_ff
     k = prng.split(key, 3)
     return {
-        "w_gate": prng.normal(k[..., 0, :], (d, f)) * inv_sqrt(d),
-        "w_up": prng.normal(k[..., 1, :], (d, f)) * inv_sqrt(d),
-        "w_down": prng.normal(k[..., 2, :], (f, d)) * inv_sqrt(f),
+        "w_gate": normal_leaf(k[..., 0, :], (d, f), inv_sqrt(d)),
+        "w_up": normal_leaf(k[..., 1, :], (d, f), inv_sqrt(d)),
+        "w_down": normal_leaf(k[..., 2, :], (f, d), inv_sqrt(f)),
     }
 
 

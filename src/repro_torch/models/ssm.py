@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from repro_torch import prng
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dtype_of, inv_sqrt
+from repro_torch.models.layers import dtype_of, inv_sqrt, normal_leaf
 
 Tensor = torch.Tensor
 Params = dict[str, Any]
@@ -45,14 +45,14 @@ def init_ssm(key: Tensor, cfg: ModelConfig) -> Params:
     lin = np.linspace(np.float32(1.0), np.float32(16.0), h, dtype=np.float32)
     dt_bias = np.log(np.expm1(np.float64(np.float32(0.01)))).astype(np.float32)
     return {
-        "w_z": prng.normal(ks[..., 0, :], (d, di)) * s,
-        "w_x": prng.normal(ks[..., 1, :], (d, di)) * s,
-        "w_B": prng.normal(ks[..., 2, :], (d, n)) * s,
-        "w_C": prng.normal(ks[..., 3, :], (d, n)) * s,
-        "w_dt": prng.normal(ks[..., 4, :], (d, h)) * s,
-        "conv_x": prng.normal(ks[..., 5, :], (cfg.ssm_conv, di)) * 0.5,
-        "conv_B": prng.normal(ks[..., 6, :], (cfg.ssm_conv, n)) * 0.5,
-        "conv_C": prng.normal(ks[..., 7, :], (cfg.ssm_conv, n)) * 0.5,
+        "w_z": normal_leaf(ks[..., 0, :], (d, di), s),
+        "w_x": normal_leaf(ks[..., 1, :], (d, di), s),
+        "w_B": normal_leaf(ks[..., 2, :], (d, n), s),
+        "w_C": normal_leaf(ks[..., 3, :], (d, n), s),
+        "w_dt": normal_leaf(ks[..., 4, :], (d, h), s),
+        "conv_x": normal_leaf(ks[..., 5, :], (cfg.ssm_conv, di), 0.5),
+        "conv_B": normal_leaf(ks[..., 6, :], (cfg.ssm_conv, n), 0.5),
+        "conv_C": normal_leaf(ks[..., 7, :], (cfg.ssm_conv, n), 0.5),
         "conv_bias_x": zeros(di),
         "conv_bias_B": zeros(n),
         "conv_bias_C": zeros(n),
@@ -60,7 +60,7 @@ def init_ssm(key: Tensor, cfg: ModelConfig) -> Params:
         "D": const(np.ones(h)),
         "dt_bias": const(np.full(h, dt_bias)),
         "norm_scale": zeros(di),
-        "w_out": prng.normal(key, (di, d)) * inv_sqrt(di),
+        "w_out": normal_leaf(key, (di, d), inv_sqrt(di)),
     }
 
 

@@ -1,11 +1,13 @@
 """Model assembly: parameter init, forward (prefill), decode step.
 
-Counterpart of ``repro.models.transformer`` for the ``attn`` (llama-style)
-and ``ssm`` (Mamba2) block patterns. Parameters keep the JAX package's
-keys and its stacked leading layer axis; the layer ``scan`` is a Python loop
-over that axis. The ``ssm+shared_attn`` hybrid (zamba2), MoE layers, the
-VLM/audio frontends and ``loss_fn`` (training) raise NotImplementedError:
-ROADMAP A14 ports them.
+Counterpart of ``repro.models.transformer`` for the ``attn`` (llama-style
+dense GQA, gemma's and gemma2's variants) and ``ssm`` (Mamba2) block
+patterns and the ``ssm+shared_attn`` hybrid (zamba2: groups of
+``shared_attn_every`` Mamba2 layers, each followed by one weight-shared
+attention block). Parameters keep the JAX package's keys and its stacked
+leading layer axis; the layer ``scan`` is a Python loop over that axis.
+MoE layers, the VLM/audio frontends and ``loss_fn`` (training) raise
+NotImplementedError: later slices of the model stack port them.
 
 Decode caches are preallocated; ``decode_step`` writes them in place and
 keeps the cache position ``pos`` as a host integer, so no step reads the
@@ -26,7 +28,7 @@ from repro_torch.models.config import ModelConfig
 Tensor = torch.Tensor
 Params = dict[str, Any]
 
-_LATER = "ported in a later slice of the model stack (ROADMAP A14)"
+_LATER = "ported in a later slice of the model stack"
 
 
 def tree_map(fn: Callable[[Tensor], Any], tree: Any) -> Any:
@@ -43,17 +45,26 @@ def tree_leaves(tree: Any) -> list[Tensor]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what this slice does not run."""
-    if cfg.block_pattern not in ("attn", "ssm"):
-        raise NotImplementedError(f"block pattern {cfg.block_pattern!r} is {_LATER}")
+    """Raise NotImplementedError for what the port does not run yet (MoE
+    layers, the frontends, non-float32 parameters), ValueError for an
+    unknown block pattern."""
+    if cfg.block_pattern not in ("attn", "ssm", "ssm+shared_attn"):
+        raise ValueError(f"unknown block pattern {cfg.block_pattern!r}")
     if cfg.num_experts:
         raise NotImplementedError(f"MoE layers are {_LATER}")
-    if cfg.local_global_pattern:
-        raise NotImplementedError(f"alternating local/global layers are {_LATER}")
     if cfg.frontend != "none" or cfg.pos_embedding != "rope":
         raise NotImplementedError(f"frontends and sinusoidal positions are {_LATER}")
     if cfg.param_dtype != "float32":
-        raise NotImplementedError("parameters are float32 in this slice")
+        raise NotImplementedError(f"non-float32 parameters are {_LATER} (with MoE)")
+
+
+def _shared_app(cfg: ModelConfig, i: int) -> int | None:
+    """The shared attention application that follows layer ``i`` of the
+    hybrid (after every ``shared_attn_every`` layers; the tail has none),
+    else None."""
+    if cfg.block_pattern != "ssm+shared_attn" or (i + 1) % cfg.shared_attn_every:
+        return None
+    return (i + 1) // cfg.shared_attn_every - 1
 
 
 # ---------------------------------------------------------------------------
@@ -79,16 +90,17 @@ def _init_attn_layers(key: Tensor, cfg: ModelConfig) -> Params:
 def init_params(key: Tensor, cfg: ModelConfig) -> Params:
     """The JAX package's ``init_params``: the same key splits, each leaf
     drawn with ``prng.normal`` (within its ulp bound of ``jax.random``) on
-    the key's device, one leaf at a time for all layers."""
+    the key's device, one layer and at most ``L.DRAW_BLOCK`` elements at a
+    time (``L.normal_leaf``); the hybrid's shared block from ``keys[4]``."""
     check_supported(cfg)
     keys = prng.split(key, 8)
     d = cfg.d_model
     params: Params = {
         "final_norm": torch.zeros(d, device=key.device),
-        "embed": prng.normal(keys[0], (cfg.padded_vocab, d)) * L.inv_sqrt(d),
+        "embed": L.normal_leaf(keys[0], (cfg.padded_vocab, d), L.inv_sqrt(d)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = prng.normal(keys[1], (d, cfg.padded_vocab)) * L.inv_sqrt(d)
+        params["lm_head"] = L.normal_leaf(keys[1], (d, cfg.padded_vocab), L.inv_sqrt(d))
     layer_keys = prng.split(keys[3], cfg.n_layers)
     if cfg.block_pattern == "attn":
         params["layers"] = _init_attn_layers(layer_keys, cfg)
@@ -97,6 +109,8 @@ def init_params(key: Tensor, cfg: ModelConfig) -> Params:
             "ln": torch.zeros((cfg.n_layers, d), device=key.device),
             "ssm": S.init_ssm(layer_keys, cfg),
         }
+        if cfg.block_pattern == "ssm+shared_attn":
+            params["shared_attn"] = _init_attn_layers(keys[4], cfg)
     return params
 
 
@@ -112,11 +126,13 @@ def _layer(layers: Params, i: int) -> Params:
 # blocks
 # ---------------------------------------------------------------------------
 
-def _attn_block(lp: Params, x: Tensor, cfg: ModelConfig, positions: Tensor,
+def _attn_block(lp: Params, x: Tensor, cfg: ModelConfig, idx: int, positions: Tensor,
                 kv_cache=None, cache_pos=None):
+    """Attention block ``idx`` (even blocks are gemma2's local layers)."""
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    a, cache = L.attention(lp["attn"], h, cfg, positions=positions,
-                           kv_cache=kv_cache, cache_pos=cache_pos)
+    a, cache = L.attention(lp["attn"], h, cfg,
+                           layer_is_local=cfg.local_global_pattern and idx % 2 == 0,
+                           positions=positions, kv_cache=kv_cache, cache_pos=cache_pos)
     if cfg.post_norm:
         a = L.rmsnorm(a, lp["ln1_post"], cfg.norm_eps)
     x = x + a
@@ -176,9 +192,12 @@ def forward_hidden(params: Params, cfg: ModelConfig,
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         if cfg.block_pattern == "attn":
-            x, _ = _attn_block(lp, x, cfg, positions)
-        else:
-            x = _ssm_layer(lp, x, cfg)
+            x, _ = _attn_block(lp, x, cfg, i, positions)
+            continue
+        x = _ssm_layer(lp, x, cfg)
+        g = _shared_app(cfg, i)
+        if g is not None:
+            x, _ = _attn_block(params["shared_attn"], x, cfg, g, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
@@ -215,6 +234,11 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
         state["ssd"] = torch.zeros(
             (cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
             dtype=torch.float32, device=device)
+        if cfg.block_pattern == "ssm+shared_attn":
+            n_apps = cfg.n_layers // cfg.shared_attn_every
+            shape = (n_apps, batch, max_len, cfg.n_kv_heads, cfg.hd)
+            state["k"] = torch.zeros(shape, dtype=cd, device=device)
+            state["v"] = torch.zeros(shape, dtype=cd, device=device)
     return state
 
 
@@ -235,15 +259,19 @@ def decode_step(params: Params, cfg: ModelConfig, state: Params,
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         if cfg.block_pattern == "attn":
-            x, _ = _attn_block(lp, x, cfg, positions,
+            x, _ = _attn_block(lp, x, cfg, i, positions,
                                kv_cache=(state["k"][i], state["v"][i]), cache_pos=pos)
-        else:
-            h = L.rmsnorm(x, lp["ln"], cfg.norm_eps)
-            y, conv, ssd = S.ssm_decode_step(lp["ssm"], h, cfg, state["conv"][i],
-                                             state["ssd"][i])
-            state["conv"][i] = conv
-            state["ssd"][i] = ssd
-            x = x + y
+            continue
+        h = L.rmsnorm(x, lp["ln"], cfg.norm_eps)
+        y, conv, ssd = S.ssm_decode_step(lp["ssm"], h, cfg, state["conv"][i],
+                                         state["ssd"][i])
+        state["conv"][i] = conv
+        state["ssd"][i] = ssd
+        x = x + y
+        g = _shared_app(cfg, i)
+        if g is not None:
+            x, _ = _attn_block(params["shared_attn"], x, cfg, g, positions,
+                               kv_cache=(state["k"][g], state["v"][g]), cache_pos=pos)
     # Only the last position is read: the head runs on it alone.
     logits = logits_from_hidden(params, cfg, x[:, -1:])[:, 0]
     return logits, {**state, "pos": pos + Ssz}

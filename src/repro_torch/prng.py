@@ -62,15 +62,17 @@ def PRNGKey(seed: int, device: str | torch.device = "cpu") -> torch.Tensor:
                         device=device)
 
 
-def _bits_pair(key: torch.Tensor, shape: tuple[int, ...]):
+def _bits_pair(key: torch.Tensor, shape: tuple[int, ...], start: int = 0):
     """Both threefry words for the flat counters of ``shape``, per key:
-    ``(..., *shape)`` each. The counter's high word is ``idx >> 32``."""
+    ``(..., *shape)`` each. The counter's high word is ``idx >> 32``.
+    ``start`` offsets the counters: a block of rows of a larger draw, whose
+    bits equal that draw's rows."""
     n = 1
     for s in shape:
         n *= s
-    if n >= 2 ** 32:
+    if start < 0 or start + n >= 2 ** 32:
         raise ValueError("draws of 2**32 or more elements are not supported")
-    idx = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=key.device).reshape(shape)
     tail = (1,) * len(shape)
     k1 = key[..., 0].reshape(key.shape[:-1] + tail)
     k2 = key[..., 1].reshape(key.shape[:-1] + tail)
@@ -91,20 +93,21 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
-    """32 random bits per element: ``(..., *shape)`` uint32 values in int64."""
-    b1, b2 = _bits_pair(key, tuple(shape))
+def random_bits(key: torch.Tensor, shape: tuple[int, ...], start: int = 0) -> torch.Tensor:
+    """32 random bits per element: ``(..., *shape)`` uint32 values in int64,
+    the flat counters from ``start``."""
+    b1, b2 = _bits_pair(key, tuple(shape), start)
     return b1 ^ b2
 
 
 def uniform(key: torch.Tensor, shape: tuple[int, ...], minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
+            maxval: float = 1.0, start: int = 0) -> torch.Tensor:
     """float32 draws in ``[minval, maxval)``, as ``jax.random.uniform``:
     the top 23 bits fill a mantissa with exponent 0, giving ``[1, 2)``.
 
     XLA contracts ``floats * (hi - lo) + lo`` into one fused multiply-add,
     which ``f32.fma`` reproduces on every device."""
-    bits = random_bits(key, shape)
+    bits = random_bits(key, shape, start)
     fbits = (bits >> 9) | 0x3F800000
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
     # Bounds as float32 values held in Python floats: no host-to-device copy.
@@ -159,16 +162,16 @@ def _erf_inv(x: torch.Tensor) -> torch.Tensor:
 
 
 def normal(key: torch.Tensor, shape: tuple[int, ...], scale: float = 1.0,
-           loc: torch.Tensor | float | None = None) -> torch.Tensor:
+           loc: torch.Tensor | float | None = None, start: int = 0) -> torch.Tensor:
     """float32 standard-normal draws ``(..., *shape)``, as
     ``jax.random.normal``: ``sqrt(2) * erf_inv(u)`` for ``u`` uniform on
-    ``(nextafter(-1, 0), 1)``.
+    ``(nextafter(-1, 0), 1)``; the flat counters from ``start``.
 
     ``scale`` and ``loc`` give ``loc + scale * normal(key, shape)`` as XLA
     computes that expression with a constant ``scale``: it folds ``scale``
     into the ``sqrt(2)`` factor, and contracts the add of ``loc`` into one
     fused multiply-add."""
-    e = _erf_inv(uniform(key, shape, _NORMAL_LO, 1.0))
+    e = _erf_inv(uniform(key, shape, _NORMAL_LO, 1.0, start))
     c = f32.const(np.float32(scale) * np.float32(_SQRT2))
     return e * c if loc is None else f32.fma(e, c, loc)
 

@@ -167,3 +167,20 @@ def failing(wait: bool):
     if wait:
         dist.all_reduce(torch.zeros(1))
     return "rank 0 finished"
+
+
+JOB_KEYS = ((0, 3), (0, 11), (0, 29))
+JOBS_CFG = dict(n_islands=2, pop=16, dim=6, sync_every=5, max_evals=1200)
+
+
+def jobs_over_mesh(backend: str | None, device: str) -> list:
+    """``minimize_many`` of three DE jobs on ``device``: over a 1-rank
+    ``mesh=`` of ``backend`` when one is named (inside the group the
+    caller spawned), else unsharded."""
+    import torch
+
+    cfg = tcore.IslandConfig(**JOBS_CFG)
+    m = None if backend is None else MeshConfig(1, backend=backend).build(device)
+    opt = tcore.IslandOptimizer(tcore.ALGORITHMS["de"], cfg, device=device, mesh=m)
+    keys = torch.tensor(JOB_KEYS, dtype=torch.int64, device=device)
+    return [dataclasses.astuple(r) for r in opt.minimize_many(get("rastrigin", 6), keys)]

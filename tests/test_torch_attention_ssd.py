@@ -33,6 +33,12 @@ except ImportError:     # a machine with the card but without JAX
 
 FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# bfloat16 flash on the card is also held row by row to 2^-4 of the plain
+# row's rms: at long rows |out| is about sqrt(e / n) (0.02 at n = 6144),
+# where the absolute 2e-2 passes a fault that moves such rows by 0.01. Two
+# outputs rounded once to 8 significant bits differ by at most a unit in
+# the last place, 2^-7 of an element of up to about 4.5 row rms.
+FLASH_ROW_TOL = 2.0 ** -4
 
 
 def _normal(shape, seed):
@@ -85,6 +91,21 @@ def test_flash_attention_masks(needs_jax, window, softcap, causal):
     for want in (ops.flash_attention(jq, jk, jv, **kw),
                  ref.flash_attention_ref(jq, jk, jv, **kw)):
         assert np.max(np.abs(_f64(got) - _f64(want))) < 2e-6
+
+
+@pytest.mark.parametrize("S,T,window,softcap", [(96, 96, 0, 0.0), (96, 96, 32, 50.0),
+                                                 (64, 128, 0, 30.0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_256(needs_jax, S, T, window, softcap, dtype):
+    """gemma's head dim, with gemma2's window and attention softcap: the
+    Pallas kernel takes any head dim, and so does the port."""
+    (jq, tq), (jk, tk), (jv, tv) = _flash_inputs(2, S, T, 256, dtype, seed=7)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    got = fa.flash_attention(tq, tk, tv, **kw)
+    assert got.shape == (2, S, 256) and got.dtype == tq.dtype
+    for want in (ops.flash_attention(jq, jk, jv, **kw),
+                 ref.flash_attention_ref(jq, jk, jv, **kw)):
+        assert np.max(np.abs(_f64(got) - _f64(want))) < FLASH_TOL[dtype]
 
 
 def _ssd_inputs(BH, S, P, N, dtype, seed=0):
@@ -147,17 +168,25 @@ def _card(t, dev):
     return t.to(dev)
 
 
+def _row_err(got, want):
+    """Largest over rows of max |got - want| over the rms of want's row."""
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean(-1).sqrt()
+    return float(((g - w).abs().amax(-1) / (rms + 1e-6)).max())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("BH,S,T,hd", [(2, 128, 128, 64), (2, 100, 200, 64), (3, 77, 77, 16),
                                        (2, 130, 130, 112), (2, 128, 256, 128), (64, 1, 1, 64),
-                                       (8, 300, 300, 64), (2, 50, 70, 20)])
+                                       (8, 300, 300, 64), (2, 50, 70, 20), (2, 130, 130, 256),
+                                       (3, 70, 200, 200), (16, 1, 1, 256)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window,softcap,causal", [(0, 0.0, True), (32, 30.0, True),
                                                    (0, 0.0, False), (64, 0.0, False)])
 def test_flash_attention_kernel_matches_plain(cuda_dev, BH, S, T, hd, dtype, window,
                                               softcap, causal):
     """hd 20 is not a multiple of 8: its rows are copied without 16-byte
-    copies."""
+    copies. hd 200 and 256 run the kernels' 256-column instances."""
     q, k, v = (_card(t, cuda_dev) for _, t in _flash_inputs(BH, S, T, hd, dtype, seed=BH))
     kw = dict(causal=causal, window=window, softcap=softcap)
     n, tc = fa.LAUNCHES, fa.TC_LAUNCHES
@@ -168,19 +197,40 @@ def test_flash_attention_kernel_matches_plain(cuda_dev, BH, S, T, hd, dtype, win
     want = fa.flash_attention_ref(q, k, v, **kw)
     assert got.dtype == q.dtype
     assert float((got.float() - want.float()).abs().max()) < FLASH_TOL[dtype]
+    if dtype == "bfloat16":
+        assert _row_err(got, want) < FLASH_ROW_TOL
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("BH,S,hd", [(128, 2048, 64), (32, 4096, 64)])
-def test_flash_attention_kernel_main_path_shapes(cuda_dev, BH, S, hd):
-    """llama3.2-1b's prefills (batch 4 x 2048 and 1 x 4096, 32 heads of
-    64), bfloat16 and causal, through the tensor-core kernel."""
+@pytest.mark.parametrize("BH,S,hd,window,softcap", [
+    (128, 2048, 64, 0, 0.0), (32, 4096, 64, 0, 0.0),      # llama3.2-1b
+    (128, 2048, 128, 0, 0.0),                             # granite-3-8b
+    (64, 2048, 256, 0, 0.0),                              # gemma-7b
+    (32, 4096, 256, 4096, 50.0), (32, 4096, 256, 0, 50.0),  # gemma2-9b local, global
+    (16, 6144, 256, 4096, 50.0),                          # gemma2-9b local, serve
+    (64, 2048, 112, 0, 0.0)])                             # zamba2-7b's shared block
+def test_flash_attention_kernel_main_path_shapes(cuda_dev, BH, S, hd, window, softcap):
+    """The models' prefills (batch 4 x 2048 and 1 x 4096 for llama, batch
+    4 x 2048 for granite and gemma-7b, 2 x 4096 and 1 x 6144 for
+    gemma2-9b's two kinds of layer, 2 x 2048 for zamba2-7b), bfloat16 and
+    causal, through the tensor-core kernel. The row bound rejects what a
+    faulty kernel would return: the kernel on keys whose next-to-last
+    64-key tile repeats the tile before it (only the longest rows see it),
+    and past the window the kernel with window 0."""
     q, k, v = (_card(t, cuda_dev) for _, t in _flash_inputs(BH, S, S, hd, "bfloat16"))
     tc = fa.TC_LAUNCHES
-    got = fa.flash_attention(q, k, v, causal=True)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    got = fa.flash_attention(q, k, v, **kw)
     assert fa.TC_LAUNCHES == tc + 1
-    want = fa.flash_attention_ref(q, k, v, causal=True)
+    want = fa.flash_attention_ref(q, k, v, **kw)
     assert float((got.float() - want.float()).abs().max()) < FLASH_TOL["bfloat16"]
+    assert _row_err(got, want) < FLASH_ROW_TOL
+    t0 = S // 64 * 64 - 128
+    k2, v2 = k.clone(), v.clone()
+    k2[:, t0:t0 + 64], v2[:, t0:t0 + 64] = k[:, t0 - 64:t0], v[:, t0 - 64:t0]
+    assert _row_err(fa.flash_attention(q, k2, v2, **kw), want) >= FLASH_ROW_TOL
+    if 0 < window < S:
+        assert _row_err(fa.flash_attention(q, k, v, **{**kw, "window": 0}), want) >= FLASH_ROW_TOL
 
 
 @pytest.mark.gpu
@@ -222,7 +272,7 @@ def test_card_wrappers_raise_on_what_the_kernels_do_not_take(cuda_dev):
     q = torch.zeros((2, 8, 64), dtype=torch.float16, device=cuda_dev)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
-    q = torch.zeros((2, 8, 256), device=cuda_dev)
+    q = torch.zeros((2, 8, 257), device=cuda_dev)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
     x = torch.zeros((2, 32, 16), device=cuda_dev)

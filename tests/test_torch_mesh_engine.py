@@ -128,3 +128,40 @@ def test_launch_distributed_reports_rates_and_same_results(capsys):
     assert [r["devices"] for r in rows] == [1, 2]
     assert [r["route"] for r in rows] == ["none", "gloo"]
     assert all(r["same_as_first"] and r["rounds_per_s"] > 0 for r in rows)
+
+
+def test_jobs_over_a_joined_one_rank_gloo_group_bit_identical():
+    """``minimize_many`` over a 1-rank ``mesh=`` inside a joined gloo
+    group (its all-gather issued) equals the unsharded run."""
+    want = cases.jobs_over_mesh(None, "cpu")
+    got = mesh.spawn(1, cases.jobs_over_mesh, "gloo", "cpu", timeout=DEADLINE)
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        _same_astuple(a, b)
+
+
+@pytest.mark.gpu
+def test_jobs_over_a_joined_one_rank_nccl_group_bit_identical():
+    """The jobs' rows are gathered on the rank's GPU: a group built on
+    nccl refuses host tensors. Three jobs over a 1-rank nccl ``mesh=``,
+    inside a joined group as ``chip_smoke.py`` phase 18 A builds one, equal
+    the unsharded ``minimize_many`` on the card bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    want = cases.jobs_over_mesh(None, "cuda")
+    got = mesh.spawn(1, cases.jobs_over_mesh, "nccl", "cuda", backend="nccl",
+                     timeout=DEADLINE)
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        _same_astuple(a, b)
+
+
+def _same_astuple(a, b):
+    """Two ``dataclasses.astuple`` results equal field for field, arrays
+    bit for bit."""
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if isinstance(x, np.ndarray):
+            np.testing.assert_array_equal(x, y)
+        else:
+            assert x == y

@@ -1,7 +1,8 @@
 """The port's model serving path against the JAX package's.
 
-Both packages run the reduced llama3.2-1b and mamba2-370m configs in
-float32 on the same weights: the JAX parameter pytree carried across with
+Both packages run the reduced configs of every arch the port runs
+(``ARCHS``: llama3.2-1b, granite-3-8b, gemma-7b, gemma2-9b, mamba2-370m,
+zamba2-7b) in float32 on the same weights: the JAX parameter pytree carried across with
 ``convert.params_from_numpy``. On the CPU the port's attention and SSD scan
 run the plain versions of ``flash_attention`` and ``ssd_scan``, where the
 JAX models take their XLA paths (``_attend_direct``/``_attend_chunked``,
@@ -275,23 +276,124 @@ def test_convert_keeps_bfloat16_leaves():
     assert float(ts["k"].float().min()) == float(ts["k"].float().max()) == 1.5
 
 
-@pytest.mark.parametrize("over", [{"block_pattern": "ssm+shared_attn"}, {"num_experts": 4},
-                                  {"frontend": "vlm_stub", "frontend_dim": 32},
-                                  {"local_global_pattern": True, "window": 8}])
+@pytest.mark.parametrize("over", [{"num_experts": 4},
+                                  {"frontend": "vlm_stub", "frontend_dim": 32}])
 def test_later_slice_features_raise(over):
     cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(), **over)
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         TT.init_params(prng.PRNGKey(0), cfg)
     _, tp = _params("llama3.2-1b", jget("llama3.2-1b").reduced())
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         TT.forward(tp, cfg, tokens=torch.zeros((1, 4), dtype=torch.long))
 
 
 def test_training_and_other_archs_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         TT.loss_fn({}, get_config("llama3.2-1b"), {})
     with pytest.raises(KeyError):
-        get_config("gemma2-9b")
+        get_config("qwen2-moe-a2.7b")
+
+
+def test_archs_of_the_port():
+    assert sorted(ARCHS) == sorted(["llama3.2-1b", "mamba2-370m", "granite-3-8b",
+                                    "gemma-7b", "gemma2-9b", "zamba2-7b"])
+    for arch in ARCHS:
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jget(arch)), arch
+
+
+# gemma2 at head dim 256 with a prompt longer than the reduced window (8):
+# its local (even) and global (odd) layers mask differently.
+GEMMA2_HD256 = {"head_dim": 256}
+
+
+def test_gemma2_local_and_global_layers_mask_differently():
+    jc, tc = _cfgs("gemma2-9b", **GEMMA2_HD256)
+    jp, tp = _params("gemma2-9b", jc)
+    x = np.random.default_rng(7).standard_normal((2, 24, jc.d_model)).astype(np.float32)
+    lj = jax.tree.map(lambda v: v[0], jp["layers"]["attn"])
+    lt = TT.tree_map(lambda v: v[0], tp["layers"]["attn"])
+    outs = {}
+    for local in (True, False):
+        yj, _ = JL.attention(lj, jnp.asarray(x), jc, layer_is_local=local)
+        yt, _ = TL.attention(lt, torch.from_numpy(x), tc, layer_is_local=local)
+        _close(yt, yj)
+        outs[local] = yt
+    # The first `window` positions see the same keys in both; later ones do not.
+    assert torch.equal(outs[True][:, :jc.window], outs[False][:, :jc.window])
+    assert float((outs[True][:, jc.window:] - outs[False][:, jc.window:]).abs().max()) > 1e-3
+
+
+def test_gemma2_hd256_forward_and_decode_match_jax():
+    jc, tc = _cfgs("gemma2-9b", **GEMMA2_HD256)
+    assert jc.hd == 256 and jc.window == 8
+    jp, tp = _params("gemma2-9b", jc)
+    jt, tt = _tokens(jc, 2, 24, seed=5)
+    jl, _ = jax.jit(lambda p, t: JT.forward(p, jc, tokens=t))(jp, jt)
+    _close(TT.forward(tp, tc, tokens=tt)[0], jl)
+    B, S, max_len = 2, 20, 28
+    jl, js = _jax_prefill_decode(jc, jp, jt[:, :S], B, max_len)
+    ts = TT.init_decode_state(tc, B, max_len, "cpu")
+    tl, ts = tsteps.make_prefill_decode(tc)(tp, ts, {"tokens": tt[:, :S]})
+    _close(tl, jl)
+    for name in ("k", "v"):
+        _close(ts[name], js[name])
+    jstep, tstep = jax.jit(jsteps.make_decode_step(jc)), tsteps.make_decode_step(tc)
+    for i in range(4):
+        jl, js = jstep(jp, js, {"tokens": jt[:, S + i:S + i + 1]})
+        tl, ts = tstep(tp, ts, {"tokens": tt[:, S + i:S + i + 1]})
+        _close(tl, jl)
+
+
+def test_zamba2_decode_across_shared_attention_matches_jax():
+    """Five Mamba2 layers with the shared block after layers 1 and 3 (two
+    applications, each with its own KV cache) and a tail layer: the
+    prefill's state and every decode step's logits and state against
+    JAX's."""
+    jc, tc = _cfgs("zamba2-7b", n_layers=5)
+    assert jc.n_layers // jc.shared_attn_every == 2
+    jp, tp = _params("zamba2-7b", jc)
+    B, S, max_len = 2, 10, 16
+    jt, tt = _tokens(jc, B, S + 4, seed=6)
+    jl, js = _jax_prefill_decode(jc, jp, jt[:, :S], B, max_len)
+    ts = TT.init_decode_state(tc, B, max_len, "cpu")
+    tl, ts = tsteps.make_prefill_decode(tc)(tp, ts, {"tokens": tt[:, :S]})
+    _close(tl, jl)
+    assert ts["k"].shape == tuple(js["k"].shape) == (2, B, max_len, jc.n_kv_heads, jc.hd)
+    jstep, tstep = jax.jit(jsteps.make_decode_step(jc)), tsteps.make_decode_step(tc)
+    for i in range(4):
+        jl, js = jstep(jp, js, {"tokens": jt[:, S + i:S + i + 1]})
+        tl, ts = tstep(tp, ts, {"tokens": tt[:, S + i:S + i + 1]})
+        _close(tl, jl)
+        for name in ("conv", "ssd", "k", "v"):
+            _close(ts[name], js[name])
+    assert ts["pos"] == int(js["pos"]) == S + 4
+    jl, _ = jax.jit(lambda p, t: JT.forward(p, jc, tokens=t))(jp, jt)
+    _close(TT.forward(tp, tc, tokens=tt)[0], jl)
+
+
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_blocked_draw_equals_one_draw(monkeypatch, lead):
+    """``normal_leaf`` with a block of a few rows (counters offset per
+    block, one key per leading index) gives the bits of one
+    ``prng.normal`` of the whole stacked leaf."""
+    key = prng.split(prng.PRNGKey(5), 3) if lead else prng.PRNGKey(5)
+    want = prng.normal(key, (37, 11)) * TL.inv_sqrt(37)
+    monkeypatch.setattr(TL, "DRAW_BLOCK", 50)       # 4 rows of 11 a block
+    got = TL.normal_leaf(key, (37, 11), TL.inv_sqrt(37))
+    assert got.shape == (*lead, 37, 11)
+    assert torch.equal(got, want)
+
+
+def test_blocked_init_params_equals_unblocked(monkeypatch):
+    """A whole init drawn in blocks of 100 elements equals the one drawn
+    in single blocks, leaf for leaf, the hybrid's shared block included."""
+    tc = get_config("zamba2-7b").reduced()
+    want = dict(_leaves(TT.init_params(prng.PRNGKey(2), tc)))
+    monkeypatch.setattr(TL, "DRAW_BLOCK", 100)
+    got = dict(_leaves(TT.init_params(prng.PRNGKey(2), tc)))
+    assert sorted(got) == sorted(want) and "/shared_attn/attn/wq" in got
+    for name, w in want.items():
+        assert torch.equal(got[name], w), name
 
 
 def test_serve_cli_on_cpu(capsys):
