@@ -113,18 +113,38 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      elementwise square) over 2 ranks against the CPU: min and max exact,
      sum within rows x 2^-24 x sum|x^2|. The ranks record their own
      launches and launch shapes, which come back to the phase;
- 19. granite-3-8b, gemma-7b, gemma2-9b and zamba2-7b at full width and
-     depth, bf16, random weights (each drawn once on the card, the last
-     arch's freed first; the peak memory reset per arch): ``serve`` at
-     batch 4 x 2048 with 16 decode steps for granite and gemma-7b; gemma2
-     ``serve`` at 1 x 6144 (past its 4096 window) and a prefill at 2 x
-     4096; zamba2 prefill at 2 x 2048 (81 ssd_scan and 13 flash launches)
-     and ``serve`` at batch 2 with a 64-token prompt stepped token by
-     token;
+ 19. granite-3-8b, gemma-7b, gemma2-9b and zamba2-7b at full width and a
+     quarter of their depth (``PHASE19_DEPTH``), bf16, random weights
+     (each drawn once on the card, the last arch's freed first; the peak
+     memory reset per arch): ``serve`` at batch 4 x 2048 with 16 decode
+     steps for granite and gemma-7b; gemma2 ``serve`` at 1 x 6144 (past
+     its 4096 window) and a prefill at 2 x 4096; zamba2 prefill at 2 x
+     2048 (24 ssd_scan and 4 flash launches) and ``serve`` at batch 2
+     with a 64-token prompt stepped token by token;
  20. the four archs of 19 at full width, 2 layers (zamba2 6: one shared
      application), float32 and bfloat16, on the card against the CPU as
      in phase 12 (prefill 2 x 256, zamba2 2 x 512; serve with 8 greedy
-     steps teacher-forced, zamba2 from a 64-token prompt).
+     steps teacher-forced, zamba2 from a 16-token prompt);
+ 21. MoE serving and the stub frontends at full width, bf16, random
+     weights (each arch's drawn once on the card, the last arch's freed
+     first, the peak memory reset per arch): qwen2-moe-a2.7b at full
+     depth with bfloat16 parameters, ``serve`` at 4 x 2048 with 16 decode
+     steps and a prefill at 4 x 2048; llama4-scout-17b-a16e at 8 of its 48
+     layers, bfloat16 parameters, ``serve`` at 4 x 2048 with 16 decode
+     steps; internvl2-2b, a prefill of 256 patch embeddings (width 1024)
+     before 2048 tokens at batch 4, and ``serve`` at 4 x 2048;
+     musicgen-medium, a prefill of 4 x 2048 frame embeddings (width 1536),
+     then ``launch.steps``' cache-filling prefill and 16 decode steps on
+     frames (``serve`` refuses the audio frontend). The MoE archs' warm-up
+     counts the (token, k) pairs their capacity drops at prefill and at
+     decode;
+ 22. the four archs of 21 at full width, 2 layers (llama4-scout 1),
+     float32 and bfloat16 (the MoE archs with bfloat16 parameters), on the
+     card against the CPU as in phase 20 (prefill 2 x 256, internvl2
+     behind 256 patches; serve with 8 greedy steps teacher-forced, musicgen
+     8 steps on frames); the card replays the CPU's routing and its own
+     must agree wherever the router's K-th and (K+1)-th experts are clear
+     of each other (``RoutingReplay``).
 
 flash_attention and ssd_scan take two routes by the input's type: bfloat16
 runs the tensor-core kernels (``csrc/*_tc.cu``), float32 the CUDA-core
@@ -142,15 +162,23 @@ and, for ga_step and eval_select, the share of rows taken or accepted; the compi
 for their libraries are printed. The main-path runs of GA and SA also
 report the share of rows their fused kernel took or accepted.
 
-Phases 3-5, 7, 8, 10, 11, 13, 15, 16, 17, 18 and 19 are the main path: each run resets
+Phases 3-5, 7, 8, 10, 11, 13, 15-19 and 21 are the main path: each run resets
 the kernels' launch counters, drives its entry point
 (``IslandOptimizer.minimize``, ``explore_then_polish``, ``serve``, a prefill
-step, ``OptimizationService.handle``) and reads the counters right after. Each engine configuration is then profiled over a few rounds of a
+step, ``launch.steps``, ``OptimizationService.handle``) and reads the counters right after. Each engine configuration is then profiled over a few rounds of a
 further run, init excluded, and each serve run over a few further decode
 steps, for the device's busy time and idle share.
 Every launch records its kernel and input shape; the run fails if a phase
 launched a kernel at a shape phase 1 did not check, or if a run marked to
 adopt migrants never did.
+
+Phases 6, 10-15 and 19-22 run in a second process of this script, started
+after the build, beside the first process's phases 1-5, 7-9 and 16-18
+(``SECOND_PROCESS_PHASES``); both drive the one card, so each phase's
+seconds and host-clock readings are taken beside the other process's
+work. The second process's lines are relayed through the first; when it
+ends, its launches, errors and launch shapes join the first's record. The
+kernel timings run after both, alone on the card.
 
 Before the last line it prints the card's name and power limit and one JSON
 line describing every kernel; the last line is
@@ -161,12 +189,16 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
+import os
+import pickle
 import re
 import subprocess
 import sys
+import threading
 import time
 import types
 from pathlib import Path
@@ -340,8 +372,10 @@ SERVICE_BUCKETS = {
 }
 SERVICE_JOBS = {"A": 8, "B": 4, "C": 2, "D": 2}
 # The federation of phase 16: two workers on the card, two legs of
-# FederationConfig's unfused DE (sync_every 5) at the same width.
-FED_EVALS = 80_800
+# FederationConfig's unfused DE (sync_every 5) at the same width, 50
+# generations a leg: short for the script's time, which the workers'
+# start-up dominates.
+FED_EVALS = 40_800
 FED_SYNC = 5
 # A bucket of J one-island jobs launches what J islands do: the buckets of
 # phase 16 (the killed and cancelled runs repeat A) and the federation's
@@ -353,7 +387,7 @@ SERVICE_RUNS = (
     Run("16 C", "de", 20, SERVICE_BUCKETS["C"]["params"], n_islands=SERVICE_JOBS["C"],
         polish=SERVICE_POLISH),
     Run("16 D", "de", 60, SERVICE_BUCKETS["A"]["params"], n_islands=SERVICE_JOBS["D"]),
-    Run("16 F", "de", 100, DE_TABLE1, sync_every=FED_SYNC),
+    Run("16 F", "de", (FED_EVALS - POP) // POP, DE_TABLE1, sync_every=FED_SYNC),
 )
 
 
@@ -456,9 +490,14 @@ class ModelRun:
     """One drive of the model serving path: ``entry`` "prefill" is
     ``make_prefill_step`` on a (batch, seq) prompt; "serve" is
     ``launch.serve.serve``, which fills the cache with a seq-token prompt
-    and decodes ``decode_steps`` tokens greedily. Weights come from
-    ``init_params(PRNGKey(0))``, at full width, with ``n_layers`` layers (0:
-    the config's full depth) and ``compute_dtype`` activations."""
+    and decodes ``decode_steps`` tokens greedily; "steps" is
+    ``launch.steps``' cache-filling prefill of ``seq`` frame embeddings and
+    ``decode_steps`` decode steps on further frames (the audio frontend,
+    which ``serve`` refuses). Weights come from ``init_params(PRNGKey(0))``,
+    at full width, with ``n_layers`` layers (0: the config's full depth),
+    ``param_dtype`` parameters and ``compute_dtype`` activations. The audio
+    frontend's prompt is ``seq`` frame embeddings; ``embeds`` puts that
+    many patch embeddings in front of a VLM's ``seq`` tokens."""
 
     label: str
     arch: str
@@ -468,6 +507,8 @@ class ModelRun:
     decode_steps: int = 0
     n_layers: int = 0
     compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    embeds: int = 0
 
 
 # The kernels of each architecture's prefill; the cache-filling prefill of a
@@ -477,22 +518,48 @@ class ModelRun:
 MODEL_KERNEL = {"llama3.2-1b": ("flash_attention",), "mamba2-370m": ("ssd_scan",),
                 "granite-3-8b": ("flash_attention",), "gemma-7b": ("flash_attention",),
                 "gemma2-9b": ("flash_attention",),
-                "zamba2-7b": ("ssd_scan", "flash_attention")}
+                "zamba2-7b": ("ssd_scan", "flash_attention"),
+                "qwen2-moe-a2.7b": ("flash_attention",),
+                "llama4-scout-17b-a16e": ("flash_attention",),
+                "internvl2-2b": ("flash_attention",), "musicgen-medium": ("flash_attention",)}
+MOE_ARCHS = ("qwen2-moe-a2.7b", "llama4-scout-17b-a16e")
 
-# The model serving path at full width and depth, bf16 (phases 10-11 and
-# 19). gemma2-9b's 6144-token prompt is longer than its 4096 window, so
-# its local layers mask differently from its global ones.
+# The model serving path at full width, bf16: phases 10-11 at full depth;
+# phase 19 at a quarter of it (granite-3-8b 10 of 40 layers, gemma-7b 7 of
+# 28, gemma2-9b 12 of 42, 6 local and 6 global, zamba2-7b 24 of 81 with 4
+# shared-attention applications), which makes room in the script's time
+# for phases 21-22 (each layer of an arch runs the same code at the same
+# shapes). gemma2-9b's 6144-token prompt is longer than its 4096 window,
+# so its local layers mask differently from its global ones.
+PHASE19_DEPTH = {"granite-3-8b": 10, "gemma-7b": 7, "gemma2-9b": 12, "zamba2-7b": 24}
 MODEL_RUNS = {
     10: (ModelRun("llama3.2-1b serve", "llama3.2-1b", "serve", 4, 2048, 32),
          ModelRun("llama3.2-1b prefill", "llama3.2-1b", "prefill", 1, 4096)),
     11: (ModelRun("mamba2-370m prefill", "mamba2-370m", "prefill", 4, 2048),
          ModelRun("mamba2-370m serve", "mamba2-370m", "serve", 4, 64, 32)),
-    19: (ModelRun("granite-3-8b serve", "granite-3-8b", "serve", 4, 2048, 16),
-         ModelRun("gemma-7b serve", "gemma-7b", "serve", 4, 2048, 16),
-         ModelRun("gemma2-9b serve", "gemma2-9b", "serve", 1, 6144, 16),
-         ModelRun("gemma2-9b prefill", "gemma2-9b", "prefill", 2, 4096),
-         ModelRun("zamba2-7b prefill", "zamba2-7b", "prefill", 2, 2048),
-         ModelRun("zamba2-7b serve", "zamba2-7b", "serve", 2, 64, 16)),
+    19: tuple(ModelRun(f"{arch} {entry}", arch, entry, batch, seq, steps,
+                       n_layers=PHASE19_DEPTH[arch])
+              for arch, entry, batch, seq, steps in (
+                  ("granite-3-8b", "serve", 4, 2048, 16), ("gemma-7b", "serve", 4, 2048, 16),
+                  ("gemma2-9b", "serve", 1, 6144, 16), ("gemma2-9b", "prefill", 2, 4096, 0),
+                  ("zamba2-7b", "prefill", 2, 2048, 0), ("zamba2-7b", "serve", 2, 64, 16))),
+    # MoE serving with bfloat16 parameters (qwen2-moe's 14.3 G in float32
+    # and their bf16 copy would not fit the card; llama4-scout's 48
+    # layers are 216 GB in bf16, so 8 of them at full width), and the two
+    # stub frontends at full size: internvl2's 256 patch embeddings (width
+    # 1024) in front of 2048 tokens, musicgen's 2048 frame embeddings
+    # (width 1536) through launch.steps.
+    21: (ModelRun("qwen2-moe-a2.7b serve", "qwen2-moe-a2.7b", "serve", 4, 2048, 16,
+                  param_dtype="bfloat16"),
+         ModelRun("qwen2-moe-a2.7b prefill", "qwen2-moe-a2.7b", "prefill", 4, 2048,
+                  param_dtype="bfloat16"),
+         ModelRun("llama4-scout-17b-a16e serve, 8 layers", "llama4-scout-17b-a16e", "serve",
+                  4, 2048, 16, n_layers=8, param_dtype="bfloat16"),
+         ModelRun("internvl2-2b prefill, 256 patches", "internvl2-2b", "prefill", 4, 2048,
+                  embeds=256),
+         ModelRun("internvl2-2b serve", "internvl2-2b", "serve", 4, 2048, 16),
+         ModelRun("musicgen-medium prefill", "musicgen-medium", "prefill", 4, 2048),
+         ModelRun("musicgen-medium steps", "musicgen-medium", "steps", 4, 2048, 16)),
 }
 # Full width, 2 layers, float32 and bfloat16: the card with its kernels
 # against the plain path on the CPU, on the same weights (phase 12).
@@ -519,13 +586,29 @@ CARD_VS_CPU_MODEL_RUNS = {
     # application), in float32 and bfloat16, one arch at a time (its weights
     # drawn once on the card and copied to the CPU). zamba2's prefill spans two
     # 256-token chunks; its serve prompt is stepped through token by token,
-    # 64 tokens as mamba2's.
+    # 16 tokens (every token runs the same launches, and the CPU steps each
+    # through all 6 layers at full width).
     20: tuple(ModelRun(f"{arch} {entry}, {n} layers, {label}", arch, entry, 2,
                        (512 if arch == "zamba2-7b" else 256) if entry == "prefill"
-                       else (64 if arch == "zamba2-7b" else 256),
+                       else (16 if arch == "zamba2-7b" else 256),
                        0 if entry == "prefill" else 8, n_layers=n, compute_dtype=dtype)
               for arch, n in (("granite-3-8b", 2), ("gemma-7b", 2), ("gemma2-9b", 2),
                               ("zamba2-7b", 6))
+              for dtype, label in (("float32", "f32"), ("bfloat16", "bf16"))
+              for entry in ("prefill", "serve")),
+    # The four archs of phase 21 at full width, 2 layers (llama4-scout 1:
+    # 4.3 G parameters, its CPU copy 17 GB in float32), in float32 and in
+    # bfloat16 (the MoE archs with bfloat16 parameters, as phase 21 runs
+    # them): prefill 2 x 256 (internvl2 behind 256 patches), serve with 8
+    # greedy steps teacher-forced (musicgen: launch.steps on frames).
+    22: tuple(ModelRun(f"{arch} {entry}, {n} layers, {label}", arch,
+                       "steps" if entry == "serve" and arch == "musicgen-medium" else entry,
+                       2, 256, 0 if entry == "prefill" else 8, n_layers=n,
+                       compute_dtype=dtype,
+                       param_dtype=dtype if arch in MOE_ARCHS else "float32",
+                       embeds=256 if arch == "internvl2-2b" and entry == "prefill" else 0)
+              for arch, n in (("qwen2-moe-a2.7b", 2), ("llama4-scout-17b-a16e", 1),
+                              ("internvl2-2b", 2), ("musicgen-medium", 2))
               for dtype, label in (("float32", "f32"), ("bfloat16", "bf16"))
               for entry in ("prefill", "serve")),
 }
@@ -688,8 +771,15 @@ def require(cond: bool, msg: str) -> None:
         raise PhaseFailed(msg)
 
 
+_LOG_LOCK = threading.Lock()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One whole line to stdout (the second process's lines are relayed
+    through here by a thread, so the lock keeps lines whole)."""
+    with _LOG_LOCK:
+        sys.stdout.write(msg + "\n")
+        sys.stdout.flush()
 
 
 def card_rates(name: str) -> dict[str, float]:
@@ -748,8 +838,10 @@ def profile_rounds(c: "Ctx", make_opt, f, seed: int, timed: int = 2,
     res = opt.minimize(f, c.rt.prng.PRNGKey(seed))
     require(res.n_gens == (1 + timed + profiled) * every,
             f"profiled run made {res.n_gens} generations")
+    # key_averages() aggregates every recorded event: once, for both uses.
+    averages = prof.key_averages()
     rows = []
-    for e in prof.key_averages():
+    for e in averages:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((e.device_time_total, e.key, e.count))
     rows.sort(reverse=True)
@@ -760,7 +852,7 @@ def profile_rounds(c: "Ctx", make_opt, f, seed: int, timed: int = 2,
             for name in KERNELS}
     # The row gathers and scatters of a portfolio's grouping (one device
     # launch each), counted as the host issued them.
-    grouping = sum(e.count for e in prof.key_averages()
+    grouping = sum(e.count for e in averages
                    if e.key in ("aten::index_select", "aten::index_copy_")) / gens
     launches = sum(r[2] for r in rows) / gens
     return {"timed_gens": timed * every, "profiled_gens": gens,
@@ -867,7 +959,7 @@ def port_modules() -> types.SimpleNamespace:
                                      flash_attention, ga_step, pso_step,
                                      ssd_scan)
     from repro_torch.launch import serve, steps
-    from repro_torch.models import transformer
+    from repro_torch.models import layers, transformer
     return types.SimpleNamespace(
         prng=prng, de=de, bm=bm, bench_eval=bench_eval, de_step=de_step,
         eval_select=eval_select, pso_step=pso_step, ga_step=ga_step,
@@ -877,7 +969,7 @@ def port_modules() -> types.SimpleNamespace:
         _build=_build, ExecutorConfig=ExecutorConfig, IslandConfig=IslandConfig,
         AsyncSchedule=AsyncSchedule,
         IslandOptimizer=IslandOptimizer, get_config=get_config, serve=serve,
-        steps=steps, T=transformer, popt_bench=popt_bench, descent=descent,
+        steps=steps, T=transformer, layers=layers, popt_bench=popt_bench, descent=descent,
         explore_then_polish=explore_then_polish,
         explore_then_polish_many=explore_then_polish_many, AbandonRun=AbandonRun,
         ShapeBucketScheduler=ShapeBucketScheduler, OptimizationService=OptimizationService)
@@ -2453,7 +2545,7 @@ MODEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def model_cfg(rt, r: ModelRun):
-    over = {"compute_dtype": r.compute_dtype}
+    over = {"compute_dtype": r.compute_dtype, "param_dtype": r.param_dtype}
     if r.n_layers:
         over["n_layers"] = r.n_layers
     return dataclasses.replace(rt.get_config(r.arch), **over)
@@ -2465,7 +2557,9 @@ def model_cases(rt, r: ModelRun) -> dict[str, list[tuple[tuple, int]]]:
     softcap, causal)); an ssd case ((BH, S, P), N, H, chunk, dtype), B/C
     shared by the H heads of a row. gemma2's local (even) and global (odd)
     layers are two flash cases; the hybrid launches flash once per shared
-    application, in serve at its first prompt token (position 0, S = 1)."""
+    application, in serve at its first prompt token (position 0, S = 1). A
+    VLM's patch embeddings lengthen its prefill; "steps" runs its
+    cache-filling prefill once, as serve does."""
     cfg = model_cfg(rt, r)
     dt = r.compute_dtype
 
@@ -2476,8 +2570,9 @@ def model_cases(rt, r: ModelRun) -> dict[str, list[tuple[tuple, int]]]:
     out = {}
     if cfg.block_pattern == "attn":
         n_local = (cfg.n_layers + 1) // 2 if cfg.local_global_pattern else cfg.n_layers
-        out["flash_attention"] = [flash(r.seq, n_local, window),
-                                  flash(r.seq, cfg.n_layers - n_local, 0)]
+        S = r.seq + r.embeds
+        out["flash_attention"] = [flash(S, n_local, window),
+                                  flash(S, cfg.n_layers - n_local, 0)]
     else:
         if r.entry == "prefill":
             out["ssd_scan"] = [(((r.batch * cfg.ssm_heads, r.seq, cfg.ssm_head_dim),
@@ -2644,7 +2739,7 @@ class ModelParams:
         self.key, self.card, self.cpu = None, None, None
 
     def get(self, c: Ctx, cfg, cpu: bool = False):
-        key = (cfg.name, cfg.n_layers)
+        key = (cfg.name, cfg.n_layers, cfg.param_dtype)
         if key != self.key:
             self.key, self.card, self.cpu = key, None, None
             torch = c.torch
@@ -2654,9 +2749,10 @@ class ModelParams:
             self.card = c.rt.T.init_params(c.rt.prng.PRNGKey(0, c.dev), cfg)
             c.sync()
             peak = torch.cuda.max_memory_allocated() / 1e9 if c.dev.type == "cuda" else None
-            log(f"phase {c.phase}: init_params {cfg.name}, {cfg.n_layers} layers: "
-                f"{time.perf_counter() - t0:.1f} s, {c.rt.T.param_count(self.card) / 1e9:.3f} "
-                f"G parameters, peak memory {peak} GB")
+            log(f"phase {c.phase}: init_params {cfg.name}, {cfg.n_layers} layers, "
+                f"{cfg.param_dtype}: {time.perf_counter() - t0:.1f} s, "
+                f"{c.rt.T.param_count(self.card) / 1e9:.3f} G parameters, peak memory "
+                f"{peak} GB")
         if cpu and self.cpu is None:
             self.cpu = c.rt.T.tree_map(lambda t: t.cpu(), self.card)
         return self.cpu if cpu else self.card
@@ -2670,31 +2766,106 @@ def _prompt(c: Ctx, cfg, batch: int, seq: int, device):
     return prng.randint(prng.fold_in(prng.PRNGKey(0, device), 2), (batch, seq), 0, cfg.vocab)
 
 
+def _frames(c: Ctx, cfg, batch: int, n: int, device):
+    """(batch, n, frontend_dim) float32 frame or patch embeddings, normal
+    draws of ``prng`` (the same on every device)."""
+    prng = c.rt.prng
+    return prng.normal(prng.fold_in(prng.PRNGKey(0, device), 3), (batch, n, cfg.frontend_dim))
+
+
+def _model_inputs(c: Ctx, cfg, r: ModelRun, device) -> dict:
+    """Run ``r``'s prompt: ``seq`` frame embeddings for the audio frontend,
+    else ``seq`` tokens behind ``r.embeds`` patch embeddings (if any)."""
+    if cfg.frontend == "audio_stub":
+        return {"embeds": _frames(c, cfg, r.batch, r.seq, device)}
+    batch = {"tokens": _prompt(c, cfg, r.batch, r.seq, device)}
+    if r.embeds:
+        batch["embeds"] = _frames(c, cfg, r.batch, r.embeds, device)
+    return batch
+
+
+def frame_steps(c: Ctx, cfg, params, r: ModelRun, device):
+    """The audio frontend through ``launch.steps``: the cache-filling
+    prefill of ``r.seq`` frames, then ``r.decode_steps`` decode steps, one
+    further frame each. Returns (the logits of the prefill and of each
+    step, prefill seconds, decode seconds), each ending in a synchronise."""
+    rt = c.rt
+    p = rt.steps._cast_params(params, cfg)
+    frames = _frames(c, cfg, r.batch, r.seq + r.decode_steps, device)
+    state = rt.T.init_decode_state(cfg, r.batch, r.seq + r.decode_steps + 1, device)
+    step = rt.steps.make_decode_step(cfg)
+    c.sync()
+    t0 = time.perf_counter()
+    logits, state = rt.steps.make_prefill_decode(cfg)(p, state, {"embeds": frames[:, :r.seq]})
+    c.sync()
+    t_prefill = time.perf_counter() - t0
+    out = [logits]
+    t0 = time.perf_counter()
+    for i in range(r.decode_steps):
+        logits, state = step(p, state, {"embeds": frames[:, r.seq + i:r.seq + i + 1]})
+        out.append(logits)
+    c.sync()
+    return out, t_prefill, time.perf_counter() - t0
+
+
+def _serve_logits(c: Ctx, cfg, params, r: ModelRun, device, force=None):
+    """``launch.serve.serve``'s greedy decode on ``device`` (its prompt,
+    cast, cache and token choice), keeping the logits: the cache-filling
+    prefill's, then those of each of ``r.decode_steps`` steps, each step
+    fed the greedy token of the logits before it, or ``force``'s column
+    (teacher forcing). Returns (the logits, the tokens fed (batch, steps))."""
+    rt, prng = c.rt, c.rt.prng
+    prompt = prng.randint(prng.fold_in(prng.PRNGKey(0, device), 1), (r.batch, r.seq), 0,
+                          cfg.vocab)
+    p = rt.steps._cast_params(params, cfg)
+    state = rt.T.init_decode_state(cfg, r.batch, r.seq + r.decode_steps + 1, device)
+    logits, state = rt.steps.make_prefill_decode(cfg)(p, state, {"tokens": prompt})
+    out, toks = [logits], []
+    step = rt.steps.make_decode_step(cfg)
+    for i in range(r.decode_steps):
+        tok = (rt.serve._next_token(logits, cfg.vocab, 0.0, None) if force is None
+               else force[:, i:i + 1].to(device))
+        toks.append(tok)
+        logits, state = step(p, state, {"tokens": tok})
+        out.append(logits)
+    return out, c.torch.cat(toks, dim=1)
+
+
 def _device_rows(c: Ctx, prof):
     rows = [(e.device_time_total, e.key, e.count) for e in prof.key_averages()
             if e.device_type == c.torch.autograd.DeviceType.CUDA]
     return sorted(rows, reverse=True)
 
 
-def profile_decode(c: Ctx, cfg, params, batch: int, prompt_len: int, steps: int = 8) -> dict:
+def profile_decode(c: Ctx, cfg, params, batch: int, prompt_len: int, steps: int = 8,
+                   profiled: int = 2) -> dict:
     """Device time and idle share of greedy decode steps after a
     cache-filling prefill: ``steps`` steps timed on the host clock, then
-    ``steps`` more under torch.profiler (its own wall is not used)."""
+    ``profiled`` more under torch.profiler (its own wall is not used; it
+    costs the host about half a millisecond per recorded launch, and every
+    decode step launches the same kernels)."""
     torch, rt = c.torch, c.rt
     from torch.profiler import ProfilerActivity, profile
     p = rt.steps._cast_params(params, cfg)
-    state = rt.T.init_decode_state(cfg, batch, prompt_len + 2 * steps + 4, c.dev)
+    state = rt.T.init_decode_state(cfg, batch, prompt_len + steps + profiled + 4, c.dev)
     prng = rt.prng
-    prompt = prng.randint(prng.fold_in(prng.PRNGKey(0, c.dev), 1), (batch, prompt_len),
-                          0, cfg.vocab)
-    logits, state = rt.steps.make_prefill_decode(cfg)(p, state, {"tokens": prompt})
+    if cfg.frontend == "audio_stub":
+        # Frames in place of tokens: the prompt's, then one frame each step.
+        frames = _frames(c, cfg, batch, prompt_len + 1, c.dev)
+        first = {"embeds": frames[:, :prompt_len]}
+        nxt = lambda logits: {"embeds": frames[:, prompt_len:]}  # noqa: E731
+    else:
+        first = {"tokens": prng.randint(prng.fold_in(prng.PRNGKey(0, c.dev), 1),
+                                        (batch, prompt_len), 0, cfg.vocab)}
+        nxt = lambda logits: {  # noqa: E731
+            "tokens": torch.argmax(logits[:, :cfg.vocab], dim=-1)[:, None]}
+    logits, state = rt.steps.make_prefill_decode(cfg)(p, state, first)
     step = rt.steps.make_decode_step(cfg)
     box = [logits, state]
 
     def run(n):
         for _ in range(n):
-            tok = torch.argmax(box[0][:, :cfg.vocab], dim=-1)[:, None]
-            box[0], box[1] = step(p, box[1], {"tokens": tok})
+            box[0], box[1] = step(p, box[1], nxt(box[0]))
 
     run(2)
     c.sync()
@@ -2703,13 +2874,13 @@ def profile_decode(c: Ctx, cfg, params, batch: int, prompt_len: int, steps: int 
     c.sync()
     wall = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(steps)
+        run(profiled)
         c.sync()
     rows = _device_rows(c, prof)
-    busy = sum(r[0] for r in rows) / 1e3 / steps
+    busy = sum(r[0] for r in rows) / 1e3 / profiled
     return {"wall_ms_per_token": wall, "device_busy_ms_per_token": busy,
             "device_idle_share": (1.0 - busy / wall) if rows else None,
-            "device_launches_per_token": sum(r[2] for r in rows) / steps,
+            "device_launches_per_token": sum(r[2] for r in rows) / profiled,
             "top": [{"name": k[:90], "device_ms": t / 1e3, "count": n}
                     for t, k, n in rows[:4]]}
 
@@ -2740,17 +2911,55 @@ def _check_logits(c: Ctx, cfg, logits, batch: int, label: str) -> None:
     require(bool((logits[:, cfg.vocab:] <= -1e8).all()), f"{label}: vocab padding not masked")
 
 
+class DropCount:
+    """Wraps ``models.layers.moe_dispatch`` while it is entered: every MoE
+    call's (token, k) pairs and, as a device tensor read after the run, how
+    many of them its capacity dropped."""
+
+    def __init__(self, c: Ctx):
+        self.layers, self.calls = c.rt.layers, []
+
+    def __enter__(self):
+        inner = self.inner = self.layers.moe_dispatch
+
+        def counting(params, xt, cfg, cap):
+            out = inner(params, xt, cfg, cap)
+            dest = out[1]
+            self.calls.append((dest.numel(), (dest == cfg.num_experts * cap).sum()))
+            return out
+
+        self.layers.moe_dispatch = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_dispatch = self.inner
+
+    def shares(self, decode_pairs: int) -> dict:
+        """The dropped share of pairs at prefill and at decode (calls of
+        ``decode_pairs`` pairs: one token a batch row)."""
+        out = {}
+        for kind, calls in (("prefill", [x for x in self.calls if x[0] != decode_pairs]),
+                            ("decode", [x for x in self.calls if x[0] == decode_pairs])):
+            if calls:
+                out[f"{kind}_drop_share"] = (sum(int(d) for _, d in calls)
+                                             / sum(n for n, _ in calls))
+        return out
+
+
 def _model_main(c: Ctx, phase: int, r: ModelRun) -> dict:
     """One warm-up call, then the counters set to 0, the measured call, and
     the counters read; the launches must be the run's kernel once per layer
-    per prefill. A serve run is then profiled over further decode steps."""
+    per prefill. A serve or steps run is then profiled over further decode
+    steps. An MoE arch's warm-up counts the pairs its capacity drops."""
     torch, rt = c.torch, c.rt
     cfg = model_cfg(rt, r)
     params = PARAMS.get(c, cfg)
+    drops = DropCount(c)
     if r.entry == "prefill":
         step = rt.steps.make_prefill_step(cfg)
-        batch = {"tokens": _prompt(c, cfg, r.batch, r.seq, c.dev)}
-        step(params, batch)
+        batch = _model_inputs(c, cfg, r, c.dev)
+        with drops:
+            step(params, batch)
         c.sync()
         c.reset()
         t0 = time.perf_counter()
@@ -2759,9 +2968,12 @@ def _model_main(c: Ctx, phase: int, r: ModelRun) -> dict:
         wall = time.perf_counter() - t0
         counts = c.counts()
         _check_logits(c, cfg, logits, r.batch, r.label)
-        out = {"prefill_ms": wall * 1e3, "prefill_tok_per_s": r.batch * r.seq / wall}
-    else:
-        rt.serve.serve(cfg, r.batch, _warm_prompt(cfg, r.seq), 2, device=c.dev, params=params)
+        out = {"prefill_ms": wall * 1e3,
+               "prefill_tok_per_s": r.batch * (r.seq + r.embeds) / wall}
+    elif r.entry == "serve":
+        with drops:
+            rt.serve.serve(cfg, r.batch, _warm_prompt(cfg, r.seq),
+                           r.decode_steps if cfg.num_experts else 2, device=c.dev, params=params)
         c.sync()
         c.reset()
         toks, tp, td = rt.serve.serve(cfg, r.batch, r.seq, r.decode_steps, device=c.dev,
@@ -2770,10 +2982,19 @@ def _model_main(c: Ctx, phase: int, r: ModelRun) -> dict:
         require(tuple(toks.shape) == (r.batch, r.decode_steps)
                 and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
                 f"{r.label}: tokens {tuple(toks.shape)} out of range")
-        out = {"prefill_ms": tp * 1e3, "prefill_tok_per_s": r.batch * r.seq / tp,
-               "decode_ms_per_token": td / r.decode_steps * 1e3,
-               "decode_tok_per_s": r.batch * r.decode_steps / td,
-               "sample_row": toks[0, :8].tolist()}
+        out = {"sample_row": toks[0, :8].tolist()}
+    else:
+        frame_steps(c, cfg, params, dataclasses.replace(r, decode_steps=2), c.dev)
+        c.reset()
+        logits, tp, td = frame_steps(c, cfg, params, r, c.dev)
+        counts = c.counts()
+        for lg in logits:
+            _check_logits(c, cfg, lg, r.batch, r.label)
+        out = {}
+    if r.entry != "prefill":
+        out.update(prefill_ms=tp * 1e3, prefill_tok_per_s=r.batch * r.seq / tp,
+                   decode_ms_per_token=td / r.decode_steps * 1e3,
+                   decode_tok_per_s=r.batch * r.decode_steps / td)
     want = _want_model_counts(c, r)
     require(counts == want, f"{r.label}: launches {counts}, expected {want}")
     # bfloat16 runs the tensor-core route of both model kernels, every launch.
@@ -2784,18 +3005,31 @@ def _model_main(c: Ctx, phase: int, r: ModelRun) -> dict:
     out["launches_per_prefill"] = {k: v for k, v in counts.items() if v}
     out["tensor_core_launches_per_prefill"] = {k: v for k, v in tc.items() if v}
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    log(f"phase {phase}: {r.label} (batch {r.batch}, seq {r.seq}, layers {cfg.n_layers}, "
-        f"{cfg.compute_dtype}): {json.dumps(out)}")
-    if r.entry == "serve":
+    if cfg.num_experts:
+        out.update(drops.shares(r.batch * cfg.top_k))
+    log(f"phase {phase}: {r.label} (batch {r.batch}, seq {r.seq}, embeds {r.embeds}, layers "
+        f"{cfg.n_layers}, {cfg.compute_dtype}, {cfg.param_dtype} parameters): "
+        f"{json.dumps(out)}")
+    if r.entry != "prefill":
         prof = profile_decode(c, cfg, params, r.batch, _warm_prompt(cfg, r.seq))
         log(f"phase {phase}: {r.label} decode profile: {json.dumps(prof)}")
         out["decode_profile"] = prof
     return out
 
 
+def _timed(phase: int, r: ModelRun, fn):
+    """``fn()``, then a log line of its seconds (an arch's init included in
+    its first run)."""
+    t0 = time.perf_counter()
+    out = fn()
+    log(f"phase {phase}: {r.label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def run_model_phase(phase: int):
     def run(c: Ctx) -> dict:
-        return {r.label: _model_main(c, phase, r) for r in MODEL_RUNS[phase]}
+        return {r.label: _timed(phase, r, lambda: _model_main(c, phase, r))
+                for r in MODEL_RUNS[phase]}
     return run
 
 
@@ -2805,52 +3039,144 @@ def _logit_err(torch, got, want, vocab: int) -> tuple[float, float]:
     return float((g - w).abs().max()), float(w.abs().max())
 
 
+# The router's product rounds differently on the card and on the CPU (in
+# bfloat16 by an ulp of its output, 0.0156 at a logit of 2), so a token
+# whose K-th and (K+1)-th expert nearly tie can go to another expert on
+# each, and from there its hidden state and its batch row's later tokens
+# part. The card therefore replays the CPU's experts (``RoutingReplay``),
+# which holds every logit to the bound; each card call's own top-k must
+# equal the CPU's wherever the CPU's K-th and (K+1)-th log-probabilities
+# differ by more than ROUTE_MARGIN, and the others that differ are counted
+# as flips.
+ROUTE_MARGIN = {"float32": 1e-3, "bfloat16": 0.1}
+
+
+class RoutingReplay:
+    """``models.layers.ROUTING_HOOK`` for a card-vs-CPU check: records the
+    CPU's routing call by call, then (after :meth:`replay`) gives each card
+    call the CPU's experts and compares the card's own with them."""
+
+    def __init__(self, c: Ctx, cfg, margin: float):
+        self.c, self.K, self.margin = c, cfg.top_k, margin
+        self.calls, self.i = [], None
+        self.tokens = self.near = self.flips = self.clear_flips = 0
+
+    def __enter__(self):
+        self.c.rt.layers.ROUTING_HOOK = self
+        return self
+
+    def __exit__(self, *exc):
+        self.c.rt.layers.ROUTING_HOOK = None
+
+    def replay(self) -> None:
+        """Replay the recorded calls from the first, with fresh counts."""
+        self.i = 0
+        self.tokens = self.near = self.flips = self.clear_flips = 0
+
+    def __call__(self, probs, eidx):
+        torch = self.c.torch
+        if self.i is None:
+            self.calls.append((probs, eidx))
+            return eidx
+        p_cpu, e_cpu = self.calls[self.i]
+        self.i += 1
+        same = (torch.sort(eidx.cpu(), -1).values == torch.sort(e_cpu, -1).values).all(-1)
+        top = torch.sort(p_cpu, -1, descending=True).values
+        clear = (torch.ones_like(same) if self.K >= top.shape[-1] else
+                 torch.log(top[..., self.K - 1]) - torch.log(top[..., self.K]) > self.margin)
+        self.tokens += same.numel()
+        self.near += int((~clear).sum())
+        self.flips += int((~same).sum())
+        self.clear_flips += int((~same & clear).sum())
+        return e_cpu.to(eidx.device)
+
+    def summary(self) -> str:
+        require(self.i == len(self.calls), f"the card made {self.i} MoE calls, the CPU "
+                f"{len(self.calls)}")
+        require(self.clear_flips == 0, f"{self.clear_flips} tokens clear of the routing "
+                f"margin {self.margin} went to other experts on the card")
+        return (f"routing: {self.flips} of {self.tokens} (token, MoE call) routings differ "
+                f"on the card, all among the {self.near} within the margin {self.margin} "
+                "(the card replays the CPU's)")
+
+
+def _replaying(c: Ctx, cfg, r: ModelRun):
+    """A RoutingReplay for an MoE arch, else a context that does nothing."""
+    if not cfg.num_experts:
+        return contextlib.nullcontext()
+    return RoutingReplay(c, cfg, ROUTE_MARGIN[r.compute_dtype])
+
+
 def _model_card_vs_cpu(c: Ctx, phase: int, r: ModelRun) -> None:
-    """Run ``r`` on the card and on the CPU on the same weights. Prefill:
+    """Run ``r`` on the CPU and on the card on the same weights (an MoE
+    arch's card replaying the CPU's routing, ``RoutingReplay``). Prefill:
     last-position logits within MODEL_TOL (of ``r``'s type) of the CPU's
-    largest |logit|.
-    Serve: the CPU's greedy tokens teacher-force both devices' decode, whose
-    logits must agree at every step within the same bound and whose argmax
-    must agree wherever the CPU's top-2 gap clears it; the two ``serve``
-    runs must give the same tokens up to the first step where it does not."""
+    largest |logit|. Serve: the CPU decodes greedily once through serve's
+    own prefill and steps (``_serve_logits``), and its tokens teacher-force
+    the card's steps after the card's ``serve``: the logits must agree at
+    the prefill and every step within the same bound, their argmax wherever
+    the CPU's top-2 gap clears it, and the card's ``serve`` must give the
+    CPU's tokens up to the first step where it does not. Steps (the audio
+    frontend): the prefill's and every decode step's logits within the
+    bound."""
     torch, rt = c.torch, c.rt
     cfg = model_cfg(rt, r)
     p_card = PARAMS.get(c, cfg)
     p_cpu = PARAMS.get(c, cfg, cpu=True)
     tol = MODEL_TOL[r.compute_dtype]
     c.reset()
+    routes = []
     if r.entry == "prefill":
         step = rt.steps.make_prefill_step(cfg)
-        toks = _prompt(c, cfg, r.batch, r.seq, "cpu")
-        got = step(p_card, {"tokens": toks.to(c.dev)})
+        batch = _model_inputs(c, cfg, r, "cpu")
+        with _replaying(c, cfg, r) as replay:
+            want = step(p_cpu, batch)
+            if replay:
+                replay.replay()
+            got = step(p_card, {k: v.to(c.dev) for k, v in batch.items()})
+            if replay:
+                routes.append(replay.summary())
         counts = c.counts()
-        want = step(p_cpu, {"tokens": toks})
         err, scale = _logit_err(torch, got, want, cfg.vocab)
         require(err < tol * scale,
                 f"card vs cpu {r.label}: logits differ by {err:.3g} (max |logit| {scale:.3g})")
         detail = f"logit err {err:.3g} of max |logit| {scale:.3g} ({err / scale:.3g})"
-    else:
-        got_toks, _, _ = rt.serve.serve(cfg, r.batch, r.seq, r.decode_steps, device=c.dev,
-                                        params=p_card)
+    elif r.entry == "steps":
+        with _replaying(c, cfg, r) as replay:
+            want, _, _ = frame_steps(c, cfg, p_cpu, r, "cpu")
+            if replay:
+                replay.replay()
+            got, _, _ = frame_steps(c, cfg, p_card, r, c.dev)
+            if replay:
+                routes.append(replay.summary())
         counts = c.counts()
-        want_toks, _, _ = rt.serve.serve(cfg, r.batch, r.seq, r.decode_steps, device="cpu",
-                                         params=p_cpu)
+        worst = 0.0
+        for i, (lg_card, lg_cpu) in enumerate(zip(got, want)):
+            err, scale = _logit_err(torch, lg_card, lg_cpu, cfg.vocab)
+            worst = max(worst, err / scale)
+            require(err < tol * scale,
+                    f"card vs cpu {r.label}: step {i} logits differ by {err:.3g} of {scale:.3g}")
+        detail = (f"prefill and {r.decode_steps} decode steps on frames: max logit err "
+                  f"{worst:.3g} of max |logit|")
+    else:
+        with _replaying(c, cfg, r) as replay:
+            # The CPU decodes greedily through serve's own steps once,
+            # keeping every step's logits; its tokens then teacher-force the
+            # card's steps after the card's serve.
+            want, want_toks = _serve_logits(c, cfg, p_cpu, r, "cpu")
+            if replay:
+                replay.replay()
+            got_toks, _, _ = rt.serve.serve(cfg, r.batch, r.seq, r.decode_steps, device=c.dev,
+                                            params=p_card)
+            counts = c.counts()
+            if replay:
+                routes.append(replay.summary())
+                replay.replay()
+            got, _ = _serve_logits(c, cfg, p_card, r, c.dev, force=want_toks)
+            if replay:
+                routes.append(replay.summary())
         worst, clear_steps = 0.0, r.decode_steps
-        logits = []     # per device (card, cpu): the logits of each step
-        for dev, p in ((c.dev, p_card), ("cpu", p_cpu)):
-            prng = rt.prng
-            prompt = prng.randint(prng.fold_in(prng.PRNGKey(0, dev), 1), (r.batch, r.seq),
-                                  0, cfg.vocab)
-            pc = rt.steps._cast_params(p, cfg)
-            st = rt.T.init_decode_state(cfg, r.batch, r.seq + r.decode_steps + 1, dev)
-            lg, st = rt.steps.make_prefill_decode(cfg)(pc, st, {"tokens": prompt})
-            seq = [lg]
-            step = rt.steps.make_decode_step(cfg)
-            for i in range(r.decode_steps - 1):
-                lg, st = step(pc, st, {"tokens": want_toks[:, i:i + 1].to(dev)})
-                seq.append(lg)
-            logits.append(seq)
-        for i, (lg_card, lg_cpu) in enumerate(zip(*logits)):
+        for i, (lg_card, lg_cpu) in enumerate(zip(got, want)):
             err, scale = _logit_err(torch, lg_card, lg_cpu, cfg.vocab)
             worst = max(worst, err / scale)
             require(err < tol * scale,
@@ -2866,9 +3192,11 @@ def _model_card_vs_cpu(c: Ctx, phase: int, r: ModelRun) -> None:
         require(torch.equal(got_toks[:, :clear_steps].cpu(), want_toks[:, :clear_steps]),
                 f"card vs cpu {r.label}: serve tokens differ within the first {clear_steps} "
                 "clear steps")
-        detail = (f"{r.decode_steps} greedy steps teacher-forced: max logit err {worst:.3g} of "
-                  f"max |logit|; serve tokens equal: {torch.equal(got_toks.cpu(), want_toks)} "
+        detail = (f"prefill and {r.decode_steps} greedy steps teacher-forced: max logit err "
+                  f"{worst:.3g} of max |logit|; serve tokens equal: "
+                  f"{torch.equal(got_toks.cpu(), want_toks)} "
                   f"(required for the first {clear_steps} steps, whose top-2 gaps clear the bound)")
+    detail += "".join(f"; {line}" for line in routes)
     want = _want_model_counts(c, r)
     require(counts == want, f"card vs cpu {r.label}: launches {counts}, expected {want}")
     log(f"phase {phase}: card vs cpu {r.label}: {detail}; card launches "
@@ -2878,7 +3206,7 @@ def _model_card_vs_cpu(c: Ctx, phase: int, r: ModelRun) -> None:
 def model_card_vs_cpu_phase(phase: int):
     def run(c: Ctx) -> None:
         for r in CARD_VS_CPU_MODEL_RUNS[phase]:
-            _model_card_vs_cpu(c, phase, r)
+            _timed(phase, r, lambda: _model_card_vs_cpu(c, phase, r))
     return run
 
 
@@ -3270,36 +3598,71 @@ def ptxas_summary(entries: list[dict]) -> dict:
             "shifted_rosenbrock": [e for e in entries if "<4," in e["name"]]}
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20",
-                    help="comma-separated phases to run (default: all)")
-    phases = {int(p) for p in ap.parse_args().phases.split(",")}
+# Phases a second process of this script runs beside the first, on the same
+# card: the model serving path (10-12, 19-22), the remaining engines and
+# the hybrid (13-15) and phase 6's small DE runs against the CPU. The first
+# process runs the rest (1-5, 7-9, 16-18) and then, alone on the card, the
+# kernel timings. The second process takes half of torch's default CPU
+# threads for the CPU sides of its card-vs-CPU phases.
+SECOND_PROCESS_PHASES = frozenset({6, 10, 11, 12, 13, 14, 15, 19, 20, 21, 22})
+# Seconds from the script's start after which the second process is killed
+# (the script's whole limit is 1,200).
+PART_TIMEOUT = 1100.0
 
-    t_start = time.perf_counter()
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the GPU only",
-              file=sys.stderr)
-        return 2
-    rt = port_modules()
-    _build = rt._build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
-    smi_line = smi[0] if smi else "nvidia-smi: no output"
-    kind = torch.cuda.get_device_name(0)
-    rates = card_rates(kind)
-    log(f"card: {smi_line} | torch {torch.__version__} cuda {torch.version.cuda}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+class SecondProcess:
+    """``chip_smoke.py --phases ... --part-out FILE`` started beside this
+    process: its lines relayed to stdout whole, and at :meth:`join` its
+    phases' launches, errors and launch shapes merged into ``c``."""
 
-    c = Ctx(torch, rt)
-    t_build = time.perf_counter()
-    for name in KERNELS:               # the first builds every source at once
-        _build.library(name)
-    log(f"build: {time.perf_counter() - t_build:.1f} s into {_build.build_dir()}")
+    def __init__(self, phases: set[int]):
+        self.path = ROOT / "build" / "parts" / f"second-{os.getpid()}.pkl"
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.path.unlink(missing_ok=True)
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--phases", ",".join(str(n) for n in sorted(phases)),
+             "--part-out", str(self.path)],
+            stdout=subprocess.PIPE, text=True)
+        self.relay = threading.Thread(target=self._relay, daemon=True)
+        self.relay.start()
+
+    def _relay(self) -> None:
+        for line in self.proc.stdout:
+            log(line.rstrip("\n"))
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+    def join(self, c: Ctx, timeout: float) -> bool:
+        """Wait for the second process (killed after ``timeout`` seconds)
+        and merge its record into ``c``; False if it failed."""
+        try:
+            rc = self.proc.wait(timeout=max(timeout, 1.0))
+        except subprocess.TimeoutExpired:
+            self.stop()
+            log(f"FAILED: the second process was still running after {timeout:.0f} s")
+            return False
+        self.relay.join()
+        if rc != 0 or not self.path.exists():
+            log(f"FAILED: the second process exited {rc}")
+            return False
+        part = pickle.loads(self.path.read_bytes())
+        for name, k in part["kern"].items():
+            mine = c.kern[name]
+            mine["launches"] += k["launches"]
+            mine["max_abs_err"] = max(mine["max_abs_err"], k["max_abs_err"])
+            mine["max_rel_err"] = max(mine["max_rel_err"], k["max_rel_err"])
+        for num, shapes in part["shapes"].items():
+            c.shapes.setdefault(num, set()).update(shapes)
+        return part["ok"]
+
+
+def log_ptxas(c: Ctx, _build) -> None:
+    """The compiler's registers, shared memory and spills of every built
+    library, logged and kept for the kernels line."""
     for name in (*KERNELS, *TC_LIBRARY.values()):
         if name in ROW_KERNELS:
             continue
@@ -3318,6 +3681,48 @@ def main() -> int:
         c.kern[name]["ptxas"] = ptxas_summary(entries)
         log(f"ptxas {name}: {json.dumps(c.kern[name]['ptxas'])}")
 
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(str(n) for n in range(1, 23)),
+                    help="comma-separated phases to run (default: all)")
+    # Internal: run as the second process, writing the record to this file.
+    ap.add_argument("--part-out", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    phases = {int(p) for p in args.phases.split(",")}
+    part_out = args.part_out
+    first = part_out is None       # the first process, not the second
+
+    t_start = time.perf_counter()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU only",
+              file=sys.stderr)
+        return 2
+    rt = port_modules()
+    _build = rt._build
+
+    if not first:
+        torch.set_num_threads(max(1, torch.get_num_threads() // 2))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    smi_line = smi[0] if smi else "nvidia-smi: no output"
+    kind = torch.cuda.get_device_name(0)
+    rates = card_rates(kind)
+    if first:
+        log(f"card: {smi_line} | torch {torch.__version__} cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    c = Ctx(torch, rt)
+    t_build = time.perf_counter()
+    for name in KERNELS:               # the first builds every source at once
+        _build.library(name)
+    if first:
+        log(f"build: {time.perf_counter() - t_build:.1f} s into {_build.build_dir()}")
+        log_ptxas(c, _build)
+
     ok = True
     record_launch_shapes(c)
     steps = {1: phase_kernels, 2: phase_prng,
@@ -3327,18 +3732,39 @@ def main() -> int:
              **{n: model_card_vs_cpu_phase(n) for n in CARD_VS_CPU_MODEL_RUNS},
              15: phase_hybrid, 16: phase_service, 17: phase_portfolio_async,
              18: phase_mesh}
-    for num in sorted(steps):
-        if num not in phases:
-            continue
-        c.phase = num
-        t0 = time.perf_counter()
-        try:
-            steps[num](c)
-        except PhaseFailed as e:
-            ok = False
-            log(f"phase {num} FAILED: {e}")
-        log(f"phase {num}: {time.perf_counter() - t0:.1f} s")
-    c.phase = None
+    # The second process's phases run beside this process's.
+    second = phases & SECOND_PROCESS_PHASES if first else set()
+    part = SecondProcess(second) if second and phases - second else None
+    mine = phases - second if part else phases
+    try:
+        for num in sorted(steps):
+            if num not in mine:
+                continue
+            c.phase = num
+            t0 = time.perf_counter()
+            try:
+                steps[num](c)
+            except PhaseFailed as e:
+                ok = False
+                log(f"phase {num} FAILED: {e}")
+            log(f"phase {num}: {time.perf_counter() - t0:.1f} s")
+        c.phase = None
+        if part:
+            t0 = time.perf_counter()
+            ok = part.join(c, PART_TIMEOUT - (t0 - t_start)) and ok
+            log(f"the second process ({', '.join(str(n) for n in sorted(second))}) ended "
+                f"{time.perf_counter() - t0:.1f} s after this one's phases")
+    finally:
+        if part:
+            part.stop()
+    if not first:
+        log(f"the second process's phases: {time.perf_counter() - t_start:.1f} s from its "
+            "start")
+        Path(part_out).write_bytes(pickle.dumps({
+            "ok": ok, "shapes": c.shapes,
+            "kern": {k: {f: v[f] for f in ("launches", "max_abs_err", "max_rel_err")}
+                     for k, v in c.kern.items()}}))
+        return 0
     if 1 in phases:
         try:
             kernel_timings(c, rates)

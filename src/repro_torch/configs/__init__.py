@@ -1,9 +1,9 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-``ARCHS`` lists the architectures the port runs: the dense GQA models,
-gemma2's alternating local/global layers, Mamba2 and the zamba2 hybrid.
-The JAX package's other four (the two MoE archs, the VLM and audio
-frontends) come with later slices of the model stack.
+``ARCHS`` lists the architectures the port runs, the JAX package's ten:
+the dense GQA models, gemma2's alternating local/global layers, the two
+MoE archs, Mamba2, the zamba2 hybrid, and the VLM and audio stub
+frontends.
 """
 from __future__ import annotations
 
@@ -18,6 +18,10 @@ ARCHS: dict[str, str] = {
     "gemma-7b": "repro_torch.configs.gemma_7b",
     "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
 }
 
 

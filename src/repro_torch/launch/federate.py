@@ -185,11 +185,17 @@ class _Worker:
         self.banner_device: str | None = None   # the device its banner names
 
     def spawn(self, resume: bool = False) -> None:
-        """Start (or restart) the worker process on an ephemeral port.
+        """Start (or restart) the worker process on an ephemeral port and
+        wait for its banner.
 
         ``resume=True`` adds ``--resume-dir`` so the scheduler restores every
         interrupted bucket run from this worker's own checkpoint store before
         serving — the death/rejoin half of the federation contract."""
+        self.launch(resume)
+        self.await_listening()
+
+    def launch(self, resume: bool = False) -> None:
+        """Start the worker process; :meth:`await_listening` connects."""
         cmd = [sys.executable, "-m", "repro_torch.launch.opt_serve",
                "--tcp", "0", "--workers", "1", "--flush-ms", "10",
                "--checkpoint-dir", self.ckpt_dir, "--checkpoint-every", "1"]
@@ -202,6 +208,9 @@ class _Worker:
             p for p in (_SRC, env.get("PYTHONPATH")) if p)
         self.proc = subprocess.Popen(
             cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, env=env)
+
+    def await_listening(self) -> None:
+        """Read the launched worker's banner and connect to its port."""
         self.port, self.banner_device = _wait_listening(self.proc.stderr)
         self.client = JsonlClient("127.0.0.1", self.port, timeout=self.timeout)
 
@@ -265,10 +274,18 @@ class FederationCoordinator:
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> None:
-        """Spawn every worker process and wait for their TCP banners."""
-        for w in self.workers:
-            os.makedirs(w.ckpt_dir, exist_ok=True)
-            w.spawn()
+        """Spawn every worker process, then wait for their TCP banners: the
+        workers start up side by side. If one never listens, every worker
+        is stopped before the error propagates."""
+        try:
+            for w in self.workers:
+                os.makedirs(w.ckpt_dir, exist_ok=True)
+                w.launch()
+            for w in self.workers:
+                w.await_listening()
+        except BaseException:
+            self.close()
+            raise
 
     def close(self) -> None:
         """Quit every worker (drains in-flight buckets) and reap it."""

@@ -6,6 +6,12 @@ otherwise:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
         --reduced --device cpu --prompt-len 16 --decode-steps 8
+
+Every arch of ``configs.ARCHS`` but musicgen-medium, whose audio frontend
+takes frame embeddings in place of tokens: drive it through
+``launch.steps`` as the CLI's refusal says. qwen2-moe-a2.7b needs
+``param_dtype="bfloat16"`` on an 80 GB card (``serve`` with ``params=``
+or a config made with ``dataclasses.replace``).
 """
 from __future__ import annotations
 
@@ -98,6 +104,11 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.frontend == "audio_stub":
+        # The reference's refusal; the port has no dry-run cells, so it
+        # names the steps that take frame embeddings.
+        raise SystemExit("audio arch serving needs frame embeddings; drive musicgen "
+                         "through launch.steps (make_prefill_decode, make_decode_step)")
     out, tp, td = serve(cfg, args.batch, args.prompt_len, args.decode_steps,
                         args.temperature, device=args.device)
     print(f"[serve] {cfg.name}: batch={args.batch} prompt={args.prompt_len} "

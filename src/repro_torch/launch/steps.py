@@ -47,22 +47,24 @@ def make_prefill_decode(cfg: ModelConfig):
     """Cache-filling prefill: the whole (B, S) prompt goes through the decode
     cache and the last-position logits come back ready for sampling.
     Attention archs run all S positions in one multi-token ``decode_step``;
-    recurrent archs step through the prompt token by token, carrying only
-    the latest logits."""
+    recurrent archs step through the prompt (tokens, or frame embeddings
+    when the batch has them) one position at a time, carrying only the
+    latest logits."""
 
     def prefill_decode(params: PyTree, state: PyTree, batch: PyTree):
         p = _cast_params(params, cfg)
         if cfg.block_pattern == "attn":
             return decode_step(p, cfg, state, tokens=batch.get("tokens"),
                                embeds=batch.get("embeds"))
-        toks = batch.get("tokens")
-        if toks is None:
-            raise NotImplementedError("frontend embeddings are ported in a "
-                                      "later slice of the model stack")
-        logits = torch.zeros((toks.shape[0], cfg.padded_vocab),
-                             dtype=torch.float32, device=toks.device)
-        for t in range(toks.shape[1]):
-            logits, state = decode_step(p, cfg, state, tokens=toks[:, t:t + 1])
+        toks, embs = batch.get("tokens"), batch.get("embeds")
+        xs = toks if embs is None else embs
+        logits = torch.zeros((xs.shape[0], cfg.padded_vocab),
+                             dtype=torch.float32, device=xs.device)
+        for t in range(xs.shape[1]):
+            x_t = xs[:, t:t + 1]
+            logits, state = decode_step(p, cfg, state,
+                                        tokens=x_t if embs is None else None,
+                                        embeds=x_t if embs is not None else None)
         return logits, state
 
     return prefill_decode

@@ -3,11 +3,12 @@
 One decoder-stack config expresses dense GQA transformers, MoE, SSM
 (Mamba2/SSD), hybrids and modality-stub frontends, field for field as in the
 JAX package, so a config built for one package reads the same in the other.
-The port runs the ``attn``, ``ssm`` and ``ssm+shared_attn`` block
-patterns (llama3.2-1b, granite-3-8b, gemma-7b, gemma2-9b, mamba2-370m,
-zamba2-7b); ``models.transformer`` raises for MoE and the frontends. The TPU roofline
-constants of the JAX module are left out: H100 values come with the port of
-the planning tools.
+The port runs all ten archs of ``repro_torch.configs``: the ``attn``,
+``ssm`` and ``ssm+shared_attn`` block patterns, MoE layers, the
+``vlm_stub`` and ``audio_stub`` frontends, sinusoidal positions and
+parameters in float32, bfloat16 or float16. The TPU roofline constants of
+the JAX module are left out: H100 values come with the port of the
+planning tools.
 """
 from __future__ import annotations
 
@@ -90,6 +91,10 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def expert_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
 
     @property
     def padded_vocab(self) -> int:

@@ -1,8 +1,9 @@
-"""Transformer building blocks: RMSNorm, RoPE, GQA attention, dense MLP.
+"""Transformer building blocks: RMSNorm, RoPE, sinusoidal positions, GQA
+attention, dense MLP, MoE with capacity-bounded dispatch.
 
 Counterpart of ``repro.models.layers``. Parameters are plain dicts of
-tensors with the JAX package's keys; activations are in
-``cfg.compute_dtype``, reductions in float32.
+tensors with the JAX package's keys, drawn in ``cfg.param_dtype``;
+activations are in ``cfg.compute_dtype``, reductions in float32.
 
 Attention over a whole prompt goes through the ``flash_attention`` kernel
 (its plain version on a CPU tensor): without a cache at every length, where
@@ -12,7 +13,13 @@ call at a later cache position (a decode step) keeps the grouped einsum of
 ``_attend_direct_g``. The mask takes the query positions to be
 ``cache_pos + 0..S-1``, as every caller passes them. gemma2's local and
 global layers differ only by the window each call is given
-(``layer_is_local``). MoE (``init_moe``, ``moe``) comes with a later slice.
+(``layer_is_local``).
+
+MoE (``init_moe``, ``moe``) routes, ranks, drops and combines as the
+reference does, in plain PyTorch (the reference computes them outside any
+Pallas kernel): top-k with ``jax.lax.top_k``'s tie order, capacity ranks
+over the token-major flattening, over-capacity pairs dropped into a zero
+slot, the expert products as batched matrix products.
 
 Parameters are drawn leaf by leaf with :func:`normal_leaf`, one layer's key
 at a time and a large leaf in blocks of rows, so that a full-size init
@@ -54,14 +61,18 @@ def inv_sqrt(n: int) -> float:
 DRAW_BLOCK = 1 << 26
 
 
-def normal_leaf(key: Tensor, shape: tuple[int, ...], mul: float) -> Tensor:
-    """``prng.normal(key, shape) * mul`` for ``key`` ``(..., 2)`` with
-    leading key axes (the layer axis), bit for bit: each leading key is
-    drawn alone, and a draw of more than :data:`DRAW_BLOCK` elements in
+def normal_leaf(key: Tensor, shape: tuple[int, ...], mul: float,
+                dtype: torch.dtype = torch.float32) -> Tensor:
+    """``prng.normal(key, shape, dtype) * mul`` for ``key`` ``(..., 2)``
+    with leading key axes (the layer axis), bit for bit: each leading key
+    is drawn alone, and a draw of more than :data:`DRAW_BLOCK` elements in
     blocks of rows whose counters continue where the last block's
-    stopped."""
+    stopped. In a 16-bit type ``mul``, a weak float32 scalar in the
+    reference, is rounded to the type before the product."""
+    if dtype != torch.float32:
+        mul = torch.tensor(mul, dtype=dtype).item()
     lead = tuple(key.shape[:-1])
-    out = torch.empty((*lead, *shape), dtype=torch.float32, device=key.device)
+    out = torch.empty((*lead, *shape), dtype=dtype, device=key.device)
     keys, rows_out = key.reshape(-1, 2), out.reshape(-1, *shape)
     row = math.prod(shape[1:])
     step = max(1, DRAW_BLOCK // max(row, 1))
@@ -69,7 +80,7 @@ def normal_leaf(key: Tensor, shape: tuple[int, ...], mul: float) -> Tensor:
         for r0 in range(0, shape[0], step):
             r1 = min(shape[0], r0 + step)
             rows_out[i, r0:r1] = prng.normal(keys[i], (r1 - r0, *shape[1:]),
-                                             start=r0 * row) * mul
+                                             start=r0 * row, dtype=dtype) * mul
     return out
 
 
@@ -103,6 +114,24 @@ def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     return out.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _sinusoidal_freqs(half: int, device: torch.device) -> Tensor:
+    """1 / 10000**(i / half) in float32, the power rounded once from
+    float64; made once per device."""
+    ex = np.arange(half, dtype=np.float32) / np.float32(half)
+    pw = (np.float64(10000.0) ** ex.astype(np.float64)).astype(np.float32)
+    return torch.from_numpy(np.float32(1.0) / pw).to(device)
+
+
+def sinusoidal_pos(positions: Tensor, d: int) -> Tensor:
+    """(..., S) positions -> (..., S, d) float32 ``[sin, cos]`` halves of
+    the float32 angles, each rounded once from float64 (torch's float32
+    ``sin`` on the CPU is off by 1e-4 at angles of a few hundred)."""
+    ang = positions[..., None].float() * _sinusoidal_freqs(d // 2, positions.device)
+    ang = ang.double()
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).float()
+
+
 def softcap(x: Tensor, cap: float) -> Tensor:
     if cap <= 0.0:
         return x
@@ -118,11 +147,12 @@ def init_attn(key: Tensor, cfg: ModelConfig) -> Params:
     leaf, as under ``vmap``."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     k = prng.split(key, 4)
+    dt = dtype_of(cfg.param_dtype)
     return {
-        "wq": normal_leaf(k[..., 0, :], (d, h * hd), inv_sqrt(d)),
-        "wk": normal_leaf(k[..., 1, :], (d, kv * hd), inv_sqrt(d)),
-        "wv": normal_leaf(k[..., 2, :], (d, kv * hd), inv_sqrt(d)),
-        "wo": normal_leaf(k[..., 3, :], (h * hd, d), inv_sqrt(h * hd)),
+        "wq": normal_leaf(k[..., 0, :], (d, h * hd), inv_sqrt(d), dt),
+        "wk": normal_leaf(k[..., 1, :], (d, kv * hd), inv_sqrt(d), dt),
+        "wv": normal_leaf(k[..., 2, :], (d, kv * hd), inv_sqrt(d), dt),
+        "wo": normal_leaf(k[..., 3, :], (h * hd, d), inv_sqrt(h * hd), dt),
     }
 
 
@@ -229,10 +259,11 @@ def attention(params: Params, x: Tensor, cfg: ModelConfig, *,
 def init_mlp(key: Tensor, cfg: ModelConfig, d_ff: int | None = None) -> Params:
     d, f = cfg.d_model, d_ff or cfg.d_ff
     k = prng.split(key, 3)
+    dt = dtype_of(cfg.param_dtype)
     return {
-        "w_gate": normal_leaf(k[..., 0, :], (d, f), inv_sqrt(d)),
-        "w_up": normal_leaf(k[..., 1, :], (d, f), inv_sqrt(d)),
-        "w_down": normal_leaf(k[..., 2, :], (f, d), inv_sqrt(f)),
+        "w_gate": normal_leaf(k[..., 0, :], (d, f), inv_sqrt(d), dt),
+        "w_up": normal_leaf(k[..., 1, :], (d, f), inv_sqrt(d), dt),
+        "w_down": normal_leaf(k[..., 2, :], (f, d), inv_sqrt(f), dt),
     }
 
 
@@ -246,3 +277,113 @@ def mlp(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
     g = _act(cfg)(x @ params["w_gate"].to(cd))
     u = x @ params["w_up"].to(cd)
     return (g * u) @ params["w_down"].to(cd)
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing with capacity, index-only dispatch, gathered combine
+# ---------------------------------------------------------------------------
+
+def init_moe(key: Tensor, cfg: ModelConfig) -> Params:
+    """The router, the stacked ``(E, d, f)`` experts and, with
+    ``shared_expert_d_ff``, the shared expert; ``key`` ``(..., 2)`` split
+    into 5 as the reference splits it."""
+    d, f, e = cfg.d_model, cfg.expert_ff, cfg.num_experts
+    k = prng.split(key, 5)
+    dt = dtype_of(cfg.param_dtype)
+    p = {
+        "router": normal_leaf(k[..., 0, :], (d, e), inv_sqrt(d), dt),
+        "w_gate": normal_leaf(k[..., 1, :], (e, d, f), inv_sqrt(d), dt),
+        "w_up": normal_leaf(k[..., 2, :], (e, d, f), inv_sqrt(d), dt),
+        "w_down": normal_leaf(k[..., 3, :], (e, f, d), inv_sqrt(f), dt),
+    }
+    if cfg.shared_expert_d_ff:
+        p["shared"] = init_mlp(k[..., 4, :], cfg, cfg.shared_expert_d_ff)
+    return p
+
+
+# A check's hook into the routing, None when serving: when set, every
+# ``moe_dispatch`` calls ``ROUTING_HOOK(probs, eidx)`` (the router's float32
+# probabilities (G, Tg, E) and its top-k experts (G, Tg, K)) and dispatches
+# to the experts it returns, with their gates. ``chip_smoke.py`` records the
+# CPU's routing and replays it on the card, whose bfloat16 router product
+# rounds otherwise and can part a near tie.
+ROUTING_HOOK = None
+
+
+def top_k(probs: Tensor, k: int) -> tuple[Tensor, Tensor]:
+    """``jax.lax.top_k`` over the last axis: the k largest values in
+    descending order, equal values by their lower index first (a stable
+    descending sort; ``torch.topk`` does not document its order on ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_dispatch(params: Params, xt: Tensor, cfg: ModelConfig, cap: int):
+    """Route and dispatch every token group at once (the reference's
+    ``_moe_dispatch_group`` under ``vmap``). xt: (G, Tg, D). Returns the
+    expert buffers (G, E, cap, D), ``dest`` (G, Tg*K), the gates (G, Tg, K)
+    in the compute type and each group's aux loss (G,)."""
+    E, K = cfg.num_experts, cfg.top_k
+    cd = dtype_of(cfg.compute_dtype)
+    G, Tg, D = xt.shape
+
+    logits = (xt @ params["router"].to(cd)).float()                   # (G, Tg, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate, eidx = top_k(probs, K)                                       # (G, Tg, K)
+    if ROUTING_HOOK is not None:
+        eidx = ROUTING_HOOK(probs, eidx)
+        gate = torch.gather(probs, -1, eidx)
+    gate = (gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)).to(cd)
+
+    # Switch-style load-balancing loss per group.
+    flat = eidx.reshape(G, Tg * K)
+    me = probs.mean(dim=1)                                             # (G, E)
+    ce = torch.zeros((G, E), dtype=torch.float32, device=xt.device).scatter_add_(
+        1, flat, torch.ones(flat.shape, dtype=torch.float32, device=xt.device)) / (Tg * K)
+    aux = cfg.router_aux_coef * E * (me * ce).sum(-1)
+
+    # Rank of each (token, k) within its expert: an exclusive cumsum over
+    # the token-major, k-minor flattening; a rank at or past ``cap`` drops
+    # the pair into the slot E*cap, which the combine reads as zeros.
+    onehot = F.one_hot(flat, E)                                        # (G, Tg*K, E)
+    ranks = torch.cumsum(onehot, dim=1) - onehot
+    rank = torch.gather(ranks, 2, flat[..., None])[..., 0]
+    dest = torch.where(rank < cap, flat * cap + rank, E * cap)
+
+    # Index-only scatter of token ids into the slots, then one gather of
+    # the activations; empty slots read the zero row Tg.
+    src_tok = (torch.arange(Tg * K, device=xt.device) // K).expand(G, -1)
+    slot = torch.full((G, E * cap + 1), Tg, dtype=torch.int64, device=xt.device)
+    slot.scatter_(1, dest, src_tok)
+    xpad = torch.cat([xt.to(cd), torch.zeros((G, 1, D), dtype=cd, device=xt.device)], dim=1)
+    eb = torch.gather(xpad, 1, slot[:, :-1, None].expand(-1, -1, D)).reshape(G, E, cap, D)
+    return eb, dest, gate, aux
+
+
+def moe(params: Params, x: Tensor, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
+    """Returns (y, aux_loss). Tokens are routed top-k into per-expert
+    capacity buffers per group of ``T // G`` tokens (``G = moe_groups``
+    when it divides T, else 1); over-capacity pairs are dropped (the
+    residual carries them). The shared expert is added after."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    cd = dtype_of(cfg.compute_dtype)
+    T = B * S
+    G = cfg.moe_groups if T % cfg.moe_groups == 0 and T >= cfg.moe_groups else 1
+    cap = max(1, int(cfg.capacity_factor * (T // G) * K / E))
+    eb, dest, gate, aux = moe_dispatch(params, x.reshape(G, T // G, D), cfg, cap)
+    aux = aux.mean()
+
+    act = _act(cfg)
+    g = act(torch.einsum("gecd,edf->gecf", eb, params["w_gate"].to(cd)))
+    u = torch.einsum("gecd,edf->gecf", eb, params["w_up"].to(cd))
+    out = torch.einsum("gecf,efd->gecd", g * u, params["w_down"].to(cd))
+
+    flat = torch.cat([out.reshape(G, E * cap, D),
+                      torch.zeros((G, 1, D), dtype=cd, device=x.device)], dim=1)
+    gathered = torch.gather(flat, 1, dest[..., None].expand(-1, -1, D))
+    y = torch.einsum("gtkd,gtk->gtd", gathered.reshape(G, T // G, K, D), gate)
+    y = y.reshape(B, S, D)
+    if "shared" in params:
+        y = y + mlp(params["shared"], x, cfg)
+    return y, aux

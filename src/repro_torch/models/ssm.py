@@ -27,32 +27,33 @@ Params = dict[str, Any]
 
 def init_ssm(key: Tensor, cfg: ModelConfig) -> Params:
     """``key`` ``(..., 2)``: leading key axes (the layer axis) lead every
-    leaf, as under ``vmap``."""
+    leaf, as under ``vmap``; every leaf in ``cfg.param_dtype``."""
     d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     ks = prng.split(key, 8)
     lead = tuple(key.shape[:-1])
-    dev = key.device
+    dev, dt = key.device, dtype_of(cfg.param_dtype)
     s = inv_sqrt(d)
 
     def const(v: np.ndarray) -> Tensor:
-        return torch.from_numpy(v.astype(np.float32)).to(dev).expand(*lead, -1).clone()
+        t = torch.from_numpy(v.astype(np.float32)).to(dt)
+        return t.to(dev).expand(*lead, -1).clone()
 
     def zeros(m: int) -> Tensor:
-        return torch.zeros((*lead, m), dtype=torch.float32, device=dev)
+        return torch.zeros((*lead, m), dtype=dt, device=dev)
 
     # A_log = log(linspace(1, 16, h)) and dt_bias = log(expm1(0.01)) in
     # float32, each step rounded once from float64.
     lin = np.linspace(np.float32(1.0), np.float32(16.0), h, dtype=np.float32)
     dt_bias = np.log(np.expm1(np.float64(np.float32(0.01)))).astype(np.float32)
     return {
-        "w_z": normal_leaf(ks[..., 0, :], (d, di), s),
-        "w_x": normal_leaf(ks[..., 1, :], (d, di), s),
-        "w_B": normal_leaf(ks[..., 2, :], (d, n), s),
-        "w_C": normal_leaf(ks[..., 3, :], (d, n), s),
-        "w_dt": normal_leaf(ks[..., 4, :], (d, h), s),
-        "conv_x": normal_leaf(ks[..., 5, :], (cfg.ssm_conv, di), 0.5),
-        "conv_B": normal_leaf(ks[..., 6, :], (cfg.ssm_conv, n), 0.5),
-        "conv_C": normal_leaf(ks[..., 7, :], (cfg.ssm_conv, n), 0.5),
+        "w_z": normal_leaf(ks[..., 0, :], (d, di), s, dt),
+        "w_x": normal_leaf(ks[..., 1, :], (d, di), s, dt),
+        "w_B": normal_leaf(ks[..., 2, :], (d, n), s, dt),
+        "w_C": normal_leaf(ks[..., 3, :], (d, n), s, dt),
+        "w_dt": normal_leaf(ks[..., 4, :], (d, h), s, dt),
+        "conv_x": normal_leaf(ks[..., 5, :], (cfg.ssm_conv, di), 0.5, dt),
+        "conv_B": normal_leaf(ks[..., 6, :], (cfg.ssm_conv, n), 0.5, dt),
+        "conv_C": normal_leaf(ks[..., 7, :], (cfg.ssm_conv, n), 0.5, dt),
         "conv_bias_x": zeros(di),
         "conv_bias_B": zeros(n),
         "conv_bias_C": zeros(n),
@@ -60,7 +61,7 @@ def init_ssm(key: Tensor, cfg: ModelConfig) -> Params:
         "D": const(np.ones(h)),
         "dt_bias": const(np.full(h, dt_bias)),
         "norm_scale": zeros(di),
-        "w_out": normal_leaf(key, (di, d), inv_sqrt(di)),
+        "w_out": normal_leaf(key, (di, d), inv_sqrt(di), dt),
     }
 
 

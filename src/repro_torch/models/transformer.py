@@ -1,13 +1,15 @@
 """Model assembly: parameter init, forward (prefill), decode step.
 
 Counterpart of ``repro.models.transformer`` for the ``attn`` (llama-style
-dense GQA, gemma's and gemma2's variants) and ``ssm`` (Mamba2) block
-patterns and the ``ssm+shared_attn`` hybrid (zamba2: groups of
+dense GQA, gemma's and gemma2's variants, MoE layers) and ``ssm`` (Mamba2)
+block patterns and the ``ssm+shared_attn`` hybrid (zamba2: groups of
 ``shared_attn_every`` Mamba2 layers, each followed by one weight-shared
-attention block). Parameters keep the JAX package's keys and its stacked
-leading layer axis; the layer ``scan`` is a Python loop over that axis.
-MoE layers, the VLM/audio frontends and ``loss_fn`` (training) raise
-NotImplementedError: later slices of the model stack port them.
+attention block), with the ``vlm_stub`` (patch embeddings in front of the
+tokens) and ``audio_stub`` (frame embeddings in place of them) frontends.
+Parameters keep the JAX package's keys, its stacked leading layer axis
+and ``cfg.param_dtype``; the layer ``scan`` is a Python loop over that
+axis. ``loss_fn`` (training) raises NotImplementedError: a later slice of
+the model stack ports it.
 
 Decode caches are preallocated; ``decode_step`` writes them in place and
 keeps the cache position ``pos`` as a host integer, so no step reads the
@@ -28,9 +30,6 @@ from repro_torch.models.config import ModelConfig
 Tensor = torch.Tensor
 Params = dict[str, Any]
 
-_LATER = "ported in a later slice of the model stack"
-
-
 def tree_map(fn: Callable[[Tensor], Any], tree: Any) -> Any:
     """``fn`` applied to every tensor of a nested dict."""
     if isinstance(tree, dict):
@@ -45,17 +44,9 @@ def tree_leaves(tree: Any) -> list[Tensor]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet (MoE
-    layers, the frontends, non-float32 parameters), ValueError for an
-    unknown block pattern."""
+    """Raise ValueError for an unknown block pattern."""
     if cfg.block_pattern not in ("attn", "ssm", "ssm+shared_attn"):
         raise ValueError(f"unknown block pattern {cfg.block_pattern!r}")
-    if cfg.num_experts:
-        raise NotImplementedError(f"MoE layers are {_LATER}")
-    if cfg.frontend != "none" or cfg.pos_embedding != "rope":
-        raise NotImplementedError(f"frontends and sinusoidal positions are {_LATER}")
-    if cfg.param_dtype != "float32":
-        raise NotImplementedError(f"non-float32 parameters are {_LATER} (with MoE)")
 
 
 def _shared_app(cfg: ModelConfig, i: int) -> int | None:
@@ -71,42 +62,56 @@ def _shared_app(cfg: ModelConfig, i: int) -> int | None:
 # init
 # ---------------------------------------------------------------------------
 
+def _zeros(cfg: ModelConfig, *shape: int, device) -> Tensor:
+    return torch.zeros(shape, dtype=L.dtype_of(cfg.param_dtype), device=device)
+
+
 def _init_attn_layers(key: Tensor, cfg: ModelConfig) -> Params:
-    """``key`` (L, 2): one key per layer, every leaf (L, ...)."""
+    """``key`` (L, 2): one key per layer, every leaf (L, ...); the MLP
+    from the layer's second key is a MoE layer when ``num_experts`` is
+    set."""
     k = prng.split(key, 3)
     lead = tuple(key.shape[:-1])
     p: Params = {
-        "ln1": torch.zeros((*lead, cfg.d_model), device=key.device),
-        "ln2": torch.zeros((*lead, cfg.d_model), device=key.device),
+        "ln1": _zeros(cfg, *lead, cfg.d_model, device=key.device),
+        "ln2": _zeros(cfg, *lead, cfg.d_model, device=key.device),
         "attn": L.init_attn(k[..., 0, :], cfg),
-        "mlp": L.init_mlp(k[..., 1, :], cfg),
     }
+    if cfg.num_experts:
+        p["moe"] = L.init_moe(k[..., 1, :], cfg)
+    else:
+        p["mlp"] = L.init_mlp(k[..., 1, :], cfg)
     if cfg.post_norm:
-        p["ln1_post"] = torch.zeros((*lead, cfg.d_model), device=key.device)
-        p["ln2_post"] = torch.zeros((*lead, cfg.d_model), device=key.device)
+        p["ln1_post"] = _zeros(cfg, *lead, cfg.d_model, device=key.device)
+        p["ln2_post"] = _zeros(cfg, *lead, cfg.d_model, device=key.device)
     return p
 
 
 def init_params(key: Tensor, cfg: ModelConfig) -> Params:
     """The JAX package's ``init_params``: the same key splits, each leaf
-    drawn with ``prng.normal`` (within its ulp bound of ``jax.random``) on
-    the key's device, one layer and at most ``L.DRAW_BLOCK`` elements at a
-    time (``L.normal_leaf``); the hybrid's shared block from ``keys[4]``."""
+    drawn in ``cfg.param_dtype`` with ``prng.normal`` (within its ulp bound
+    of ``jax.random``) on the key's device, one layer and at most
+    ``L.DRAW_BLOCK`` elements at a time (``L.normal_leaf``). No embedding
+    table for the audio frontend, whose head is always its own; the
+    frontend's projection from ``keys[2]``; the hybrid's shared block from
+    ``keys[4]``."""
     check_supported(cfg)
     keys = prng.split(key, 8)
-    d = cfg.d_model
-    params: Params = {
-        "final_norm": torch.zeros(d, device=key.device),
-        "embed": L.normal_leaf(keys[0], (cfg.padded_vocab, d), L.inv_sqrt(d)),
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = L.normal_leaf(keys[1], (d, cfg.padded_vocab), L.inv_sqrt(d))
+    d, dt, dev = cfg.d_model, L.dtype_of(cfg.param_dtype), key.device
+    params: Params = {"final_norm": _zeros(cfg, d, device=dev)}
+    if cfg.frontend != "audio_stub":
+        params["embed"] = L.normal_leaf(keys[0], (cfg.padded_vocab, d), L.inv_sqrt(d), dt)
+    if not cfg.tie_embeddings or cfg.frontend == "audio_stub":
+        params["lm_head"] = L.normal_leaf(keys[1], (d, cfg.padded_vocab), L.inv_sqrt(d), dt)
+    if cfg.frontend != "none":
+        params["frontend"] = {"proj": L.normal_leaf(
+            keys[2], (cfg.frontend_dim, d), L.inv_sqrt(cfg.frontend_dim), dt)}
     layer_keys = prng.split(keys[3], cfg.n_layers)
     if cfg.block_pattern == "attn":
         params["layers"] = _init_attn_layers(layer_keys, cfg)
     else:
         params["layers"] = {
-            "ln": torch.zeros((cfg.n_layers, d), device=key.device),
+            "ln": _zeros(cfg, cfg.n_layers, d, device=dev),
             "ssm": S.init_ssm(layer_keys, cfg),
         }
         if cfg.block_pattern == "ssm+shared_attn":
@@ -128,7 +133,8 @@ def _layer(layers: Params, i: int) -> Params:
 
 def _attn_block(lp: Params, x: Tensor, cfg: ModelConfig, idx: int, positions: Tensor,
                 kv_cache=None, cache_pos=None):
-    """Attention block ``idx`` (even blocks are gemma2's local layers)."""
+    """Attention block ``idx`` (even blocks are gemma2's local layers) ->
+    (x, the MoE layer's aux loss or None, cache)."""
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     a, cache = L.attention(lp["attn"], h, cfg,
                            layer_is_local=cfg.local_global_pattern and idx % 2 == 0,
@@ -137,10 +143,13 @@ def _attn_block(lp: Params, x: Tensor, cfg: ModelConfig, idx: int, positions: Te
         a = L.rmsnorm(a, lp["ln1_post"], cfg.norm_eps)
     x = x + a
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    m = L.mlp(lp["mlp"], h, cfg)
+    if cfg.num_experts:
+        m, aux = L.moe(lp["moe"], h, cfg)
+    else:
+        m, aux = L.mlp(lp["mlp"], h, cfg), None
     if cfg.post_norm:
         m = L.rmsnorm(m, lp["ln2_post"], cfg.norm_eps)
-    return x + m, cache
+    return x + m, aux, cache
 
 
 def _ssm_layer(lp: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
@@ -153,14 +162,24 @@ def _ssm_layer(lp: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
 
 def embed_inputs(params: Params, cfg: ModelConfig, tokens: Tensor | None,
                  embeds: Tensor | None = None) -> Tensor:
-    if embeds is not None or tokens is None:
-        raise NotImplementedError(f"frontend embeddings are {_LATER}")
+    """Frontend embeddings (B, Se, frontend_dim) through ``frontend.proj``,
+    then the tokens' embeddings (B, St), concatenated on the sequence axis
+    in that order; gemma's scale; sinusoidal positions from 0 on every
+    call, a decode step's included, as the reference adds them."""
     cd = L.dtype_of(cfg.compute_dtype)
-    x = params["embed"][tokens].to(cd)
+    parts = []
+    if embeds is not None:
+        parts.append(embeds.to(cd) @ params["frontend"]["proj"].to(cd))
+    if tokens is not None:
+        parts.append(params["embed"][tokens].to(cd))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     if cfg.scale_embeddings:
         # sqrt(d_model) in float32, rounded to the compute type, as a host
         # scalar (a tensor made on the card would synchronise its stream).
         x = x * float(torch.tensor(float(np.sqrt(np.float32(cfg.d_model)))).to(cd))
+    if cfg.pos_embedding == "sinusoidal":
+        pos = L.sinusoidal_pos(torch.arange(x.shape[1], device=x.device), cfg.d_model)
+        x = x + pos[None].to(cd)
     return x
 
 
@@ -185,20 +204,23 @@ def logits_from_hidden(params: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
 def forward_hidden(params: Params, cfg: ModelConfig,
                    tokens: Tensor | None = None,
                    embeds: Tensor | None = None) -> tuple[Tensor, Tensor]:
-    """Backbone forward -> (final-normed hidden (B, S, D), aux_loss)."""
+    """Backbone forward -> (final-normed hidden (B, S, D), aux_loss): the
+    MoE layers' aux losses summed in layer order (0 without MoE)."""
     check_supported(cfg)
     x = embed_inputs(params, cfg, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         if cfg.block_pattern == "attn":
-            x, _ = _attn_block(lp, x, cfg, i, positions)
-            continue
-        x = _ssm_layer(lp, x, cfg)
-        g = _shared_app(cfg, i)
-        if g is not None:
-            x, _ = _attn_block(params["shared_attn"], x, cfg, g, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a, _ = _attn_block(lp, x, cfg, i, positions)
+        else:
+            x, a = _ssm_layer(lp, x, cfg), None
+            g = _shared_app(cfg, i)
+            if g is not None:
+                x, a, _ = _attn_block(params["shared_attn"], x, cfg, g, positions)
+        if a is not None:
+            aux = aux + a
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -210,7 +232,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: Tensor | None = None,
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict[str, Tensor]):
-    raise NotImplementedError(f"training (loss_fn) is {_LATER}")
+    raise NotImplementedError("training (loss_fn) is ported in a later slice of "
+                              "the model stack")
 
 
 # ---------------------------------------------------------------------------
@@ -259,8 +282,8 @@ def decode_step(params: Params, cfg: ModelConfig, state: Params,
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         if cfg.block_pattern == "attn":
-            x, _ = _attn_block(lp, x, cfg, i, positions,
-                               kv_cache=(state["k"][i], state["v"][i]), cache_pos=pos)
+            x, _, _ = _attn_block(lp, x, cfg, i, positions,
+                                  kv_cache=(state["k"][i], state["v"][i]), cache_pos=pos)
             continue
         h = L.rmsnorm(x, lp["ln"], cfg.norm_eps)
         y, conv, ssd = S.ssm_decode_step(lp["ssm"], h, cfg, state["conv"][i],
@@ -270,8 +293,8 @@ def decode_step(params: Params, cfg: ModelConfig, state: Params,
         x = x + y
         g = _shared_app(cfg, i)
         if g is not None:
-            x, _ = _attn_block(params["shared_attn"], x, cfg, g, positions,
-                               kv_cache=(state["k"][g], state["v"][g]), cache_pos=pos)
+            x, _, _ = _attn_block(params["shared_attn"], x, cfg, g, positions,
+                                  kv_cache=(state["k"][g], state["v"][g]), cache_pos=pos)
     # Only the last position is read: the head runs on it alone.
     logits = logits_from_hidden(params, cfg, x[:, -1:])[:, 0]
     return logits, {**state, "pos": pos + Ssz}

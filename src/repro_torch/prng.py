@@ -93,20 +93,59 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape: tuple[int, ...], start: int = 0) -> torch.Tensor:
-    """32 random bits per element: ``(..., *shape)`` uint32 values in int64,
-    the flat counters from ``start``."""
+def random_bits(key: torch.Tensor, shape: tuple[int, ...], start: int = 0,
+                width: int = 32) -> torch.Tensor:
+    """``width`` (8, 16 or 32) random bits per element: ``(..., *shape)``
+    unsigned values in int64, the flat counters from ``start``, as
+    ``jax.random.bits`` gives them for uint8, uint16 and uint32: the
+    narrower draws are the low bits of the 32-bit word."""
+    if width not in (8, 16, 32):
+        raise ValueError(f"random_bits width must be 8, 16 or 32, got {width}")
     b1, b2 = _bits_pair(key, tuple(shape), start)
-    return b1 ^ b2
+    bits = b1 ^ b2
+    return bits if width == 32 else bits & ((1 << width) - 1)
+
+
+# The 16-bit float types: (random bits drawn, mantissa bits, the bits of
+# 1.0). jax.random draws 8 bits for a type of fewer than 8 mantissa bits.
+_FLOAT16 = {torch.bfloat16: (8, 7, 0x3F80), torch.float16: (16, 10, 0x3C00)}
+
+
+def _round16(v: float, dtype: torch.dtype) -> float:
+    """A Python float rounded to a 16-bit type, as a Python float."""
+    return torch.tensor(float(v), dtype=dtype).item()
+
+
+def _uniform16(key, shape, minval, maxval, start, dtype) -> torch.Tensor:
+    """``jax.random.uniform`` in a 16-bit type: the bounds and their span
+    rounded to the type; ``floats * span + lo`` with the product rounded
+    to bfloat16 before the add, as XLA on the CPU computes it, where
+    float16 adds to its exact product and rounds once. A bfloat16 or
+    float16 operation of torch computes in float32 and rounds its result,
+    on every device; the operands here are values of the type."""
+    width, nmant, one = _FLOAT16[dtype]
+    bits = random_bits(key, shape, start, width)
+    floats = ((bits >> (width - nmant)) | one).to(torch.int16).view(dtype) - 1.0
+    lo, hi = _round16(minval, dtype), _round16(maxval, dtype)
+    span = _round16(hi - lo, dtype)
+    if dtype == torch.bfloat16:
+        out = floats * span + lo
+    else:
+        out = (floats.float() * span + lo).to(dtype)
+    return torch.clamp(out, min=lo)
 
 
 def uniform(key: torch.Tensor, shape: tuple[int, ...], minval: float = 0.0,
-            maxval: float = 1.0, start: int = 0) -> torch.Tensor:
-    """float32 draws in ``[minval, maxval)``, as ``jax.random.uniform``:
-    the top 23 bits fill a mantissa with exponent 0, giving ``[1, 2)``.
+            maxval: float = 1.0, start: int = 0,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Draws in ``[minval, maxval)``, as ``jax.random.uniform``: the top 23
+    bits fill a mantissa with exponent 0, giving ``[1, 2)``.
 
     XLA contracts ``floats * (hi - lo) + lo`` into one fused multiply-add,
-    which ``f32.fma`` reproduces on every device."""
+    which ``f32.fma`` reproduces on every device. ``dtype`` bfloat16 or
+    float16 draws as :func:`_uniform16`."""
+    if dtype in _FLOAT16:
+        return _uniform16(key, shape, minval, maxval, start, dtype)
     bits = random_bits(key, shape, start)
     fbits = (bits >> 9) | 0x3F800000
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
@@ -162,15 +201,26 @@ def _erf_inv(x: torch.Tensor) -> torch.Tensor:
 
 
 def normal(key: torch.Tensor, shape: tuple[int, ...], scale: float = 1.0,
-           loc: torch.Tensor | float | None = None, start: int = 0) -> torch.Tensor:
-    """float32 standard-normal draws ``(..., *shape)``, as
-    ``jax.random.normal``: ``sqrt(2) * erf_inv(u)`` for ``u`` uniform on
-    ``(nextafter(-1, 0), 1)``; the flat counters from ``start``.
+           loc: torch.Tensor | float | None = None, start: int = 0,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Standard-normal draws ``(..., *shape)``, as ``jax.random.normal``:
+    ``sqrt(2) * erf_inv(u)`` for ``u`` uniform on ``(nextafter(-1, 0),
+    1)``; the flat counters from ``start``.
 
     ``scale`` and ``loc`` give ``loc + scale * normal(key, shape)`` as XLA
     computes that expression with a constant ``scale``: it folds ``scale``
     into the ``sqrt(2)`` factor, and contracts the add of ``loc`` into one
-    fused multiply-add."""
+    fused multiply-add.
+
+    In bfloat16 or float16 (no ``scale`` or ``loc``), ``u`` is the type's
+    uniform draw and XLA rounds ``erf_inv(u)``, taken in float32, to the
+    type before the product with ``sqrt(2)`` in the type."""
+    if dtype in _FLOAT16:
+        if scale != 1.0 or loc is not None:
+            raise ValueError("16-bit normal draws take no scale or loc")
+        lo = -1.0 + 2.0 ** -(_FLOAT16[dtype][1] + 1)     # nextafter(-1, 0)
+        u = uniform(key, shape, lo, 1.0, start, dtype)
+        return _erf_inv(u.float()).to(dtype) * _round16(np.sqrt(2.0), dtype)
     e = _erf_inv(uniform(key, shape, _NORMAL_LO, 1.0, start))
     c = f32.const(np.float32(scale) * np.float32(_SQRT2))
     return e * c if loc is None else f32.fma(e, c, loc)

@@ -8,14 +8,17 @@ loses a worker to SIGKILL mid-leg (revived from its checkpoint store with
 ``--resume-dir``) must end with exactly the uninterrupted run's incumbent,
 as ``tests/test_federation.py`` holds the reference to.
 """
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
 pytest.importorskip("torch")
 
 from repro_torch.launch.federate import (FederationConfig,  # noqa: E402
-                                         FederationCoordinator, WorkerSpec,
-                                         federate)
+                                         FederationCoordinator, WorkerDied,
+                                         WorkerSpec, federate)
 
 TIMEOUT = 120.0   # seconds for any one result the coordinator waits on
 
@@ -63,3 +66,20 @@ def test_federation_survives_sigkilled_worker(uninterrupted, tmp_path):
     assert res.value == uninterrupted.value and res.arg == uninterrupted.arg
     assert [[r["value"] for r in leg] for leg in res.legs] == [
         [r["value"] for r in leg] for leg in uninterrupted.legs]
+
+
+def test_start_stops_every_worker_when_one_never_listens(tmp_path, monkeypatch):
+    """The workers start side by side; a worker that exits before its
+    banner fails ``start``, which first stops the worker already up."""
+    coord = FederationCoordinator(_cfg(tmp_path, "dead"))
+    dead = coord.workers[1]
+
+    def exits_at_once(resume=False):
+        dead.proc = subprocess.Popen([sys.executable, "-c", "pass"],
+                                     stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+
+    monkeypatch.setattr(dead, "launch", exits_at_once)
+    with pytest.raises(WorkerDied):
+        coord.start()
+    assert coord.workers[0].port is not None
+    assert all(w.proc.poll() is not None for w in coord.workers)

@@ -1,9 +1,12 @@
 """The port's model serving path against the JAX package's.
 
 Both packages run the reduced configs of every arch the port runs
-(``ARCHS``: llama3.2-1b, granite-3-8b, gemma-7b, gemma2-9b, mamba2-370m,
-zamba2-7b) in float32 on the same weights: the JAX parameter pytree carried across with
-``convert.params_from_numpy``. On the CPU the port's attention and SSD scan
+(``ARCHS``, the JAX package's ten) in float32 on the same weights: the JAX
+parameter pytree carried across with ``convert.params_from_numpy``.
+musicgen-medium's audio frontend takes frame embeddings in place of
+tokens, so its cases feed those, and ``serve`` (tokens only) leaves it
+out; ``tests/test_torch_moe.py`` and ``tests/test_torch_frontends.py``
+hold the MoE layers and the frontends case by case. On the CPU the port's attention and SSD scan
 run the plain versions of ``flash_attention`` and ``ssd_scan``, where the
 JAX models take their XLA paths (``_attend_direct``/``_attend_chunked``,
 ``_ssd_chunked``): the same functions summed in another order, so values
@@ -37,6 +40,8 @@ from repro_torch.models import transformer as TT  # noqa: E402
 
 TOL = 1e-5      # of the largest |value|
 ARCH_LIST = sorted(ARCHS)
+# The archs ``serve`` drives: all but the audio frontend's.
+SERVE_ARCHS = [a for a in ARCH_LIST if get_config(a).frontend != "audio_stub"]
 
 
 @pytest.fixture(autouse=True)
@@ -88,6 +93,22 @@ def _tokens(cfg, B, S, seed=0):
     return jnp.asarray(t), torch.from_numpy(t).long()
 
 
+def _embeds(cfg, B, S, seed=0):
+    e = np.random.default_rng(seed).standard_normal((B, S, cfg.frontend_dim))
+    e = e.astype(np.float32)
+    return jnp.asarray(e), torch.from_numpy(e)
+
+
+def _batch(cfg, B, S, seed=0):
+    """(JAX batch, port batch) of S positions: frame embeddings for the
+    audio frontend, tokens for every other arch."""
+    if cfg.frontend == "audio_stub":
+        je, te = _embeds(cfg, B, S, seed)
+        return {"embeds": je}, {"embeds": te}
+    jt, tt = _tokens(cfg, B, S, seed)
+    return {"tokens": jt}, {"tokens": tt}
+
+
 @pytest.mark.parametrize("arch", ARCH_LIST)
 def test_init_params_matches_jax(arch):
     jc, tc = _cfgs(arch)
@@ -107,10 +128,12 @@ def test_init_params_matches_jax(arch):
 def test_forward_logits_match_jax(arch):
     jc, tc = _cfgs(arch)
     jp, tp = _params(arch, jc)
-    jt, tt = _tokens(jc, 2, 32)
-    jl, _ = jax.jit(lambda p, t: JT.forward(p, jc, tokens=t))(jp, jt)
-    tl, aux = TT.forward(tp, tc, tokens=tt)
-    assert tl.dtype == torch.float32 and float(aux) == 0.0
+    jb, tb = _batch(jc, 2, 32)
+    jl, jaux = jax.jit(lambda p, b: JT.forward(p, jc, **b))(jp, jb)
+    tl, aux = TT.forward(tp, tc, **tb)
+    assert tl.dtype == torch.float32
+    assert (float(aux) > 0) == bool(jc.num_experts)
+    _close(aux, jaux)
     _close(tl, jl)
 
 
@@ -118,12 +141,12 @@ def test_forward_logits_match_jax(arch):
 def test_prefill_step_matches_jax(arch):
     jc, tc = _cfgs(arch)
     jp, tp = _params(arch, jc)
-    jt, tt = _tokens(jc, 2, 48, seed=1)
-    want = jax.jit(jsteps.make_prefill_step(jc))(jp, {"tokens": jt})
-    got = tsteps.make_prefill_step(tc)(tp, {"tokens": tt})
+    jb, tb = _batch(jc, 2, 48, seed=1)
+    want = jax.jit(jsteps.make_prefill_step(jc))(jp, jb)
+    got = tsteps.make_prefill_step(tc)(tp, tb)
     assert got.shape == (2, tc.padded_vocab)
     _close(got, want)
-    _close(TT.prefill(tp, tc, tokens=tt), want)
+    _close(TT.prefill(tp, tc, **tb), want)
 
 
 def test_cast_params_matches_jax():
@@ -201,8 +224,10 @@ def test_attention_through_cache_matches_jax(pos, S, over):
 
 
 def _jax_prefill_decode(jc, jp, jt, B, max_len):
+    """JAX's cache-filling prefill of ``jt``: tokens, or a batch dict."""
     state = JT.init_decode_state(jc, B, max_len)
-    return jax.jit(jsteps.make_prefill_decode(jc))(jp, state, {"tokens": jt})
+    batch = jt if isinstance(jt, dict) else {"tokens": jt}
+    return jax.jit(jsteps.make_prefill_decode(jc))(jp, state, batch)
 
 
 @pytest.mark.parametrize("arch", ARCH_LIST)
@@ -212,10 +237,10 @@ def test_prefill_decode_state_and_steps_match_jax(arch):
     jc, tc = _cfgs(arch)
     jp, tp = _params(arch, jc)
     B, S, max_len = 2, 12, 20
-    jt, tt = _tokens(jc, B, S, seed=2)
-    jl, js = _jax_prefill_decode(jc, jp, jt, B, max_len)
+    jb, tb = _batch(jc, B, S, seed=2)
+    jl, js = _jax_prefill_decode(jc, jp, jb, B, max_len)
     ts = TT.init_decode_state(tc, B, max_len, "cpu")
-    tl, ts = tsteps.make_prefill_decode(tc)(tp, ts, {"tokens": tt})
+    tl, ts = tsteps.make_prefill_decode(tc)(tp, ts, tb)
     _close(tl, jl)
     assert ts["pos"] == int(js["pos"]) == S
     assert sorted(ts) == sorted(js)
@@ -227,14 +252,14 @@ def test_prefill_decode_state_and_steps_match_jax(arch):
     tstep = tsteps.make_decode_step(tc)
     ts = convert.decode_state_from_numpy(jax.tree.map(np.asarray, js), "cpu")
     for i in range(3):
-        jtok, ttok = _tokens(jc, B, 1, seed=10 + i)
-        jl, js = jstep(jp, js, {"tokens": jtok})
-        tl, ts = tstep(tp, ts, {"tokens": ttok})
+        jb, tb = _batch(jc, B, 1, seed=10 + i)
+        jl, js = jstep(jp, js, jb)
+        tl, ts = tstep(tp, ts, tb)
         _close(tl, jl)
     assert ts["pos"] == int(js["pos"]) == S + 3
 
 
-@pytest.mark.parametrize("arch", ARCH_LIST)
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
 @pytest.mark.parametrize("temperature", [0.0, 1.0])
 def test_serve_tokens_match_jax(arch, temperature):
     """Whole ``serve`` runs, each package drawing its own weights and prompt
@@ -276,27 +301,20 @@ def test_convert_keeps_bfloat16_leaves():
     assert float(ts["k"].float().min()) == float(ts["k"].float().max()) == 1.5
 
 
-@pytest.mark.parametrize("over", [{"num_experts": 4},
-                                  {"frontend": "vlm_stub", "frontend_dim": 32}])
-def test_later_slice_features_raise(over):
-    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(), **over)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TT.init_params(prng.PRNGKey(0), cfg)
-    _, tp = _params("llama3.2-1b", jget("llama3.2-1b").reduced())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TT.forward(tp, cfg, tokens=torch.zeros((1, 4), dtype=torch.long))
-
-
 def test_training_and_other_archs_are_not_ported_yet():
+    """Training raises; every arch of the JAX package is ported, so only a
+    name neither package knows raises KeyError."""
     with pytest.raises(NotImplementedError, match="later slice"):
         TT.loss_fn({}, get_config("llama3.2-1b"), {})
     with pytest.raises(KeyError):
-        get_config("qwen2-moe-a2.7b")
+        get_config("llama5")
 
 
 def test_archs_of_the_port():
     assert sorted(ARCHS) == sorted(["llama3.2-1b", "mamba2-370m", "granite-3-8b",
-                                    "gemma-7b", "gemma2-9b", "zamba2-7b"])
+                                    "gemma-7b", "gemma2-9b", "zamba2-7b",
+                                    "qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
+                                    "internvl2-2b", "musicgen-medium"])
     for arch in ARCHS:
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jget(arch)), arch
 

@@ -163,3 +163,71 @@ def test_categorical_within_bound(seed):
     tg = -torch.log(-torch.log(u.double()).float().double()).float()
     assert float(np.max(np.abs(tg.numpy() - np.asarray(g)))) < 2e-6
     assert not np.isin(got, np.arange(50)).any()      # dead slots never drawn
+
+
+# 16-bit draws (model parameters in ``param_dtype``): jax.random's bits for
+# uint8/uint16 are the low bits of the 32-bit word; bfloat16 draws 8 of
+# them for its 7 mantissa bits, float16 16 for its 10.
+HALF = [(jnp.bfloat16, torch.bfloat16), (jnp.float16, torch.float16)]
+
+
+def _bits16(x):
+    """Bit pattern of a 16-bit float array (numpy or torch), as int64."""
+    if isinstance(x, torch.Tensor):
+        return x.contiguous().view(torch.int16).numpy().astype(np.int64) & 0xFFFF
+    return np.asarray(x).view(np.uint16).astype(np.int64)
+
+
+def _ulps16(a, b):
+    """Distance in ulps of the 16-bit type, across zero."""
+    ia, ib = _bits16(a), _bits16(b)
+    ia = np.where(ia >= 0x8000, 0x8000 - ia, ia)
+    ib = np.where(ib >= 0x8000, 0x8000 - ib, ib)
+    return np.abs(ia - ib)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("width,jdt", [(8, jnp.uint8), (16, jnp.uint16), (32, jnp.uint32)])
+def test_random_bits_narrow_bitwise(seed, width, jdt):
+    jk, tk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    want = _np(jax.random.bits(jk, (37, 53), jdt))
+    got = prng.random_bits(tk, (37, 53), width=width).numpy()
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("jdt,tdt", HALF)
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-100.0, 100.0), (-3.0, 0.7),
+                                   (0.0, 3.141592653589793)])
+def test_uniform_16bit_bitwise(seed, jdt, tdt, lo, hi):
+    jk, tk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    want = jax.random.uniform(jk, (64, 100), jdt, lo, hi)
+    got = prng.uniform(tk, (64, 100), lo, hi, dtype=tdt)
+    assert got.dtype == tdt
+    assert np.array_equal(_bits16(got), _bits16(want))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("jdt,tdt", HALF)
+def test_normal_16bit_within_one_ulp(seed, jdt, tdt):
+    """float32 ``erf_inv`` of the type's uniform, rounded to the type, times
+    sqrt(2) in the type: within one ulp of the type (measured: equal on
+    these draws; the float32 ``erf_inv`` is within 4 float32 ulps of
+    XLA's, which a 16-bit rounding rarely shows)."""
+    shape = (500, 400)
+    want = jax.random.normal(jax.random.PRNGKey(seed), shape, jdt)
+    got = prng.normal(prng.PRNGKey(seed), shape, dtype=tdt)
+    ulp = _ulps16(got, want)
+    print(f"{tdt} seed {seed}: {int((ulp > 0).sum())} of {ulp.size} differ")
+    assert got.dtype == tdt and ulp.max() <= 1
+    jks = jax.random.split(jax.random.PRNGKey(seed), 3)
+    want = jax.vmap(lambda k: jax.random.normal(k, (7, 9), jdt))(jks)
+    got = prng.normal(torch.from_numpy(_np(jks)), (7, 9), dtype=tdt)
+    assert _ulps16(got, want).max() <= 1
+
+
+def test_normal_16bit_refuses_scale():
+    with pytest.raises(ValueError):
+        prng.normal(prng.PRNGKey(0), (3,), 2.0, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        prng.random_bits(prng.PRNGKey(0), (3,), width=12)
