@@ -19,7 +19,11 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      velocity stay NaN), as their plain versions clip; bench_eval also at
      128,000 rows; flash_attention at every model case with its mask
      (gemma2's local and global layers, zamba2's hd 112, gemma's hd 256)
-     and at wide head dims in both types;
+     and at wide head dims in both types; the two backward kernels
+     (flash_attention_bwd, ssd_scan_bwd) against autograd of their plain
+     versions at every case phases 23-24 launch them at, in both types,
+     with gemma2's window and softcap at head dim 256 and an odd SSD scan,
+     each backward run twice for the same bits;
   2. the draws on the card against the CPU: threefry, uniform, randint
      bitwise; normal and categorical to the last bit or ulp;
   3. Table I fused: 1 island, pop 800, shifted Rosenbrock-1000, 200 gens;
@@ -123,8 +127,8 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      with a 64-token prompt stepped token by token;
  20. the four archs of 19 at full width, 2 layers (zamba2 6: one shared
      application), float32 and bfloat16, on the card against the CPU as
-     in phase 12 (prefill 2 x 256, zamba2 2 x 512; serve with 8 greedy
-     steps teacher-forced, zamba2 from a 16-token prompt);
+     in phase 12 (prefill 2 x 128, zamba2 2 x 512; serve with 8 greedy
+     steps teacher-forced from a 128-token prompt, zamba2 a 16-token one);
  21. MoE serving and the stub frontends at full width, bf16, random
      weights (each arch's drawn once on the card, the last arch's freed
      first, the peak memory reset per arch): qwen2-moe-a2.7b at full
@@ -144,7 +148,21 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      behind 256 patches; serve with 8 greedy steps teacher-forced, musicgen
      8 steps on frames); the card replays the CPU's routing and its own
      must agree wherever the router's K-th and (K+1)-th experts are clear
-     of each other (``RoutingReplay``).
+     of each other (``RoutingReplay``);
+ 23. training on the card through ``launch.train.train``: llama3.2-1b,
+     then mamba2-370m, at full width and depth, bf16 on float32 masters,
+     8 x 512 tokens a step from the synthetic stream, 6 steps: every
+     step's loss and grad norm finite, every parameter leaf's gradient not
+     all zero after step 1 (its first moment), each kernel launched its
+     ``train_cases`` count per step (the forward twice a layer under
+     remat, the backward once); ms/step, tokens/s, peak memory and the
+     device's idle share over the last 2 steps, profiled;
+ 24. the same two archs at full width, 2 layers, float32 and bf16, one
+     train step on the card against the CPU on the same weights and batch
+     (llama 1 x 64 tokens, mamba2 1 x 256): the loss, every gradient leaf
+     and the params after one Adam update within ``TRAIN_TOL``; then, on
+     mamba2 in bf16, the resume drill: 4 steps checkpointed every 2,
+     resumed to 6 by a fresh call, bit-identical to 6 steps in one call.
 
 flash_attention and ssd_scan take two routes by the input's type: bfloat16
 runs the tensor-core kernels (``csrc/*_tc.cu``), float32 the CUDA-core
@@ -162,17 +180,18 @@ and, for ga_step and eval_select, the share of rows taken or accepted; the compi
 for their libraries are printed. The main-path runs of GA and SA also
 report the share of rows their fused kernel took or accepted.
 
-Phases 3-5, 7, 8, 10, 11, 13, 15-19 and 21 are the main path: each run resets
+Phases 3-5, 7, 8, 10, 11, 13, 15-19, 21 and 23 are the main path: each run resets
 the kernels' launch counters, drives its entry point
 (``IslandOptimizer.minimize``, ``explore_then_polish``, ``serve``, a prefill
-step, ``launch.steps``, ``OptimizationService.handle``) and reads the counters right after. Each engine configuration is then profiled over a few rounds of a
+step, ``launch.steps``, ``OptimizationService.handle``, ``launch.train.train``)
+and reads the counters right after. Each engine configuration is then profiled over a few rounds of a
 further run, init excluded, and each serve run over a few further decode
 steps, for the device's busy time and idle share.
 Every launch records its kernel and input shape; the run fails if a phase
 launched a kernel at a shape phase 1 did not check, or if a run marked to
 adopt migrants never did.
 
-Phases 6, 10-15 and 19-22 run in a second process of this script, started
+Phases 6, 10-15 and 19-24 run in a second process of this script, started
 after the build, beside the first process's phases 1-5, 7-9 and 16-18
 (``SECOND_PROCESS_PHASES``); both drive the one card, so each phase's
 seconds and host-clock readings are taken beside the other process's
@@ -196,6 +215,8 @@ import math
 import os
 import pickle
 import re
+import shutil
+import statistics
 import subprocess
 import sys
 import threading
@@ -584,13 +605,16 @@ CARD_VS_CPU_MODEL_RUNS = {
     # The four archs of phase 19 at full width: 2 layers (gemma2-9b: one
     # local, one global), 6 for zamba2-7b (one shared attention
     # application), in float32 and bfloat16, one arch at a time (its weights
-    # drawn once on the card and copied to the CPU). zamba2's prefill spans two
-    # 256-token chunks; its serve prompt is stepped through token by token,
-    # 16 tokens (every token runs the same launches, and the CPU steps each
-    # through all 6 layers at full width).
+    # drawn once on the card and copied to the CPU). The attention archs'
+    # prompts are 128 tokens (256 until the training phases needed the
+    # script's time: the CPU's bf16 products bound the phase; phase 1
+    # still checks flash at the 256-token shapes, PHASE20_FLASH_SEQ); zamba2's
+    # prefill spans two 256-token chunks; its serve prompt is stepped
+    # through token by token, 16 tokens (every token runs the same
+    # launches, and the CPU steps each through all 6 layers at full width).
     20: tuple(ModelRun(f"{arch} {entry}, {n} layers, {label}", arch, entry, 2,
-                       (512 if arch == "zamba2-7b" else 256) if entry == "prefill"
-                       else (16 if arch == "zamba2-7b" else 256),
+                       (512 if arch == "zamba2-7b" else 128) if entry == "prefill"
+                       else (16 if arch == "zamba2-7b" else 128),
                        0 if entry == "prefill" else 8, n_layers=n, compute_dtype=dtype)
               for arch, n in (("granite-3-8b", 2), ("gemma-7b", 2), ("gemma2-9b", 2),
                               ("zamba2-7b", 6))
@@ -754,7 +778,10 @@ PALLAS_SITES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:99",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:72",
 }
-KERNELS = tuple(PALLAS_SITES)
+# The port's two backward kernels (no TPU kernel: the JAX package has no
+# backward kernel) and the forward kernel whose gradient each computes.
+GRADIENT_OF = {"flash_attention_bwd": "flash_attention", "ssd_scan_bwd": "ssd_scan"}
+KERNELS = (*PALLAS_SITES, *GRADIENT_OF)
 POP_KERNELS = KERNELS[:5]      # the population kernels of phases 1-9
 # The kernels whose bfloat16 route runs on the tensor cores: the library it
 # builds, and the tensor-core instructions that library's SASS must hold.
@@ -956,14 +983,18 @@ def port_modules() -> types.SimpleNamespace:
     from repro_torch.functions import benchmarks as bm
     from repro_torch.configs import get_config
     from repro_torch.kernels import (_build, bench_eval, de_step, eval_select,
-                                     flash_attention, ga_step, pso_step,
-                                     ssd_scan)
-    from repro_torch.launch import serve, steps
+                                     flash_attention, flash_attention_bwd, ga_step,
+                                     pso_step, ssd_scan, ssd_scan_bwd)
+    from repro_torch import data
+    from repro_torch.launch import serve, steps, train
     from repro_torch.models import layers, transformer
+    from repro_torch.optim import adam
     return types.SimpleNamespace(
         prng=prng, de=de, bm=bm, bench_eval=bench_eval, de_step=de_step,
         eval_select=eval_select, pso_step=pso_step, ga_step=ga_step,
         flash_attention=flash_attention, ssd_scan=ssd_scan,
+        flash_attention_bwd=flash_attention_bwd, ssd_scan_bwd=ssd_scan_bwd,
+        train=train, data=data, adam=adam,
         ALGORITHMS=ALGORITHMS, migration=migration, mesh=mesh, executor=executor,
         OptRequest=OptRequest,
         _build=_build, ExecutorConfig=ExecutorConfig, IslandConfig=IslandConfig,
@@ -1064,6 +1095,7 @@ def phase_kernels(c: Ctx) -> None:
     check_fused_kernels(c)
     check_nan_lanes(c)
     check_model_kernels(c)
+    check_grad_kernels(c)
 
 
 def _same(torch, a, b) -> bool:
@@ -1495,6 +1527,11 @@ def main_path_phases() -> dict[str, set[int]]:
         for r in runs:
             for k in MODEL_KERNEL[r.arch]:
                 out[k].add(phase)
+    for phase, runs in TRAIN_RUNS.items():
+        for r in runs:
+            for k in MODEL_KERNEL[r.arch]:
+                out[k].add(phase)
+                out[f"{k}_bwd"].add(phase)
     out["bench_eval"].add(15)
     for k in ("bench_eval", "de_step", "pso_step"):
         out[k].add(16)
@@ -2584,6 +2621,13 @@ def model_cases(rt, r: ModelRun) -> dict[str, list[tuple[tuple, int]]]:
     return {k: [(case, n) for case, n in v if n] for k, v in out.items()}
 
 
+# Phase 20's attention archs ran 256-token prompts until PR 23 cut them to
+# 128 for time; phase 1 holds flash at those runs' cases at this length too
+# (granite's hd 128, gemma-7b's hd 256, gemma2's local and global layers),
+# so the kernel check keeps every shape it had.
+PHASE20_FLASH_SEQ = 256
+
+
 def _model_runs():
     for table in (MODEL_RUNS, CARD_VS_CPU_MODEL_RUNS):
         for runs in table.values():
@@ -2687,13 +2731,21 @@ def _ssd_check(c: Ctx, gen, shape, N, H, chunk, dtype) -> float:
 
 def check_model_kernels(c: Ctx) -> None:
     """flash_attention and ssd_scan against their plain versions on the
-    card: every case the model phases launch (from the run tables) and the
-    JAX suite's shapes, types and masks, at its bounds."""
+    card: every case the model and training phases launch (from the run
+    tables) and the JAX suite's shapes, types and masks, at its bounds."""
     gen = c.torch.Generator(device=c.dev).manual_seed(11)
     flash, ssd = set(), set()
     for r in _model_runs():
         for k, cases in model_cases(c.rt, r).items():
             (flash if k == "flash_attention" else ssd).update(case for case, _ in cases)
+    for r in CARD_VS_CPU_MODEL_RUNS[20]:
+        if r.entry == "prefill" and model_cfg(c.rt, r).block_pattern == "attn":
+            r = dataclasses.replace(r, seq=PHASE20_FLASH_SEQ)
+            flash.update(case for case, _ in model_cases(c.rt, r)["flash_attention"])
+    for r in _train_runs():
+        cases = train_cases(c.rt, r)
+        flash.update(case for case, _ in cases.get("flash_attention", ()))
+        ssd.update(case for case, _ in cases.get("ssd_scan", ()))
     worst = {"flash_attention": 0.0, "ssd_scan": 0.0}
     for shape, T, dtype, mask in sorted(flash):
         worst["flash_attention"] = max(worst["flash_attention"],
@@ -2736,6 +2788,10 @@ class ModelParams:
     init's seconds and peak are logged."""
 
     def __init__(self):
+        self.key, self.card, self.cpu = None, None, None
+
+    def drop(self) -> None:
+        """Let go of the weights held (before a phase that draws its own)."""
         self.key, self.card, self.cpu = None, None, None
 
     def get(self, c: Ctx, cfg, cpu: bool = False):
@@ -2831,10 +2887,35 @@ def _serve_logits(c: Ctx, cfg, params, r: ModelRun, device, force=None):
     return out, c.torch.cat(toks, dim=1)
 
 
-def _device_rows(c: Ctx, prof):
-    rows = [(e.device_time_total, e.key, e.count) for e in prof.key_averages()
-            if e.device_type == c.torch.autograd.DeviceType.CUDA]
-    return sorted(rows, reverse=True)
+def _device_rows(c: Ctx, prof, compare: bool = False):
+    """(device µs, name, count) of each kernel and copy on the card in
+    ``prof``'s window, largest first, summed from the profiler's raw events
+    (``key_averages`` also builds a record of every host event, about 100
+    times slower at tens of thousands of launches). With ``compare``, the
+    device time and count that ``key_averages`` gives for the same window
+    are logged beside these, with each reading's seconds, and must agree
+    within 1e-3 (the profiler rounds its averages to nanoseconds)."""
+    cuda = c.torch.autograd.DeviceType.CUDA
+    t0 = time.perf_counter()
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            t, n = rows.get(e.name(), (0.0, 0))
+            rows[e.name()] = (t + e.duration_ns() / 1e3, n + 1)
+    out = sorted(((t, k, n) for k, (t, n) in rows.items()), reverse=True)
+    if compare:
+        raw_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        avg = [(e.device_time_total, e.count) for e in prof.key_averages()
+               if e.device_type == cuda]
+        avg_s = time.perf_counter() - t0
+        raw_us, avg_us = sum(r[0] for r in out), sum(a[0] for a in avg)
+        raw_n, avg_n = sum(r[2] for r in out), sum(a[1] for a in avg)
+        log(f"device time on one profile: raw events {raw_us:.1f} µs in {raw_n} events "
+            f"({raw_s:.3f} s), key_averages {avg_us:.1f} µs in {avg_n} events ({avg_s:.3f} s)")
+        require(raw_n == avg_n and abs(raw_us - avg_us) <= 1e-3 * avg_us,
+                f"raw events {raw_us} µs / {raw_n}, key_averages {avg_us} µs / {avg_n}")
+    return out
 
 
 def profile_decode(c: Ctx, cfg, params, batch: int, prompt_len: int, steps: int = 8,
@@ -3210,6 +3291,426 @@ def model_card_vs_cpu_phase(phase: int):
     return run
 
 
+# ---------------------------------------------------------------------------
+# Training (phases 23-24)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TrainRun:
+    """One drive of the training path for ``arch`` at full width with
+    ``n_layers`` layers (0: the config's full depth): ``launch.train.train``
+    for ``steps`` steps of ``batch`` x ``seq`` tokens from the synthetic
+    stream (phase 23), or one step and the resume drill (phase 24), with
+    ``compute_dtype`` activations on float32 masters, remat and CE chunks
+    as the config sets them (both on)."""
+
+    label: str
+    arch: str
+    batch: int
+    seq: int
+    steps: int = 6
+    n_layers: int = 0
+    compute_dtype: str = "bfloat16"
+    drill: bool = False
+
+
+# llama3.2-1b and mamba2-370m at their own training shape (seq_len 512,
+# global_batch 8, src/repro/models/config.py), full width and depth, bf16
+# (phase 23); at 2 layers in float32 and bf16 against the CPU, at 1 x 64
+# tokens for llama (the CPU's side runs the 128,256-wide head on every
+# position, forward, remat and backward) and 1 x 256 for mamba2 (one
+# 256-step chunk) (phase 24), each arch's weights drawn once for both
+# types. The resume drill runs mamba2's bf16 case: a checkpoint of its
+# params and moments is 0.8 GB (llama's, with its 128,256 x 2048
+# embedding, 4.6 GB: its drill spent 37 s writing and reading them on an
+# H100 80GB HBM3 host); flash_attention_bwd's bits are held twice over in
+# phase 1.
+TRAIN_RUNS = {23: (TrainRun("llama3.2-1b train", "llama3.2-1b", 8, 512),
+                   TrainRun("mamba2-370m train", "mamba2-370m", 8, 512))}
+CARD_VS_CPU_TRAIN_RUNS = {24: tuple(
+    TrainRun(f"{arch} train step, 2 layers, {label}", arch, 1, seq, n_layers=2,
+             compute_dtype=dtype, drill=arch == "mamba2-370m" and dtype == "bfloat16")
+    for arch, seq in (("llama3.2-1b", 64), ("mamba2-370m", 256))
+    for dtype, label in (("float32", "f32"), ("bfloat16", "bf16")))}
+# Adam of both training phases: the trainer's default schedule, over the run's
+# steps.
+TRAIN_ADAM = {"lr": 1e-3, "warmup_steps": 10}
+# Steps of a phase-23 run under torch.profiler (the last ones; the idle
+# share is taken over their own host time), and the unprofiled steps its
+# host-clock ms/step is taken over (2..4: step 1 holds the first calls'
+# set-up).
+TRAIN_PROFILED = 2
+# Card against CPU (phase 24), same weights and batch: the loss relative to
+# itself, each gradient leaf relative to that leaf's largest |value|. In
+# float32 the two sum in other orders (the CPU-vs-JAX tests hold the same
+# leaves to 1e-4). In bfloat16 both round activations at each product,
+# norm and kernel output, at different points (cuBLAS, the tensor-core
+# kernels' bf16 P and SSD intermediates): the forward's logits differ by
+# up to 2e-2 of the largest (MODEL_TOL), and a gradient leaf sums such
+# products over every token, so 5e-2 of its largest |value|.
+TRAIN_TOL = {"float32": {"loss": 1e-5, "grad": 1e-4},
+             "bfloat16": {"loss": 1e-2, "grad": 5e-2}}
+# A backward kernel against autograd of its plain version on the card, of
+# each gradient's largest |value|: float32 sums in another order (and the
+# SSD kernel's log-decay gradient is a difference of running sums, which
+# cancels); bfloat16 outputs round to 8 significant bits and the kernel's
+# D = dO . O reads the forward's bf16 output, as the forward's own bound.
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# Backward cases beyond the training phases': gemma2's window with its
+# attention softcap at head dim 256 (flash: (BH, S, hd), mask), and an odd
+# SSD scan (ssd: (BH, S, P), N, H, chunk).
+FLASH_GRAD_EXTRA = (((8, 384, 256), (128, 50.0, True)), ((6, 200, 96), (0, 0.0, False)))
+SSD_GRAD_EXTRA = (((6, 200, 40), 32, 3, 8),)
+
+
+def train_cfg(rt, r: TrainRun):
+    over = {"compute_dtype": r.compute_dtype, "seq_len": r.seq, "global_batch": r.batch}
+    if r.n_layers:
+        over["n_layers"] = r.n_layers
+    return dataclasses.replace(rt.get_config(r.arch), **over)
+
+
+def train_cases(rt, r: TrainRun) -> dict[str, list[tuple[tuple, int]]]:
+    """The kernel launches one train step of ``r`` makes: ``{kernel:
+    [(case, launches)]}`` in ``model_cases``' form. The forward kernel runs
+    twice a layer under remat (the forward and the backward's recompute),
+    the backward kernel once."""
+    cfg = train_cfg(rt, r)
+    fwd = 2 if cfg.remat else 1
+    if cfg.block_pattern == "attn" and not cfg.local_global_pattern:
+        case = ((r.batch * cfg.n_heads, r.seq, cfg.hd), r.seq, r.compute_dtype,
+                (max(cfg.window, 0), cfg.attn_softcap, True))
+        return {"flash_attention": [(case, fwd * cfg.n_layers)],
+                "flash_attention_bwd": [(case, cfg.n_layers)]}
+    if cfg.block_pattern == "ssm":
+        case = ((r.batch * cfg.ssm_heads, r.seq, cfg.ssm_head_dim), cfg.ssm_state,
+                cfg.ssm_heads, min(cfg.ssm_chunk, r.seq), r.compute_dtype)
+        return {"ssd_scan": [(case, fwd * cfg.n_layers)], "ssd_scan_bwd": [(case, cfg.n_layers)]}
+    raise ValueError(f"no training cases for {r.arch}")
+
+
+def _train_runs():
+    for table in (TRAIN_RUNS, CARD_VS_CPU_TRAIN_RUNS):
+        for runs in table.values():
+            yield from runs
+
+
+def _grad_err(c: Ctx, name: str, got, want) -> float:
+    """Largest over the gradients of max |got - want| over max |want|,
+    recorded for kernel ``name``."""
+    worst = 0.0
+    k = c.kern[name]
+    for g, w in zip(got, want):
+        d = float((g.float() - w.float()).abs().max())
+        err = d / max(float(w.float().abs().max()), 1e-30)
+        worst = max(worst, err)
+        k["max_abs_err"] = max(k["max_abs_err"], d)
+        k["max_rel_err"] = max(k["max_rel_err"], err)
+    return worst
+
+
+def _flash_grad_check(c: Ctx, gen, shape, dtype: str, mask) -> float:
+    """flash_attention's gradient on the card (the forward kernel with its
+    row log-sum-exp, then flash_attention_bwd, through autograd) against
+    autograd of the plain version, and the same bits from a second
+    backward."""
+    torch, fa, fb = c.torch, c.rt.flash_attention, c.rt.flash_attention_bwd
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=c.dev).to(dt) for _ in range(4))
+    window, softcap, causal = mask
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*ins, **kw)
+    got = torch.autograd.grad(out, ins, do, retain_graph=True)
+    again = torch.autograd.grad(out, ins, do)
+    want = fb.flash_attention_bwd_ref(q, k, v, do, **kw)
+    c.sync()
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"flash_attention_bwd {shape} {dtype} {mask}: two backwards differ")
+    err = _grad_err(c, "flash_attention_bwd", got, want)
+    require(all(g.dtype == dt for g in got) and err < GRAD_TOL[dtype],
+            f"flash_attention_bwd {shape} {dtype} mask {mask}: err {err:.3g} of max |grad|")
+    return err
+
+
+def _ssd_grad_check(c: Ctx, gen, shape, N: int, H: int, chunk: int, dtype: str) -> float:
+    """ssd_scan's gradient on the card (ssd_scan_bwd through autograd)
+    against autograd of the plain recurrence, and the same bits from a
+    second backward."""
+    torch, ss, sb = c.torch, c.rt.ssd_scan, c.rt.ssd_scan_bwd
+    args = _ssd_inputs(c, gen, shape, N, H, dtype)
+    dy = torch.randn(shape, generator=gen, device=c.dev).to(args[0].dtype)
+    ins = [t.clone().requires_grad_(True) for t in args]
+    y = ss.ssd_scan(*ins, chunk=chunk)
+    got = torch.autograd.grad(y, ins, dy, retain_graph=True)
+    again = torch.autograd.grad(y, ins, dy)
+    want = sb.ssd_scan_bwd_ref(*args, dy)
+    c.sync()
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"ssd_scan_bwd {shape} N {N} H {H} {dtype}: two backwards differ")
+    err = _grad_err(c, "ssd_scan_bwd", got, want)
+    require(all(g.dtype == t.dtype for g, t in zip(got, args)) and err < GRAD_TOL[dtype],
+            f"ssd_scan_bwd {shape} N {N} H {H} {dtype}: err {err:.3g} of max |grad|")
+    return err
+
+
+def check_grad_kernels(c: Ctx) -> None:
+    """flash_attention_bwd and ssd_scan_bwd against autograd of their plain
+    versions on the card: every case the training phases launch (from the
+    run tables), gemma2's window with softcap at head dim 256, a
+    non-causal case and an odd SSD scan, each in float32 and bfloat16."""
+    gen = c.torch.Generator(device=c.dev).manual_seed(13)
+    flash, ssd = set(), set()
+    for r in _train_runs():
+        cases = train_cases(c.rt, r)
+        flash.update(case for case, _ in cases.get("flash_attention_bwd", ()))
+        ssd.update(case for case, _ in cases.get("ssd_scan_bwd", ()))
+    worst = {"flash_attention_bwd": 0.0, "ssd_scan_bwd": 0.0}
+    for shape, _, dtype, mask in sorted(flash):
+        worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
+                                           _flash_grad_check(c, gen, shape, dtype, mask))
+    for shape, mask in FLASH_GRAD_EXTRA:
+        for dtype in ("float32", "bfloat16"):
+            worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
+                                               _flash_grad_check(c, gen, shape, dtype, mask))
+    for shape, N, H, chunk, dtype in sorted(ssd):
+        worst["ssd_scan_bwd"] = max(worst["ssd_scan_bwd"],
+                                    _ssd_grad_check(c, gen, shape, N, H, chunk, dtype))
+    for shape, N, H, chunk in SSD_GRAD_EXTRA:
+        for dtype in ("float32", "bfloat16"):
+            worst["ssd_scan_bwd"] = max(worst["ssd_scan_bwd"],
+                                        _ssd_grad_check(c, gen, shape, N, H, chunk, dtype))
+    log(f"phase 1: flash_attention_bwd at the training cases {sorted(flash)} and "
+        f"{list(FLASH_GRAD_EXTRA)} x 2 types: max err {worst['flash_attention_bwd']:.3g} of max "
+        f"|grad| (bounds {GRAD_TOL}), every case the same bits twice")
+    log(f"phase 1: ssd_scan_bwd at the training cases {sorted(ssd)} and {list(SSD_GRAD_EXTRA)} "
+        f"x 2 types: max err {worst['ssd_scan_bwd']:.3g} of max |grad| (bounds {GRAD_TOL}), "
+        "every case the same bits twice")
+
+
+def _named(tree, pre=""):
+    """(path, leaf) pairs of a nested dict, keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named(tree[k], f"{pre}/{k}")]
+    return [(pre, tree)]
+
+
+class StepWatch:
+    """Wraps ``launch.train.make_train_step`` while it is entered: each step
+    ``train`` runs is followed by a synchronise and a call of ``after(n,
+    params, opt_state, metrics)``, n counting the steps from 1."""
+
+    def __init__(self, c: Ctx, after):
+        self.c, self.train, self.after = c, c.rt.train, after
+
+    def __enter__(self):
+        inner = self.inner = self.train.make_train_step
+        c, after = self.c, self.after
+
+        def watching(cfg, acfg):
+            step_fn, n = inner(cfg, acfg), [0]
+
+            def step(params, opt_state, batch):
+                out = step_fn(params, opt_state, batch)
+                c.sync()
+                n[0] += 1
+                after(n[0], *out)
+                return out
+            return step
+        self.train.make_train_step = watching
+        return self
+
+    def __exit__(self, *exc):
+        self.train.make_train_step = self.inner
+
+
+def _train_main(c: Ctx, phase: int, r: TrainRun) -> dict:
+    """``launch.train.train`` on the card for ``r.steps`` steps, the counters
+    set to 0 just before and read just after: each kernel's launches must be
+    ``train_cases`` per step, every step's loss and grad norm finite, and
+    after step 1 every parameter leaf's first moment, 0.1 of its clipped
+    gradient, not all zero (a kernel that dropped the gradient leaves the
+    weights before it at zero). A step's host time runs from the end of
+    the previous step's check to the end of its own synchronise, so the
+    checks here fall in no step. Steps 2..4 give ms/step (step 1 holds the
+    first calls' set-up); the last TRAIN_PROFILED steps run under
+    torch.profiler, and the idle share compares their device busy time
+    with their own host time (the profiler's cost to the host included)."""
+    torch, rt = c.torch, c.rt
+    from torch.profiler import ProfilerActivity, profile
+    cfg = train_cfg(rt, r)
+    PARAMS.drop()
+    if c.dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    acfg = rt.adam.AdamConfig(**TRAIN_ADAM, total_steps=r.steps)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    rec = {"ms": [], "loss": [], "grad_norm": []}
+    zero = []
+
+    def after(n, params, opt_state, metrics):
+        rec["ms"].append((time.perf_counter() - resumed[0]) * 1e3)
+        rec["loss"].append(float(metrics["loss"]))
+        rec["grad_norm"].append(float(metrics["grad_norm"]))
+        if n == 1:
+            zero.extend(name for name, m in _named(opt_state.mu) if not bool(m.abs().max() > 0))
+        if n == r.steps - TRAIN_PROFILED:
+            prof.start()
+        elif n == r.steps:
+            prof.stop()
+        resumed[0] = time.perf_counter()
+
+    c.reset()
+    t0 = time.perf_counter()
+    resumed = [t0]
+    with StepWatch(c, after):
+        params, _, losses = rt.train.train(cfg, steps=r.steps, adam_cfg=acfg,
+                                           log_every=r.steps, device=c.dev)
+    c.sync()
+    wall = time.perf_counter() - t0
+    counts = c.counts()
+    tc = {k: getattr(rt, k).TC_LAUNCHES for k in TC_LIBRARY}
+    require(len(rec["loss"]) == len(losses) == r.steps
+            and all(map(math.isfinite, rec["loss"] + rec["grad_norm"])),
+            f"{r.label}: losses {rec['loss']}, grad norms {rec['grad_norm']}")
+    require(not zero, f"{r.label}: after step 1 these leaves had an all-zero gradient: {zero}")
+    want = {k: 0 for k in KERNELS}
+    for k, cases in train_cases(rt, r).items():
+        want[k] = r.steps * sum(n for _, n in cases)
+    require(counts == want, f"{r.label}: launches {counts}, expected {want}")
+    require(all(tc[k] == (counts[k] if r.compute_dtype == "bfloat16" else 0) for k in tc),
+            f"{r.label}: tensor-core launches {tc} of {counts}")
+    c.add_launches(counts)
+    step_ms = statistics.fmean(rec["ms"][1:r.steps - TRAIN_PROFILED])
+    profiled_ms = statistics.fmean(rec["ms"][r.steps - TRAIN_PROFILED:])
+    # llama's step (fewer launches than mamba2's) also puts key_averages'
+    # sums on record beside the raw events'.
+    rows = _device_rows(c, prof, compare=r.arch == "llama3.2-1b")
+    busy = sum(x[0] for x in rows) / 1e3 / TRAIN_PROFILED
+    out = {"params": rt.T.param_count(params), "leaves": len(_named(params)),
+           "seconds_with_init": wall, "ms_per_step": step_ms,
+           "tokens_per_s": r.batch * r.seq / step_ms * 1e3,
+           "peak_gb": (torch.cuda.max_memory_allocated() / 1e9 if c.dev.type == "cuda"
+                       else None),
+           "launches_per_step": {k: v / r.steps for k, v in counts.items() if v},
+           "tensor_core_launches_per_step": {k: v / r.steps for k, v in tc.items() if v},
+           "profiled_ms_per_step": profiled_ms, "device_busy_ms_per_step": busy,
+           "device_idle_share": 1.0 - busy / profiled_ms,
+           "device_launches_per_step": sum(x[2] for x in rows) / TRAIN_PROFILED,
+           "top": [{"name": k[:90], "device_ms": t / 1e3 / TRAIN_PROFILED,
+                    "count": n // TRAIN_PROFILED} for t, k, n in rows[:6]],
+           "losses": rec["loss"], "grad_norms": rec["grad_norm"]}
+    log(f"phase {phase}: {r.label} (batch {r.batch} x {r.seq}, {cfg.n_layers} layers, "
+        f"{cfg.compute_dtype} on float32 masters, {r.steps} steps): {json.dumps(out)}")
+    return out
+
+
+def run_train_phase(phase: int):
+    def run(c: Ctx) -> dict:
+        return {r.label: _timed(phase, r, lambda: _train_main(c, phase, r))
+                for r in TRAIN_RUNS[phase]}
+    return run
+
+
+def _train_card_vs_cpu(c: Ctx, phase: int, r: TrainRun) -> None:
+    """One train step of ``r`` on the card and on the CPU from the same
+    weights (``init_params`` on the card, ``PARAMS``) and batch: the loss, every gradient leaf
+    (``launch.steps.loss_and_grads``, what ``make_train_step`` runs) within
+    TRAIN_TOL, and the params after one Adam update from zero moments.
+    Adam's first update moves an element by lr * g s / (|g s| + eps), s
+    the clip's scale: about lr times g's sign. Where the CPU's gradient is
+    clear of 0 by the leaf's bound (so both signs agree) and |g s| >
+    1e-5 (so eps moves the update by under 1e-3 of it), the two must agree
+    within 1e-3 lr; elsewhere within 2 lr. The two sides are compared on
+    the card. Then, for a run marked ``drill``, the resume drill."""
+    torch, rt = c.torch, c.rt
+    cfg = train_cfg(rt, r)
+    tol = TRAIN_TOL[r.compute_dtype]
+    acfg = rt.adam.AdamConfig(**TRAIN_ADAM, total_steps=r.steps)
+    params, cpu_params = PARAMS.get(c, cfg), PARAMS.get(c, cfg, cpu=True)
+    batch = next(rt.data.SyntheticStream(cfg))
+    c.reset()
+    res = {}
+    for side, p in (("card", params), ("cpu", cpu_params)):
+        dev = c.dev if side == "card" else "cpu"
+        loss, _, grads = rt.steps.loss_and_grads(p, cfg, rt.data.to_device(batch, dev))
+        new, _ = rt.adam.update(grads, rt.adam.init(p), p, acfg)
+        res[side] = (float(loss), {k: v.to(c.dev) for k, v in _named(grads)},
+                     {k: v.to(c.dev) for k, v in _named(new)})
+        if side == "card":
+            counts = c.counts()
+    want = {k: 0 for k in KERNELS}
+    for k, cases in train_cases(rt, r).items():
+        want[k] = sum(n for _, n in cases)
+    require(counts == want, f"card vs cpu {r.label}: launches {counts}, expected {want}")
+    (l_card, g_card, p_card), (l_cpu, g_cpu, p_cpu) = res["card"], res["cpu"]
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    require(loss_err < tol["loss"], f"card vs cpu {r.label}: loss {l_card} against {l_cpu}")
+    lr0 = float(rt.adam.schedule(torch.zeros((), dtype=torch.int32), acfg))
+    gnorm = math.sqrt(sum(float(g.double().square().sum()) for g in g_cpu.values()))
+    clip = min(1.0, acfg.grad_clip / (gnorm + 1e-9)) if acfg.grad_clip > 0 else 1.0
+    worst_g, worst_p, flips = 0.0, 0.0, 0
+    for name, gc in g_cpu.items():
+        gk = g_card[name]
+        scale = float(gc.abs().max())
+        if scale == 0.0:
+            require(not bool(gk.abs().max() > 0), f"card vs cpu {r.label}: {name} grad not 0")
+            continue
+        err = float((gk - gc).abs().max()) / scale
+        worst_g = max(worst_g, err)
+        require(err < tol["grad"], f"card vs cpu {r.label}: grad {name} err {err:.3g} of its max")
+        d = (p_card[name] - p_cpu[name]).abs()
+        clear = (gc.abs() > tol["grad"] * scale) & (gc.abs() * clip > 1e-5)
+        worst_p = max(worst_p, float(d[clear].max()) / lr0 if bool(clear.any()) else 0.0)
+        flips += int((d > 1e-3 * lr0).sum())
+        require(float(d.max()) <= 2 * lr0 * (1 + 1e-3) and
+                (not bool(clear.any()) or float(d[clear].max()) <= 1e-3 * lr0),
+                f"card vs cpu {r.label}: params after one step, {name}: max diff "
+                f"{float(d.max()):.3g} (lr {lr0:.3g})")
+    log(f"phase {phase}: card vs cpu {r.label}: loss {l_card:.6f} / {l_cpu:.6f} (rel "
+        f"{loss_err:.3g}); max grad err {worst_g:.3g} of a leaf's max |grad| (bound "
+        f"{tol['grad']}); params after one step within {worst_p:.3g} lr where the grad is "
+        f"clear, {flips} elements further (near-zero grads); card launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if r.drill:
+        _resume_drill(c, phase, r)
+
+
+def _resume_drill(c: Ctx, phase: int, r: TrainRun) -> None:
+    """4 steps checkpointed every 2 (async), then a fresh ``train`` call
+    resuming from the last checkpoint and its data cursor to 6, against 6
+    steps in one call: the same losses, params and moments, bit for bit,
+    on the card."""
+    torch, rt = c.torch, c.rt
+    cfg = train_cfg(rt, r)
+    acfg = rt.adam.AdamConfig(**TRAIN_ADAM, total_steps=6)
+    d = ROOT / "build" / "train_drill" / r.arch
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    kw = dict(adam_cfg=acfg, log_every=100, device=c.dev)
+    _, _, first = rt.train.train(cfg, steps=4, ckpt_dir=str(d), ckpt_every=2, resume=False, **kw)
+    p, o, rest = rt.train.train(cfg, steps=6, ckpt_dir=str(d), ckpt_every=2, **kw)
+    p6, o6, whole = rt.train.train(cfg, steps=6, **kw)
+    shutil.rmtree(d, ignore_errors=True)
+    require(first + rest == whole, f"resume drill {r.label}: losses {first + rest} against "
+            f"{whole}")
+    a = _named(p) + _named(o.mu, "/mu") + _named(o.nu, "/nu")
+    b = _named(p6) + _named(o6.mu, "/mu") + _named(o6.nu, "/nu")
+    differ = [n for (n, x), (_, y) in zip(a, b) if not torch.equal(x, y)]
+    require(not differ and torch.equal(o.step, o6.step),
+            f"resume drill {r.label}: leaves differ from the uninterrupted run: {differ}")
+    log(f"phase {phase}: resume drill {r.label}: 4 steps (checkpoints at 2 and 4), resumed to "
+        f"6: losses and all {len(a)} leaves of params, mu and nu bit-identical to 6 steps in "
+        f"one call ({time.perf_counter() - t0:.1f} s)")
+
+
+def train_card_vs_cpu_phase(phase: int):
+    def run(c: Ctx) -> None:
+        for r in CARD_VS_CPU_TRAIN_RUNS[phase]:
+            _timed(phase, r, lambda: _train_card_vs_cpu(c, phase, r))
+    return run
+
+
 # Shapes the kernels on eval_row.cuh are timed at, the first giving the
 # kernels line's ms: Table I's population, and the chunked path's 100-row
 # chunk for bench_eval, with phase 15's polish batches (the gradient probes
@@ -3372,6 +3873,7 @@ def kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
         log(f"timing pso_step at {tuple(r['shape'])}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     model_kernel_timings(c, rates)
+    grad_kernel_timings(c, rates)
 
 
 def _alternate(old, new, reps: int) -> tuple[float, float, list[float]]:
@@ -3433,7 +3935,7 @@ def model_kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
     old_out = torch.empty_like(q)
 
     def flash_cuda_cores():
-        b.launch("flash_attention", c.dev, q, k, v, old_out, BH, S, T, hd,
+        b.launch("flash_attention", c.dev, q, k, v, old_out, None, BH, S, T, hd,
                  fa.DTYPES[bf16], fa.scale_of(hd), int(causal), window, softcap)
 
     kf["ms"], kf["cuda_core_ms"], turns = _alternate(
@@ -3460,6 +3962,93 @@ def model_kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
             f"bound {k_['bound_ms']:.4f} ms ({k_['bound_by']}), "
             f"library {'none' if lib is None else f'{lib:.4f} ms'}")
     sass_counts(c)
+
+
+def _time_flash_bwd_case(c: Ctx, rates, gen, label: str, shape, dtype: str, mask) -> dict:
+    """flash_attention_bwd at one training case, S = T: the kernel (on the
+    forward kernel's output and row log-sum-exp), its plain version
+    (autograd of the plain forward), SDPA's backward where SDPA computes
+    the same function (causal, no window, no softcap) and the bound: q, k,
+    v, o, dO and the log-sum-exp read and dq, dk, dv written once; 10
+    operations per kept (query, key) pair per head dim (S and dP
+    recomputed, dV, dQ, dK) at the rate of the input's type."""
+    torch, fa, fb = c.torch, c.rt.flash_attention, c.rt.flash_attention_bwd
+    BH, S, hd = shape
+    window, softcap, causal = mask
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=c.dev).to(dt) for _ in range(4))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = fa.forward_with_lse(q, k, v, **kw)
+    ms = time_ms(lambda: fb.flash_attention_bwd(q, k, v, out, do, lse, **kw), reps=10)
+    plain = time_ms(lambda: fb.flash_attention_bwd_ref(q, k, v, do, **kw), reps=2, warmup=1)
+    lib = None
+    if window == 0 and softcap == 0.0 and causal:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        q4, k4, v4 = (t.view(1, BH, S, hd).clone().requires_grad_(True) for t in (q, k, v))
+        o4 = sdpa(q4, k4, v4, is_causal=True)
+        do4 = do.view(1, BH, S, hd)
+        lib = time_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True),
+                      reps=10)
+    size = dt.itemsize
+    nbytes = size * 8 * BH * S * hd + 4 * BH * S
+    nops = 10 * BH * _causal_pairs(S, window) * hd if causal else 10 * BH * S * S * hd
+    b_bytes, b_ops = nbytes / rates["bytes"], nops / rates[dtype]
+    row = {"label": label, "shape": list(shape), "dtype": dtype, "mask": list(mask), "ms": ms,
+           "plain_ms": plain, "library_ms": lib, "bound_ms": max(b_bytes, b_ops) * 1e3,
+           "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+    log(f"timing flash_attention_bwd {json.dumps(row)}")
+    return row
+
+
+def _time_ssd_bwd_case(c: Ctx, rates, gen, label: str, shape, N: int, H: int,
+                       dtype: str) -> dict:
+    """ssd_scan_bwd at one training case: the kernel, its plain version
+    (autograd of the plain recurrence) and the bound: x, dy, B and C (one
+    row per H heads), dt and A read and dx, dB, dC, ddt, dA written once;
+    8 BH S N P operations (the two recurrences and four contractions) at
+    the rate of the input's type. No library call computes it."""
+    torch, sb = c.torch, c.rt.ssd_scan_bwd
+    BH, S, P = shape
+    args = _ssd_inputs(c, gen, shape, N, H, dtype)
+    dy = torch.randn(shape, generator=gen, device=c.dev).to(args[0].dtype)
+    ms = time_ms(lambda: sb.ssd_scan_bwd(*args, dy), reps=10)
+    plain = time_ms(lambda: sb.ssd_scan_bwd_ref(*args, dy), reps=2, warmup=1)
+    size = args[0].dtype.itemsize
+    nbytes = size * (3 * BH * S * P + 4 * (BH // H) * S * N) + 4 * (2 * BH * S + 2 * BH)
+    nops = 8 * BH * S * N * P
+    b_bytes, b_ops = nbytes / rates["bytes"], nops / rates[dtype]
+    row = {"label": label, "shape": list(shape), "N": N, "heads": H, "dtype": dtype, "ms": ms,
+           "plain_ms": plain, "library_ms": None, "bound_ms": max(b_bytes, b_ops) * 1e3,
+           "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+    log(f"timing ssd_scan_bwd {json.dumps(row)}")
+    return row
+
+
+def grad_kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
+    """The backward kernels at every case the training phases launch them
+    at (``train_cases``); a kernel's own row takes phase 23's (llama3.2-1b
+    and mamba2-370m at 8 x 512, bf16)."""
+    gen = c.torch.Generator(device=c.dev).manual_seed(5)
+    flash, ssd = {}, {}
+    for r in _train_runs():
+        cases = train_cases(c.rt, r)
+        for case, _ in cases.get("flash_attention_bwd", ()):
+            flash.setdefault(case, r.label)
+        for case, _ in cases.get("ssd_scan_bwd", ()):
+            ssd.setdefault(case, r.label)
+    kf, ks = c.kern["flash_attention_bwd"], c.kern["ssd_scan_bwd"]
+    kf["shapes"] = [_time_flash_bwd_case(c, rates, gen, label, shape, dtype, mask)
+                    for (shape, _, dtype, mask), label in flash.items()]
+    ks["shapes"] = [_time_ssd_bwd_case(c, rates, gen, label, shape, N, H, dtype)
+                    for (shape, N, H, _, dtype), label in ssd.items()]
+    for name, k_ in (("flash_attention_bwd", kf), ("ssd_scan_bwd", ks)):
+        k_.update({key: k_["shapes"][0][key]
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        lib = k_["library_ms"]
+        log(f"timing {name} at {tuple(k_['shapes'][0]['shape'])} "
+            f"{k_['shapes'][0]['dtype']}: kernel {k_['ms']:.4f} ms, plain "
+            f"{k_['plain_ms']:.4f} ms, bound {k_['bound_ms']:.4f} ms ({k_['bound_by']}), "
+            f"library {'none' if lib is None else f'{lib:.4f} ms'}")
 
 
 def _timed_cases(rt) -> tuple[dict, dict]:
@@ -3604,7 +4193,7 @@ def ptxas_summary(entries: list[dict]) -> dict:
 # process runs the rest (1-5, 7-9, 16-18) and then, alone on the card, the
 # kernel timings. The second process takes half of torch's default CPU
 # threads for the CPU sides of its card-vs-CPU phases.
-SECOND_PROCESS_PHASES = frozenset({6, 10, 11, 12, 13, 14, 15, 19, 20, 21, 22})
+SECOND_PROCESS_PHASES = frozenset({6, 10, 11, 12, 13, 14, 15, 19, 20, 21, 22, 23, 24})
 # Seconds from the script's start after which the second process is killed
 # (the script's whole limit is 1,200).
 PART_TIMEOUT = 1100.0
@@ -3666,6 +4255,11 @@ def log_ptxas(c: Ctx, _build) -> None:
     for name in (*KERNELS, *TC_LIBRARY.values()):
         if name in ROW_KERNELS:
             continue
+        if name in GRADIENT_OF:
+            entries = ptxas_entries(_build.ptxas_report(name))
+            c.kern[name]["ptxas"] = entries
+            log(f"ptxas {name}: {json.dumps(entries)}")
+            continue
         if name.startswith("flash_attention"):
             # Every instance of both routes (the <256> ones among them):
             # registers, shared memory and spills.
@@ -3684,7 +4278,7 @@ def log_ptxas(c: Ctx, _build) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default=",".join(str(n) for n in range(1, 23)),
+    ap.add_argument("--phases", default=",".join(str(n) for n in range(1, 25)),
                     help="comma-separated phases to run (default: all)")
     # Internal: run as the second process, writing the record to this file.
     ap.add_argument("--part-out", default=None, help=argparse.SUPPRESS)
@@ -3730,6 +4324,8 @@ def main() -> int:
              **{n: card_vs_cpu_phase(n) for n in CARD_VS_CPU_RUNS},
              **{n: run_model_phase(n) for n in MODEL_RUNS},
              **{n: model_card_vs_cpu_phase(n) for n in CARD_VS_CPU_MODEL_RUNS},
+             **{n: run_train_phase(n) for n in TRAIN_RUNS},
+             **{n: train_card_vs_cpu_phase(n) for n in CARD_VS_CPU_TRAIN_RUNS},
              15: phase_hybrid, 16: phase_service, 17: phase_portfolio_async,
              18: phase_mesh}
     # The second process's phases run beside this process's.
@@ -3788,10 +4384,13 @@ def main() -> int:
     rows = []
     for name in KERNELS:
         k = c.kern[name]
+        replaces = (PALLAS_SITES[name] if name in PALLAS_SITES else
+                    f"{PALLAS_SITES[GRADIENT_OF[name]]} (its gradient; port-only, the JAX "
+                    "package has no backward kernel)")
         row = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{TC_LIBRARY.get(name, name)}.cu",
-            "replaces": PALLAS_SITES[name], "launches": k["launches"],
+            "replaces": replaces, "launches": k["launches"],
             "max_abs_err": k["max_abs_err"], "max_rel_err": k["max_rel_err"],
             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"),
             "bound_ms": k.get("bound_ms"), "bound_by": k.get("bound_by"),
@@ -3810,6 +4409,8 @@ def main() -> int:
                        ptxas=k.get("ptxas"))
         if name == "flash_attention":
             row.update(max_row_err=k.get("max_row_err"), planted_faults=k.get("planted_faults"))
+        if name in GRADIENT_OF:
+            row.update(shapes=k.get("shapes"), ptxas=k.get("ptxas"))
         rows.append(row)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     print(json.dumps({"kernels": rows}))

@@ -12,10 +12,11 @@ axis, ``(J·I, ...)`` (:func:`state_from_numpy`), and back
 (:func:`state_to_jax`). With these a test starts both engines from one
 state.
 
-For the model stack, :func:`params_from_numpy` and
-:func:`decode_state_from_numpy` carry a JAX parameter pytree or decode state
-(after ``jax.tree.map(np.asarray, ...)``) across leaf by leaf, dtype for
-dtype, so both packages run on identical weights.
+For the model stack, :func:`params_from_numpy`,
+:func:`decode_state_from_numpy` and :func:`opt_state_from_numpy` carry a
+JAX parameter pytree, decode state or Adam state (after
+``jax.tree.map(np.asarray, ...)``) across leaf by leaf, dtype for dtype, so
+both packages run on identical weights and moments.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 
 from repro_torch.functions.benchmarks import (FUNCTIONS, Function,
                                               make_shifted_rosenbrock, on_device)
+from repro_torch.optim.adam import AdamState
 
 STATE_KEYS = ("pop", "fit", "best_arg", "best_val")
 # Rank of each state key with the island axis.
@@ -125,3 +127,11 @@ def decode_state_from_numpy(d: dict[str, Any], device: str | torch.device) -> di
     on ``device``, ``pos`` as a host integer."""
     return {k: int(np.asarray(v)) if k == "pos" else _tensor(v, device)
             for k, v in d.items()}
+
+
+def opt_state_from_numpy(state: Any, device: str | torch.device):
+    """The reference's ``AdamState`` (``step``, ``mu``, ``nu``; numpy leaves)
+    -> ``repro_torch.optim.adam.AdamState`` on ``device``."""
+    return AdamState(step=_tensor(state.step, device),
+                     mu=params_from_numpy(state.mu, device),
+                     nu=params_from_numpy(state.nu, device))

@@ -40,11 +40,14 @@ SIGNATURES = {
     "ga_step": ("ga_step_launch",
                 (*(_P,) * 12, _I, _I, _I, *(_F,) * 6, _I, _I, _I, _I, _I, _P)),
     "flash_attention": ("flash_attention_launch",
-                        (*(_P,) * 4, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P)),
+                        (*(_P,) * 5, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P)),
     "ssd_scan": ("ssd_scan_launch", (*(_P,) * 6, *(_I,) * 6, _P)),
     "flash_attention_tc": ("flash_attention_tc_launch",
-                           (*(_P,) * 4, _I, _I, _I, _I, _F, _I, _I, _F, _P)),
+                           (*(_P,) * 5, _I, _I, _I, _I, _F, _I, _I, _F, _P)),
     "ssd_scan_tc": ("ssd_scan_tc_launch", (*(_P,) * 7, *(_I,) * 5, _P)),
+    "flash_attention_bwd": ("flash_attention_bwd_launch",
+                            (*(_P,) * 10, *(_I,) * 5, _F, _I, _I, _F, _P)),
+    "ssd_scan_bwd": ("ssd_scan_bwd_launch", (*(_P,) * 13, *(_I,) * 6, _P)),
 }
 
 _LOCK = threading.Lock()

@@ -14,6 +14,9 @@
 // The running max starts at -1e30 as in the Pallas kernel, so a row whose
 // first visited tile is all masked collects exp(0) = 1 terms there, and the
 // first tile that holds one of its keys multiplies them by exp(-1e30 - m) = 0.
+// Given a non-null `lse` (BH, S) float32, each row's log-sum-exp
+// m + log(max(l, 1e-30)) is written there for the backward kernel
+// (flash_attention_bwd.cu); with null nothing else changes.
 //
 // Bound: operations. Causal prefill does 4 * BH * S * T * hd / 2 flops on
 // (3 BH S hd + BH S hd) elements: at llama3.2-1b's batch 4 x 2048 (BH 128,
@@ -72,8 +75,8 @@ __device__ __forceinline__ int out_col(int tx, int j) {
 template <typename T, int HDP>
 __global__ void __launch_bounds__(kThreads, min_blocks<HDP>())
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int S, int Tk, int hd,
-             float scale, int causal, int window, float softcap) {
+             const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+             int S, int Tk, int hd, float scale, int causal, int window, float softcap) {
   constexpr int CPT = HDP / 16;   // output columns per thread
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);
@@ -212,6 +215,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + ty * 4 + i;
     if (r >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[static_cast<size_t>(bh) * S + r] = m[i] + logf(den);
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int col = out_col<HDP>(tx, j);
@@ -221,8 +225,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HDP>
-int launch(const void* q, const void* k, const void* v, void* o, int BH, int S,
-           int Tk, int hd, float scale, int causal, int window, float softcap,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+           int S, int Tk, int hd, float scale, int causal, int window, float softcap,
            cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<HDP>();
   // Above 48 KB of dynamic shared memory a kernel must opt in (per device).
@@ -233,36 +237,37 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH, int S,
   const dim3 grid((S + BM - 1) / BM, BH);
   flash_kernel<T, HDP><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, Tk, hd, scale, causal, window, softcap);
+      static_cast<T*>(o), lse, S, Tk, hd, scale, causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_hd(const void* q, const void* k, const void* v, void* o, int BH,
+int dispatch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
                 int S, int Tk, int hd, float scale, int causal, int window,
                 float softcap, cudaStream_t s) {
-  if (hd <= 32) return launch<T, 32>(q, k, v, o, BH, S, Tk, hd, scale, causal, window, softcap, s);
-  if (hd <= 64) return launch<T, 64>(q, k, v, o, BH, S, Tk, hd, scale, causal, window, softcap, s);
-  if (hd <= 128) return launch<T, 128>(q, k, v, o, BH, S, Tk, hd, scale, causal, window, softcap, s);
-  return launch<T, 256>(q, k, v, o, BH, S, Tk, hd, scale, causal, window, softcap, s);
+  if (hd <= 32) return launch<T, 32>(q, k, v, o, lse, BH, S, Tk, hd, scale, causal, window, softcap, s);
+  if (hd <= 64) return launch<T, 64>(q, k, v, o, lse, BH, S, Tk, hd, scale, causal, window, softcap, s);
+  if (hd <= 128) return launch<T, 128>(q, k, v, o, lse, BH, S, Tk, hd, scale, causal, window, softcap, s);
+  return launch<T, 256>(q, k, v, o, lse, BH, S, Tk, hd, scale, causal, window, softcap, s);
 }
 
 }  // namespace
 
 // q (BH, S, hd), k and v (BH, T, hd), out (BH, S, hd), all contiguous, of
-// type `dtype` (0 float32, 1 bfloat16); 1 <= hd <= 256. Launches on `stream`
-// and returns cudaGetLastError() (cudaErrorInvalidValue for a shape or type
-// the kernel does not take).
+// type `dtype` (0 float32, 1 bfloat16); 1 <= hd <= 256; lse (BH, S) float32
+// or null. Launches on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape or type the kernel does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* out, int BH, int S, int Tk, int hd,
+                                      void* out, float* lse, int BH, int S, int Tk, int hd,
                                       int dtype, float scale, int causal,
                                       int window, float softcap, void* stream) {
   if (hd < 1 || hd > 256 || Tk < 1 || BH > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (BH <= 0 || S <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_hd<float>(q, k, v, out, BH, S, Tk, hd, scale, causal, window, softcap, s);
+    return dispatch_hd<float>(q, k, v, out, lse, BH, S, Tk, hd, scale, causal, window, softcap, s);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, out, BH, S, Tk, hd, scale, causal, window, softcap, s);
+    return dispatch_hd<__nv_bfloat16>(q, k, v, out, lse, BH, S, Tk, hd, scale, causal, window,
+                                      softcap, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -34,6 +34,9 @@
 // their 14-bit fields. Key tiles wholly above a warpgroup's diagonal or outside its
 // window are skipped, per 64-row tile exactly as in flash_attention.cu;
 // tiles wholly inside every row's valid keys skip the mask arithmetic.
+// Given a non-null `lse` (BH, S) float32, each row's log-sum-exp
+// m + log(max(l, 1e-30)) (l summed in float32) is written there for the
+// backward kernel (flash_attention_bwd.cu); with null nothing else changes.
 #include <cstdint>
 
 #include "tc.cuh"
@@ -109,8 +112,9 @@ __device__ __forceinline__ void key_range(int q0, int Tk, int causal, int window
 template <int HDP>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, int S, int Tk, int hd,
-                float scale, int causal, int window, float softcap, int vec) {
+                const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                int S, int Tk, int hd, float scale, int causal, int window, float softcap,
+                int vec) {
   constexpr int NO = HDP / 2;     // output accumulator floats per thread
   constexpr int ST = kStages<HDP>;
   extern __shared__ __align__(128) uint8_t smem[];
@@ -266,6 +270,10 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   bf16* ob = o + static_cast<size_t>(bh) * S * hd;
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr && t == 0) {
+    if (r0 < S) lse[static_cast<size_t>(bh) * S + r0] = m0 + logf(d0);
+    if (r1 < S) lse[static_cast<size_t>(bh) * S + r1] = m1 + logf(d1);
+  }
 #pragma unroll
   for (int j = 0; j < NO / 4; ++j) {
 #pragma unroll
@@ -279,8 +287,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int HDP>
-int launch(const void* q, const void* k, const void* v, void* o, int BH, int S, int Tk,
-           int hd, float scale, int causal, int window, float softcap, int vec,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int S,
+           int Tk, int hd, float scale, int causal, int window, float softcap, int vec,
            cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HDP>();
   cudaError_t e = cudaFuncSetAttribute(flash_tc_kernel<HDP>,
@@ -289,7 +297,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH, int S, 
   const dim3 grid((S + kWG * BM - 1) / (kWG * BM), BH);
   flash_tc_kernel<HDP><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), S, Tk, hd, scale, causal, window, softcap, vec);
+      static_cast<bf16*>(o), lse, S, Tk, hd, scale, causal, window, softcap, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -298,19 +306,20 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 }  // namespace
 
 // q (BH, S, hd), k and v (BH, T, hd), out (BH, S, hd), all contiguous
-// bfloat16; 1 <= hd <= 256. Launches on `stream` and returns
-// cudaGetLastError() (cudaErrorInvalidValue for a shape it does not take).
+// bfloat16; 1 <= hd <= 256; lse (BH, S) float32 or null. Launches on
+// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for a shape
+// it does not take).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v,
-                                         void* out, int BH, int S, int Tk, int hd,
+                                         void* out, float* lse, int BH, int S, int Tk, int hd,
                                          float scale, int causal, int window,
                                          float softcap, void* stream) {
   if (hd < 1 || hd > 256 || Tk < 1 || BH > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (BH <= 0 || S <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = hd % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
-  if (hd <= 16) return launch<16>(q, k, v, out, BH, S, Tk, hd, scale, causal, window, softcap, vec, s);
-  if (hd <= 32) return launch<32>(q, k, v, out, BH, S, Tk, hd, scale, causal, window, softcap, vec, s);
-  if (hd <= 64) return launch<64>(q, k, v, out, BH, S, Tk, hd, scale, causal, window, softcap, vec, s);
-  if (hd <= 128) return launch<128>(q, k, v, out, BH, S, Tk, hd, scale, causal, window, softcap, vec, s);
-  return launch<256>(q, k, v, out, BH, S, Tk, hd, scale, causal, window, softcap, vec, s);
+  if (hd <= 16) return launch<16>(q, k, v, out, lse, BH, S, Tk, hd, scale, causal, window, softcap, vec, s);
+  if (hd <= 32) return launch<32>(q, k, v, out, lse, BH, S, Tk, hd, scale, causal, window, softcap, vec, s);
+  if (hd <= 64) return launch<64>(q, k, v, out, lse, BH, S, Tk, hd, scale, causal, window, softcap, vec, s);
+  if (hd <= 128) return launch<128>(q, k, v, out, lse, BH, S, Tk, hd, scale, causal, window, softcap, vec, s);
+  return launch<256>(q, k, v, out, lse, BH, S, Tk, hd, scale, causal, window, softcap, vec, s);
 }

@@ -10,6 +10,12 @@ kernel chosen by its type: bfloat16 to the tensor-core kernel in
 ``csrc/flash_attention_tc.cu`` (wgmma; P enters P V as bfloat16), float32
 to the CUDA-core kernel in ``csrc/flash_attention.cu``, whose float32
 arithmetic the float32 bound of 2e-6 needs.
+
+On the card the wrapper takes part in autograd: when grad is enabled and
+an input requires it, the forward kernel also writes each row's float32
+log-sum-exp, and the backward is the ``flash_attention_bwd`` kernel
+(``kernels/flash_attention_bwd.py``). Without grad nothing is saved. On
+the CPU the plain version is differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -52,12 +58,8 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     return torch.einsum("bst,bth->bsh", p, v.float()).to(q.dtype)
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """q ``(BH, S, hd)``; k, v ``(BH, T, hd)``, float32 or bfloat16.
-    Returns ``(BH, S, hd)`` in q's type."""
-    if not _build.on_card("flash_attention", q, dims=(3,)):
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
+def check_inputs(q, k, v) -> None:
+    """Raise ValueError unless the kernels take q, k, v on the card."""
     BH, S, hd = q.shape
     T = k.shape[1] if k.dim() == 3 else -1
     if q.dtype not in DTYPES:
@@ -65,20 +67,67 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     if not 1 <= hd <= MAX_HEAD_DIM or T < 1:
         raise ValueError(f"flash_attention: head dim {hd} (at most "
                          f"{MAX_HEAD_DIM}) and key length {T} (at least 1)")
-    dev = q.device
-    _build.check_inputs(dev, ("q", q, (BH, S, hd)), ("k", k, (BH, T, hd)),
+    _build.check_inputs(q.device, ("q", q, (BH, S, hd)), ("k", k, (BH, T, hd)),
                         ("v", v, (BH, T, hd)), dtype=q.dtype)
+
+
+def _launch(q, k, v, causal, window, softcap, lse):
+    """The forward kernel on checked inputs; each row's log-sum-exp into
+    ``lse`` ``(BH, S)`` float32 when it is given."""
+    BH, S, hd = q.shape
+    T = k.shape[1]
+    dev = q.device
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     mask = (int(bool(causal)), max(int(window), 0), float(softcap))
     global LAUNCHES, TC_LAUNCHES
     if q.dtype == torch.bfloat16:
-        _build.launch("flash_attention_tc", dev, q, k, v, out, BH, S, T, hd,
+        _build.launch("flash_attention_tc", dev, q, k, v, out, lse, BH, S, T, hd,
                       scale_of(hd), *mask)
         TC_LAUNCHES += 1
     else:
-        _build.launch("flash_attention", dev, q, k, v, out, BH, S, T, hd,
+        _build.launch("flash_attention", dev, q, k, v, out, lse, BH, S, T, hd,
                       DTYPES[q.dtype], scale_of(hd), *mask)
     LAUNCHES += 1
     return out
+
+
+def forward_with_lse(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """The forward kernel on CUDA tensors: (out, each row's float32
+    log-sum-exp ``(BH, S)``), the backward kernel's inputs."""
+    check_inputs(q, k, v)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, causal, window, softcap, lse), lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, keeping q, k, v, the output and its row
+    log-sum-exp; the backward kernel for the gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out, lse = forward_with_lse(q, k, v, causal=causal, window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        # Imported here: the backward module imports this one.
+        from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse, **ctx.mask)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """q ``(BH, S, hd)``; k, v ``(BH, T, hd)``, float32 or bfloat16.
+    Returns ``(BH, S, hd)`` in q's type, differentiable on every device."""
+    if not _build.on_card("flash_attention", q, dims=(3,)):
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+    check_inputs(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, softcap)
+    return _launch(q, k, v, causal, window, softcap, None)

@@ -16,6 +16,11 @@ bfloat16 to the chunked form on the tensor cores in ``csrc/ssd_scan_tc.cu``
 and chunk into float32 scratch), float32 to the recurrence on the CUDA
 cores in ``csrc/ssd_scan.cu``, whose float32 arithmetic the float32 bound
 of 1e-4 needs.
+
+On the card the wrapper takes part in autograd: when grad is enabled and
+an input requires it, the backward is the ``ssd_scan_bwd`` kernel
+(``kernels/ssd_scan_bwd.py``, head dims up to ``MAX_BWD_P``). On the CPU
+the plain version is differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ TC_LAUNCHES = 0
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 STATE_SIZES = (16, 32, 64, 128)   # N the kernels are built for
 TC_CHUNK = 64                      # steps per chunk of the tensor-core kernel
+MAX_BWD_P = 64                     # head dims the backward kernel takes
 
 
 def per_row(m: torch.Tensor, BH: int) -> torch.Tensor:
@@ -60,17 +66,9 @@ def ssd_ref(xh, dt, A, Bm, Cm):
     return torch.stack(ys, dim=1).to(xh.dtype)
 
 
-def ssd_scan(xh, dt, A, Bm, Cm, chunk=128):
-    """xh ``(BH, S, P)``; dt ``(BH, S)`` and A ``(BH,)`` float32; Bm, Cm
-    ``(BH, S, N)`` or ``(BH // H, S, N)``. S must be a multiple of
-    ``chunk``, as in the Pallas kernel. Returns y ``(BH, S, P)`` in xh's
-    type."""
+def check_inputs(xh, dt, A, Bm, Cm) -> None:
+    """Raise ValueError unless the kernels take these inputs on the card."""
     BH, S, P = xh.shape
-    if chunk < 1 or S % chunk:
-        raise ValueError(f"sequence length {S} is not a multiple of the chunk "
-                         f"{chunk}: pad the sequence to the chunk size")
-    if not _build.on_card("ssd_scan", xh, dims=(3,)):
-        return ssd_ref(xh, dt, A, Bm, Cm)
     if xh.dtype not in DTYPES:
         raise ValueError(f"ssd_scan takes {list(DTYPES)}, got {xh.dtype}")
     R, N = Bm.shape[0], Bm.shape[-1]
@@ -81,6 +79,13 @@ def ssd_scan(xh, dt, A, Bm, Cm, chunk=128):
     _build.check_inputs(dev, ("xh", xh, (BH, S, P)), ("Bm", Bm, (R, S, N)),
                         ("Cm", Cm, (R, S, N)), dtype=xh.dtype)
     _build.check_inputs(dev, ("dt", dt, (BH, S)), ("A", A, (BH,)))
+
+
+def _launch(xh, dt, A, Bm, Cm):
+    """The forward kernel on checked inputs."""
+    BH, S, P = xh.shape
+    R, N = Bm.shape[0], Bm.shape[-1]
+    dev = xh.device
     y = torch.empty_like(xh)
     if y.numel() == 0:
         return y
@@ -96,3 +101,41 @@ def ssd_scan(xh, dt, A, Bm, Cm, chunk=128):
                       DTYPES[xh.dtype])
     LAUNCHES += 1
     return y
+
+
+class _SsdScan(torch.autograd.Function):
+    """The forward kernel, keeping its inputs; the backward kernel for the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, A, Bm, Cm):
+        ctx.save_for_backward(xh, dt, A, Bm, Cm)
+        return _launch(xh, dt, A, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # Imported here: the backward module imports this one.
+        from repro_torch.kernels.ssd_scan_bwd import ssd_scan_bwd
+        return ssd_scan_bwd(*ctx.saved_tensors, dy.contiguous())
+
+
+def ssd_scan(xh, dt, A, Bm, Cm, chunk=128):
+    """xh ``(BH, S, P)``; dt ``(BH, S)`` and A ``(BH,)`` float32; Bm, Cm
+    ``(BH, S, N)`` or ``(BH // H, S, N)``. S must be a multiple of
+    ``chunk``, as in the Pallas kernel. Returns y ``(BH, S, P)`` in xh's
+    type, differentiable on every device (on the card for P up to
+    ``MAX_BWD_P``)."""
+    BH, S, P = xh.shape
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the chunk "
+                         f"{chunk}: pad the sequence to the chunk size")
+    if not _build.on_card("ssd_scan", xh, dims=(3,)):
+        return ssd_ref(xh, dt, A, Bm, Cm)
+    check_inputs(xh, dt, A, Bm, Cm)
+    ins = (xh, dt, A, Bm, Cm)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        if P > MAX_BWD_P:
+            raise ValueError(f"ssd_scan: the backward kernel takes head dims up to "
+                             f"{MAX_BWD_P}, got {P}")
+        return _SsdScan.apply(*ins)
+    return _launch(*ins)

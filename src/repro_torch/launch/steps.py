@@ -1,8 +1,9 @@
-"""Step functions: prefill and decode, as the serving loop calls them.
+"""Step functions: train, prefill and decode, as the trainer and the
+serving loop call them.
 
-Counterpart of ``repro.launch.steps`` (the training step comes with the
-training slice). Each is a plain function of (params, [state], batch); PyTorch runs
-eagerly, so there is nothing to compile.
+Counterpart of ``repro.launch.steps``. Each is a plain function of
+(params, [opt_state | state], batch); PyTorch runs eagerly, so there is
+nothing to compile.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
-from repro_torch.models.transformer import decode_step, prefill, tree_map
+from repro_torch.models.transformer import decode_step, loss_fn, prefill, tree_map
+from repro_torch.optim import adam
 
 PyTree = Any
 
@@ -25,6 +27,41 @@ def _cast_params(params: PyTree, cfg: ModelConfig) -> PyTree:
     return tree_map(
         lambda p: p.to(cd) if p.dtype == torch.float32 and p.dim() >= 2 else p,
         params)
+
+
+def loss_and_grads(params: PyTree, cfg: ModelConfig, batch: PyTree):
+    """(loss, metrics, grads): the loss of the compute-type copies of the
+    float32 masters (``_cast_params``) and its gradient back to the masters
+    by autograd, a tree like ``params`` (zeros for a leaf the loss does not
+    reach, as the reference's ``value_and_grad`` gives)."""
+    params = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, metrics = loss_fn(_cast_params(params, cfg), cfg, batch)
+    leaves = adam.tree_leaves(params)
+    got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    by_leaf = {id(p): torch.zeros_like(p) if g is None else g for p, g in zip(leaves, got)}
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_map(lambda p: by_leaf[id(p)], params))
+
+
+def make_train_step(cfg: ModelConfig, adam_cfg: adam.AdamConfig | None = None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: :func:`loss_and_grads`, one Adam update
+    (``optim.adam.update``, clipping included) and the metrics ``ce``,
+    ``aux``, ``loss`` and ``grad_norm`` (the square root of the float32 sum
+    of squares over every leaf, before clipping). Like the reference it
+    returns new params and state: the update holds the old and the new
+    params, mu and nu at once (at llama3.2-1b, float32, about 15 GB of
+    them)."""
+    acfg = adam_cfg or adam.AdamConfig()
+
+    def train_step(params: PyTree, opt_state: adam.AdamState, batch: PyTree):
+        loss, metrics, grads = loss_and_grads(params, cfg, batch)
+        new_params, new_opt = adam.update(grads, opt_state, params, acfg)
+        gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                            for g in adam.tree_leaves(grads)))
+        return new_params, new_opt, {**metrics, "loss": loss, "grad_norm": gn}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):

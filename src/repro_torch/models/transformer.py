@@ -1,4 +1,4 @@
-"""Model assembly: parameter init, forward (prefill), decode step.
+"""Model assembly: parameter init, forward (train/prefill), loss, decode step.
 
 Counterpart of ``repro.models.transformer`` for the ``attn`` (llama-style
 dense GQA, gemma's and gemma2's variants, MoE layers) and ``ssm`` (Mamba2)
@@ -8,8 +8,12 @@ attention block), with the ``vlm_stub`` (patch embeddings in front of the
 tokens) and ``audio_stub`` (frame embeddings in place of them) frontends.
 Parameters keep the JAX package's keys, its stacked leading layer axis
 and ``cfg.param_dtype``; the layer ``scan`` is a Python loop over that
-axis. ``loss_fn`` (training) raises NotImplementedError: a later slice of
-the model stack ports it.
+axis. ``loss_fn`` is the reference's next-token cross-entropy in
+``ce_chunks`` sequence chunks, each chunk's head and CE recomputed in the
+backward (``torch.utils.checkpoint``, as ``jax.checkpoint`` there); with
+``cfg.remat`` and a parameter that requires grad, ``forward_hidden``
+recomputes each group of ``remat_group`` layers (the hybrid: each SSM group
+with its shared-attention application) in the backward too.
 
 Decode caches are preallocated; ``decode_step`` writes them in place and
 keeps the cache position ``pos`` as a host integer, so no step reads the
@@ -21,6 +25,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
 from repro_torch.models import layers as L
@@ -201,26 +206,81 @@ def logits_from_hidden(params: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
     return _head_logits(params, cfg, L.rmsnorm(x, params["final_norm"], cfg.norm_eps))
 
 
-def forward_hidden(params: Params, cfg: ModelConfig,
-                   tokens: Tensor | None = None,
-                   embeds: Tensor | None = None) -> tuple[Tensor, Tensor]:
-    """Backbone forward -> (final-normed hidden (B, S, D), aux_loss): the
-    MoE layers' aux losses summed in layer order (0 without MoE)."""
-    check_supported(cfg)
-    x = embed_inputs(params, cfg, tokens, embeds)
-    positions = torch.arange(x.shape[1], device=x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+def _unstacked(layers: Params) -> list[Params]:
+    """The stacked layer leaves as one dict of views per layer, by one
+    ``unbind`` a leaf: its backward stacks the layers' gradients once,
+    where indexing each layer out of the stack would add a whole stack of
+    zeros but one slice into the leaf's gradient for every layer."""
+    per_leaf = tree_map(lambda v: v.unbind(0), layers)
+    n = len(tree_leaves(per_leaf)[0])
+    return [tree_map(lambda views: views[i], per_leaf) for i in range(n)]
+
+
+def _layer_span(layers: list[Params], shared: Params | None, cfg: ModelConfig, x: Tensor,
+                aux: Tensor, positions: Tensor, lo: int, hi: int) -> tuple[Tensor, Tensor]:
+    """Layers ``lo..hi-1`` of ``layers`` (in the hybrid each followed by its
+    application of the ``shared`` attention block, if any) -> (x, aux plus
+    their MoE aux losses, added in layer order)."""
+    for i in range(lo, hi):
+        lp = layers[i]
         if cfg.block_pattern == "attn":
             x, a, _ = _attn_block(lp, x, cfg, i, positions)
         else:
             x, a = _ssm_layer(lp, x, cfg), None
             g = _shared_app(cfg, i)
             if g is not None:
-                x, a, _ = _attn_block(params["shared_attn"], x, cfg, g, positions)
+                x, a, _ = _attn_block(shared, x, cfg, g, positions)
         if a is not None:
             aux = aux + a
+    return x, aux
+
+
+def remat_spans(cfg: ModelConfig) -> list[tuple[int, int]]:
+    """The layer spans ``(lo, hi)`` the backward recomputes, one checkpoint
+    each, as the reference groups them (``_scan_layer_blocks``,
+    ``forward_hidden``): ``remat_group`` layers at a time when it divides
+    the layer count, else one; the hybrid's groups of ``shared_attn_every``
+    SSM layers each with its shared attention application, then its tail
+    grouped as the plain stacks are."""
+    def grouped(lo: int, n: int) -> list[tuple[int, int]]:
+        G = cfg.remat_group if cfg.remat_group > 0 and n % cfg.remat_group == 0 else 1
+        return [(i, i + G) for i in range(lo, lo + n, G)]
+
+    if cfg.block_pattern != "ssm+shared_attn":
+        return grouped(0, cfg.n_layers)
+    every = cfg.shared_attn_every
+    n_groups = cfg.n_layers // every
+    return ([(g * every, (g + 1) * every) for g in range(n_groups)]
+            + grouped(n_groups * every, cfg.n_layers - n_groups * every))
+
+
+def _trains(params: Params) -> bool:
+    """Whether this forward records a graph for parameter gradients."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tree_leaves(params))
+
+
+def forward_hidden(params: Params, cfg: ModelConfig,
+                   tokens: Tensor | None = None,
+                   embeds: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """Backbone forward -> (final-normed hidden (B, S, D), aux_loss): the
+    MoE layers' aux losses summed in layer order (0 without MoE). With
+    ``cfg.remat`` and a graph to record, each span of :func:`remat_spans`
+    is a non-reentrant checkpoint: only its input is kept, and the
+    backward runs it again (the kernels' forwards among it). The
+    reference's ``_grad_safe_barrier`` only keeps XLA from hoisting casts
+    of the stash out of its backward loop; eager PyTorch schedules nothing,
+    so it has no counterpart."""
+    check_supported(cfg)
+    x = embed_inputs(params, cfg, tokens, embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers, shared = _unstacked(params["layers"]), params.get("shared_attn")
+    if cfg.remat and _trains(params):
+        for lo, hi in remat_spans(cfg):
+            x, aux = checkpoint(_layer_span, layers, shared, cfg, x, aux, positions, lo, hi,
+                                use_reentrant=False)
+    else:
+        x, aux = _layer_span(layers, shared, cfg, x, aux, positions, 0, cfg.n_layers)
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -231,9 +291,52 @@ def forward(params: Params, cfg: ModelConfig, tokens: Tensor | None = None,
     return _head_logits(params, cfg, x), aux
 
 
+def _ce_from_logits(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
+    """(summed CE over the positions whose label is >= 0, their count)."""
+    mask = (labels >= 0).float()
+    safe = labels.long().clamp_min(0)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return torch.sum((lse - ll) * mask), torch.sum(mask)
+
+
+def _chunk_ce(params: Params, cfg: ModelConfig, xs: Tensor, ls: Tensor):
+    return _ce_from_logits(_head_logits(params, cfg, xs), ls)
+
+
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict[str, Tensor]):
-    raise NotImplementedError("training (loss_fn) is ported in a later slice of "
-                              "the model stack")
+    """Next-token cross-entropy; label -100 positions are masked. Returns
+    (ce + aux, {"ce", "aux"}).
+
+    The loss is computed in ``ce_chunks`` sequence chunks, so that the
+    float32 logits never exist beyond (B, S / chunks, V): at llama3.2-1b's
+    vocab of 128,256 and 8 x 512 tokens the whole tensor would be 2.1 GB, a
+    chunk's is 263 MB. When a parameter requires grad (the rule of
+    :func:`forward_hidden`), each chunk's head and CE is a non-reentrant
+    checkpoint, so the backward recomputes its logits instead of keeping
+    them. Chunk sums are added in order, as the reference's scan adds
+    them."""
+    labels = batch["labels"]
+    n_chunks = cfg.ce_chunks if labels.shape[1] % max(cfg.ce_chunks, 1) == 0 else 1
+    if n_chunks <= 1:
+        logits, aux = forward(params, cfg, tokens=batch.get("tokens"),
+                              embeds=batch.get("embeds"))
+        tot, cnt = _ce_from_logits(logits, labels)
+    else:
+        x, aux = forward_hidden(params, cfg, tokens=batch.get("tokens"),
+                                embeds=batch.get("embeds"))
+        C = x.shape[1] // n_chunks
+        tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        trains = _trains(params)
+        for c in range(n_chunks):
+            xs, ls = x[:, c * C:(c + 1) * C], labels[:, c * C:(c + 1) * C]
+            if trains:
+                t, n = checkpoint(_chunk_ce, params, cfg, xs, ls, use_reentrant=False)
+            else:
+                t, n = _chunk_ce(params, cfg, xs, ls)
+            tot, cnt = tot + t, cnt + n
+    ce = tot / torch.clamp_min(cnt, 1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -302,10 +302,15 @@ def test_convert_keeps_bfloat16_leaves():
 
 
 def test_training_and_other_archs_are_not_ported_yet():
-    """Training raises; every arch of the JAX package is ported, so only a
-    name neither package knows raises KeyError."""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TT.loss_fn({}, get_config("llama3.2-1b"), {})
+    """Training is ported (``tests/test_torch_train.py`` holds it against
+    the reference): ``loss_fn`` gives a finite loss with its ``ce`` and
+    ``aux``. Every arch of the JAX package is ported, so only a name
+    neither package knows raises KeyError."""
+    cfg = get_config("llama3.2-1b").reduced()
+    _, tokens = _tokens(cfg, 2, cfg.seq_len)
+    loss, metrics = TT.loss_fn(TT.init_params(prng.PRNGKey(0), cfg), cfg,
+                               {"tokens": tokens, "labels": tokens})
+    assert bool(torch.isfinite(loss)) and sorted(metrics) == ["aux", "ce"]
     with pytest.raises(KeyError):
         get_config("llama5")
 

@@ -97,7 +97,7 @@ def main() -> int:
     calls = {"kernel": lambda: fa.flash_attention(q, k, v, causal=True)}
     for name, fn in fns.items():
         calls[name] = (lambda fn=fn: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                        BH, S, S, hd, fa.scale_of(hd), 1, 0, 0.0, stream))
+                                        None, BH, S, S, hd, fa.scale_of(hd), 1, 0, 0.0, stream))
     ms = {name: [] for name in calls}
     for order in (list(calls), list(calls)[::-1]):
         for name in order:
