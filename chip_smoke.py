@@ -784,9 +784,13 @@ GRADIENT_OF = {"flash_attention_bwd": "flash_attention", "ssd_scan_bwd": "ssd_sc
 KERNELS = (*PALLAS_SITES, *GRADIENT_OF)
 POP_KERNELS = KERNELS[:5]      # the population kernels of phases 1-9
 # The kernels whose bfloat16 route runs on the tensor cores: the library it
-# builds, and the tensor-core instructions that library's SASS must hold.
-TC_LIBRARY = {"flash_attention": "flash_attention_tc", "ssd_scan": "ssd_scan_tc"}
-TC_OPCODES = {"flash_attention": ("HGMMA",), "ssd_scan": ("HGMMA", "HMMA")}
+# builds, and the tensor-core instructions that library's SASS must hold
+# (the flash kernels wgmma, HGMMA; the SSD kernels HGMMA or HMMA).
+TC_LIBRARY = {"flash_attention": "flash_attention_tc", "ssd_scan": "ssd_scan_tc",
+              "flash_attention_bwd": "flash_attention_bwd_tc",
+              "ssd_scan_bwd": "ssd_scan_bwd_tc"}
+TC_OPCODES = {"flash_attention": ("HGMMA",), "ssd_scan": ("HGMMA", "HMMA"),
+              "flash_attention_bwd": ("HGMMA",), "ssd_scan_bwd": ("HGMMA", "HMMA")}
 
 
 class PhaseFailed(Exception):
@@ -3420,11 +3424,16 @@ def _flash_grad_check(c: Ctx, gen, shape, dtype: str, mask) -> float:
     window, softcap, causal = mask
     kw = dict(causal=causal, window=window, softcap=softcap)
     ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    tc0 = fb.TC_LAUNCHES
     out = fa.flash_attention(*ins, **kw)
     got = torch.autograd.grad(out, ins, do, retain_graph=True)
     again = torch.autograd.grad(out, ins, do)
     want = fb.flash_attention_bwd_ref(q, k, v, do, **kw)
     c.sync()
+    route = 2 * int(fb.uses_tensor_cores(dt, shape[-1]))
+    require(fb.TC_LAUNCHES - tc0 == route,
+            f"flash_attention_bwd {shape} {dtype}: {fb.TC_LAUNCHES - tc0} tensor-core "
+            f"launches of 2, expected {route}")
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             f"flash_attention_bwd {shape} {dtype} {mask}: two backwards differ")
     err = _grad_err(c, "flash_attention_bwd", got, want)
@@ -3441,11 +3450,16 @@ def _ssd_grad_check(c: Ctx, gen, shape, N: int, H: int, chunk: int, dtype: str) 
     args = _ssd_inputs(c, gen, shape, N, H, dtype)
     dy = torch.randn(shape, generator=gen, device=c.dev).to(args[0].dtype)
     ins = [t.clone().requires_grad_(True) for t in args]
+    tc0 = sb.TC_LAUNCHES
     y = ss.ssd_scan(*ins, chunk=chunk)
     got = torch.autograd.grad(y, ins, dy, retain_graph=True)
     again = torch.autograd.grad(y, ins, dy)
     want = sb.ssd_scan_bwd_ref(*args, dy)
     c.sync()
+    route = 2 * int(dtype == "bfloat16")
+    require(sb.TC_LAUNCHES - tc0 == route,
+            f"ssd_scan_bwd {shape} {dtype}: {sb.TC_LAUNCHES - tc0} tensor-core launches of "
+            f"2, expected {route}")
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             f"ssd_scan_bwd {shape} N {N} H {H} {dtype}: two backwards differ")
     err = _grad_err(c, "ssd_scan_bwd", got, want)
@@ -3458,7 +3472,9 @@ def check_grad_kernels(c: Ctx) -> None:
     """flash_attention_bwd and ssd_scan_bwd against autograd of their plain
     versions on the card: every case the training phases launch (from the
     run tables), gemma2's window with softcap at head dim 256, a
-    non-causal case and an odd SSD scan, each in float32 and bfloat16."""
+    non-causal case and an odd SSD scan, each in float32 and bfloat16, and
+    each on its route (``TC_LAUNCHES``: bf16 on the tensor cores, flash at
+    head dims up to 128)."""
     gen = c.torch.Generator(device=c.dev).manual_seed(13)
     flash, ssd = set(), set()
     for r in _train_runs():
@@ -3482,10 +3498,11 @@ def check_grad_kernels(c: Ctx) -> None:
                                         _ssd_grad_check(c, gen, shape, N, H, chunk, dtype))
     log(f"phase 1: flash_attention_bwd at the training cases {sorted(flash)} and "
         f"{list(FLASH_GRAD_EXTRA)} x 2 types: max err {worst['flash_attention_bwd']:.3g} of max "
-        f"|grad| (bounds {GRAD_TOL}), every case the same bits twice")
+        f"|grad| (bounds {GRAD_TOL}), every case the same bits twice on its route (bf16 at hd "
+        f"<= {c.rt.flash_attention_bwd.TC_MAX_HEAD_DIM} on the tensor cores)")
     log(f"phase 1: ssd_scan_bwd at the training cases {sorted(ssd)} and {list(SSD_GRAD_EXTRA)} "
         f"x 2 types: max err {worst['ssd_scan_bwd']:.3g} of max |grad| (bounds {GRAD_TOL}), "
-        "every case the same bits twice")
+        "every case the same bits twice on its route (bf16 on the tensor cores)")
 
 
 def _named(tree, pre=""):
@@ -3888,7 +3905,8 @@ def _alternate(old, new, reps: int) -> tuple[float, float, list[float]]:
 def sass_counts(c: Ctx) -> None:
     """Count the tensor-core instructions in the SASS of each redesigned
     kernel's library (cuobjdump -sass); fail if the tool is missing, if
-    flash attention has no HGMMA or the SSD scan no HGMMA or HMMA."""
+    flash attention or its gradient has no HGMMA or the SSD scan or its
+    gradient no HGMMA or HMMA."""
     b = c.rt._build
     try:
         tool = b.cuda_tool("cuobjdump")
@@ -3902,7 +3920,7 @@ def sass_counts(c: Ctx) -> None:
         counts = {op: len(re.findall(rf"\b{op}\.", sass.stdout)) for op in ops}
         c.kern[name]["sass"] = counts
         log(f"sass {lib.name}: {counts}")
-        need = counts["HGMMA"] if name == "flash_attention" else sum(counts.values())
+        need = counts["HGMMA"] if name.startswith("flash_attention") else sum(counts.values())
         require(need > 0, f"{lib.name}: no tensor-core instruction ({counts}) in its SASS")
 
 
@@ -4027,8 +4045,13 @@ def _time_ssd_bwd_case(c: Ctx, rates, gen, label: str, shape, N: int, H: int,
 def grad_kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
     """The backward kernels at every case the training phases launch them
     at (``train_cases``); a kernel's own row takes phase 23's (llama3.2-1b
-    and mamba2-370m at 8 x 512, bf16)."""
-    gen = c.torch.Generator(device=c.dev).manual_seed(5)
+    and mamba2-370m at 8 x 512, bf16), where the tensor-core kernel is also
+    timed in turns with the CUDA-core design through its C entry at bf16
+    (old, new, new, old) on the same inputs."""
+    torch, rt, b = c.torch, c.rt, c.rt._build
+    fa, fb, sb = rt.flash_attention, rt.flash_attention_bwd, rt.ssd_scan_bwd
+    gen = torch.Generator(device=c.dev).manual_seed(5)
+    bf16 = torch.bfloat16
     flash, ssd = {}, {}
     for r in _train_runs():
         cases = train_cases(c.rt, r)
@@ -4041,13 +4064,51 @@ def grad_kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
                     for (shape, _, dtype, mask), label in flash.items()]
     ks["shapes"] = [_time_ssd_bwd_case(c, rates, gen, label, shape, N, H, dtype)
                     for (shape, N, H, _, dtype), label in ssd.items()]
-    for name, k_ in (("flash_attention_bwd", kf), ("ssd_scan_bwd", ks)):
+    for k_ in (kf, ks):
         k_.update({key: k_["shapes"][0][key]
                    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+
+    (shape, _, dtype, (window, softcap, causal)) = next(iter(flash))
+    require(dtype == "bfloat16", f"phase 23's flash case is {dtype}, not bfloat16")
+    BH, S, hd = shape
+    q, k, v, do = (torch.randn(shape, generator=gen, device=c.dev).to(bf16) for _ in range(4))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = fa.forward_with_lse(q, k, v, **kw)
+    old = [torch.empty_like(t) for t in (q, k, v)]
+    D = torch.empty((BH, S), dtype=torch.float32, device=c.dev)
+
+    def flash_cuda_cores():
+        b.launch("flash_attention_bwd", c.dev, q, k, v, out, do, lse, D, *old, BH, S, S, hd,
+                 fa.DTYPES[bf16], fa.scale_of(hd), int(causal), window, softcap)
+
+    kf["ms"], kf["cuda_core_ms"], turns = _alternate(
+        flash_cuda_cores, lambda: fb.flash_attention_bwd(q, k, v, out, do, lse, **kw), reps=10)
+    log(f"timing flash_attention_bwd CUDA-core design / tensor-core / tensor-core / CUDA-core: "
+        f"{turns}")
+    del q, k, v, do, out, lse, old, D
+
+    (shape, N, H, _, dtype) = next(iter(ssd))
+    require(dtype == "bfloat16", f"phase 23's ssd case is {dtype}, not bfloat16")
+    BH, S, P = shape
+    args = _ssd_inputs(c, gen, shape, N, H, dtype)
+    dy = torch.randn(shape, generator=gen, device=c.dev).to(bf16)
+    old = [torch.empty_like(t) for t in args]
+    part = torch.empty((2, BH, S, N), dtype=torch.float32, device=c.dev)
+
+    def ssd_cuda_cores():
+        b.launch("ssd_scan_bwd", c.dev, *args, dy, *old[:3], part[0], part[1], *old[3:],
+                 BH, S, P, N, H, rt.ssd_scan.DTYPES[bf16])
+
+    ks["ms"], ks["cuda_core_ms"], turns = _alternate(
+        ssd_cuda_cores, lambda: sb.ssd_scan_bwd(*args, dy), reps=10)
+    log(f"timing ssd_scan_bwd CUDA-core design / tensor-core / tensor-core / CUDA-core: {turns}")
+    del args, dy, old, part
+    for name, k_ in (("flash_attention_bwd", kf), ("ssd_scan_bwd", ks)):
         lib = k_["library_ms"]
         log(f"timing {name} at {tuple(k_['shapes'][0]['shape'])} "
-            f"{k_['shapes'][0]['dtype']}: kernel {k_['ms']:.4f} ms, plain "
-            f"{k_['plain_ms']:.4f} ms, bound {k_['bound_ms']:.4f} ms ({k_['bound_by']}), "
+            f"{k_['shapes'][0]['dtype']}: kernel {k_['ms']:.4f} ms, CUDA-core design "
+            f"{k_['cuda_core_ms']:.4f} ms, plain {k_['plain_ms']:.4f} ms, bound "
+            f"{k_['bound_ms']:.4f} ms ({k_['bound_by']}), "
             f"library {'none' if lib is None else f'{lib:.4f} ms'}")
 
 
@@ -4134,7 +4195,7 @@ ROW_KERNELS = ("bench_eval", "de_step", "ga_step", "eval_select")
 
 def _demangled(sym: str) -> str:
     """``kernel<1,2,...>`` from an Itanium-mangled kernel template taking
-    int arguments (the last name of ``_ZN...``), else ``sym``."""
+    int and bool arguments (the last name of ``_ZN...``), else ``sym``."""
     if not sym.startswith("_ZN"):
         return sym
     i, name = 3, sym
@@ -4146,7 +4207,8 @@ def _demangled(sym: str) -> str:
         name, i = sym[j:j + n], j + n
     if sym[i:i + 1] != "I":
         return name
-    args = re.findall(r"Li(\d+)E", sym[i:sym.find("EE", i) + 1])
+    args = [v if t == "i" else ("true" if v == "1" else "false")
+            for t, v in re.findall(r"L([ib])(\d+)E", sym[i:sym.find("EE", i) + 1])]
     return f"{name}<{','.join(args)}>"
 
 
@@ -4249,15 +4311,20 @@ class SecondProcess:
         return part["ok"]
 
 
+# The backward kernels' tensor-core libraries, by the kernel they serve.
+TC_GRADIENT = {TC_LIBRARY[k]: k for k in GRADIENT_OF}
+
+
 def log_ptxas(c: Ctx, _build) -> None:
     """The compiler's registers, shared memory and spills of every built
     library, logged and kept for the kernels line."""
     for name in (*KERNELS, *TC_LIBRARY.values()):
         if name in ROW_KERNELS:
             continue
-        if name in GRADIENT_OF:
+        if name in GRADIENT_OF or name in TC_GRADIENT:
+            # Both routes of a backward kernel, under the kernel's name.
             entries = ptxas_entries(_build.ptxas_report(name))
-            c.kern[name]["ptxas"] = entries
+            c.kern[TC_GRADIENT.get(name, name)].setdefault("ptxas", {})[name] = entries
             log(f"ptxas {name}: {json.dumps(entries)}")
             continue
         if name.startswith("flash_attention"):

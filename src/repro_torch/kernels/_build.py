@@ -48,6 +48,9 @@ SIGNATURES = {
     "flash_attention_bwd": ("flash_attention_bwd_launch",
                             (*(_P,) * 10, *(_I,) * 5, _F, _I, _I, _F, _P)),
     "ssd_scan_bwd": ("ssd_scan_bwd_launch", (*(_P,) * 13, *(_I,) * 6, _P)),
+    "flash_attention_bwd_tc": ("flash_attention_bwd_tc_launch",
+                               (*(_P,) * 10, *(_I,) * 4, _F, _I, _I, _F, _P)),
+    "ssd_scan_bwd_tc": ("ssd_scan_bwd_tc_launch", (*(_P,) * 15, *(_I,) * 6, _P)),
 }
 
 _LOCK = threading.Lock()

@@ -1,17 +1,30 @@
 """The gradient of streaming-softmax attention: the ``flash_attention_bwd``
-CUDA kernel and its plain version.
+CUDA kernels and their plain version.
 
 The JAX package has no backward kernel (its training path differentiates
 jnp attention); the port's models send attention through the
-``flash_attention`` kernel, whose gradient on the card is this kernel
-(``csrc/flash_attention_bwd.cu``): from q, k, v, the forward's output and
-row log-sum-exp, and the output's gradient, it returns dq, dk, dv in q's
-type, computed in float32 with the forward's causal, window and softcap
-masks, without atomics (two runs give the same bits). The plain version is
-autograd of :func:`repro_torch.kernels.flash_attention.flash_attention_ref`,
-as ``jax.grad`` of ``repro.kernels.ref.flash_attention_ref`` is the
-reference's. ``flash_attention``'s autograd function calls
-:func:`flash_attention_bwd`; a CPU tensor goes to the plain version.
+``flash_attention`` kernel, whose gradient on the card is a kernel too: from
+q, k, v, the forward's output and row log-sum-exp, and the output's
+gradient, it returns dq, dk, dv in q's type with the forward's causal,
+window and softcap masks, without atomics (two runs give the same bits).
+A CPU tensor goes to the plain version, autograd of
+:func:`repro_torch.kernels.flash_attention.flash_attention_ref`, as
+``jax.grad`` of ``repro.kernels.ref.flash_attention_ref`` is the
+reference's. A CUDA tensor goes to a kernel by this rule:
+
+- bfloat16 at head dims up to ``TC_MAX_HEAD_DIM`` (128): the tensor-core
+  kernel in ``csrc/flash_attention_bwd_tc.cu`` (wgmma; P and dS enter
+  their products as bfloat16, every sum in float32), counted in
+  ``TC_LAUNCHES``;
+- bfloat16 at head dims 129-256: the CUDA-core kernel in
+  ``csrc/flash_attention_bwd.cu`` (float32 arithmetic), since dK and dV of
+  a 64-key tile at m64n256 would need 256 accumulator registers a thread;
+- float32: the same CUDA-core kernel, whose float32 arithmetic the float32
+  bound of 1e-4 needs.
+
+A launch that fails raises; nothing falls back to another kernel or to the
+plain version. ``flash_attention``'s autograd function calls
+:func:`flash_attention_bwd`.
 """
 from __future__ import annotations
 
@@ -21,8 +34,19 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (DTYPES, check_inputs,
                                                  flash_attention_ref, scale_of)
 
-# Kernel launches in this process (plain-version calls are not counted).
+# Kernel launches in this process (plain-version calls are not counted), and
+# those of them that went to the tensor-core kernel.
 LAUNCHES = 0
+TC_LAUNCHES = 0
+
+# Largest head dim of the tensor-core route.
+TC_MAX_HEAD_DIM = 128
+
+
+def uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
+    """Whether a CUDA input of ``dtype`` and head dim ``hd`` goes to the
+    tensor-core kernel."""
+    return dtype == torch.bfloat16 and hd <= TC_MAX_HEAD_DIM
 
 
 def flash_attention_bwd_ref(q, k, v, dout, *, causal=True, window=0, softcap=0.0):
@@ -52,9 +76,14 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=0, softc
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     D = torch.empty((BH, S), dtype=torch.float32, device=dev)
-    global LAUNCHES
-    _build.launch("flash_attention_bwd", dev, q, k, v, out, dout, lse, D, dq, dk, dv,
-                  BH, S, T, hd, DTYPES[q.dtype], scale_of(hd), int(bool(causal)),
-                  max(int(window), 0), float(softcap))
+    mask = (int(bool(causal)), max(int(window), 0), float(softcap))
+    global LAUNCHES, TC_LAUNCHES
+    if uses_tensor_cores(q.dtype, hd):
+        _build.launch("flash_attention_bwd_tc", dev, q, k, v, out, dout, lse, D, dq, dk, dv,
+                      BH, S, T, hd, scale_of(hd), *mask)
+        TC_LAUNCHES += 1
+    else:
+        _build.launch("flash_attention_bwd", dev, q, k, v, out, dout, lse, D, dq, dk, dv,
+                      BH, S, T, hd, DTYPES[q.dtype], scale_of(hd), *mask)
     LAUNCHES += 1
     return dq, dk, dv

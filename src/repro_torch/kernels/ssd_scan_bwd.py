@@ -1,28 +1,56 @@
-"""The gradient of the Mamba2 SSD scan: the ``ssd_scan_bwd`` CUDA kernel
-and its plain version.
+"""The gradient of the Mamba2 SSD scan: the ``ssd_scan_bwd`` CUDA kernels
+and their plain version.
 
 The JAX package has no backward kernel (its training path differentiates
 the jnp chunked form); the port's models send the scan through the
-``ssd_scan`` kernel, whose gradient on the card is this kernel
-(``csrc/ssd_scan_bwd.cu``): from the scan's inputs and dy it returns dxh
-(xh's type), ddt and dA (float32) and dBm, dCm ``(R, S, N)`` (Bm's type),
-each B/C row's gradient summed over the H heads that share it in head
-order, computed in float32 without atomics (two runs give the same bits).
-The plain version is autograd of
+``ssd_scan`` kernel, whose gradient on the card is a kernel too: from the
+scan's inputs and dy it returns dxh (xh's type), ddt and dA (float32) and
+dBm, dCm ``(R, S, N)`` (Bm's type), each B/C row's gradient summed over the
+H heads that share it in a fixed order, without atomics (two runs give the
+same bits). A CPU tensor goes to the plain version, autograd of
 :func:`repro_torch.kernels.ssd_scan.ssd_ref`, as ``jax.grad`` of
-``repro.kernels.ref.ssd_ref`` is the reference's. ``ssd_scan``'s autograd
-function calls :func:`ssd_scan_bwd`; a CPU tensor goes to the plain
-version.
+``repro.kernels.ref.ssd_ref`` is the reference's. A CUDA tensor goes to a
+kernel by its type:
+
+- bfloat16: the chunked form on the tensor cores in
+  ``csrc/ssd_scan_bwd_tc.cu`` (mma.sync, chunks of ``TC_CHUNK`` steps in
+  parallel, the chunk-entry states and their gradients in two short
+  sequential passes, dB and dC summed over :func:`head_groups`' groups of
+  heads), counted in ``TC_LAUNCHES``;
+- float32: the recurrence on the CUDA cores in ``csrc/ssd_scan_bwd.cu``,
+  whose float32 arithmetic the float32 bound of 1e-4 needs.
+
+Both take every N of ``STATE_SIZES`` and head dims up to ``MAX_BWD_P``. A
+launch that fails raises; nothing falls back to another kernel or to the
+plain version. ``ssd_scan``'s autograd function calls
+:func:`ssd_scan_bwd`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ssd_scan import DTYPES, MAX_BWD_P, check_inputs, ssd_ref
+from repro_torch.kernels.ssd_scan import (DTYPES, MAX_BWD_P, TC_CHUNK, check_inputs,
+                                          ssd_ref)
 
-# Kernel launches in this process (plain-version calls are not counted).
+# Kernel launches in this process (plain-version calls are not counted), and
+# those of them that went to the tensor-core kernel.
 LAUNCHES = 0
+TC_LAUNCHES = 0
+
+# Blocks the tensor-core kernel's chunk pass fills at most: one wave of an
+# H100's 132 SMs (one block of 512 threads an SM).
+TC_TARGET_BLOCKS = 132
+
+
+def head_groups(R: int, n_chunks: int, H: int) -> int:
+    """Groups the H heads of each B/C row are split into by the tensor-core
+    kernel's chunk pass (one block per chunk, B/C row and group, walking
+    its heads in order): the largest divisor G of H with ``R * n_chunks *
+    G <= TC_TARGET_BLOCKS`` (one wave), else 1. dB and dC are summed over a
+    group's heads in order, then over the groups in order."""
+    return max((G for G in range(1, H + 1)
+                if H % G == 0 and R * n_chunks * G <= TC_TARGET_BLOCKS), default=1)
 
 
 def ssd_scan_bwd_ref(xh, dt, A, Bm, Cm, dy):
@@ -49,9 +77,22 @@ def ssd_scan_bwd(xh, dt, A, Bm, Cm, dy):
     dBm, dCm = torch.empty_like(Bm), torch.empty_like(Cm)
     if dx.numel() == 0:
         return dx, ddt.zero_(), dA.zero_(), dBm.zero_(), dCm.zero_()
-    part = torch.empty((2, BH, S, N), dtype=torch.float32, device=dev)
-    global LAUNCHES
-    _build.launch("ssd_scan_bwd", dev, xh, dt, A, Bm, Cm, dy, dx, ddt, dA, part[0], part[1],
-                  dBm, dCm, BH, S, P, N, BH // R, DTYPES[xh.dtype])
+    H = BH // R
+    global LAUNCHES, TC_LAUNCHES
+    if xh.dtype == torch.bfloat16:
+        nC = -(-S // TC_CHUNK)
+        G = head_groups(R, nC, H)
+        # The chunk-entry states and their gradients, P padded to 8.
+        states = torch.empty((2, BH, max(nC - 1, 1), N, -(-P // 8) * 8),
+                             dtype=torch.bfloat16, device=dev)
+        dA_part = torch.empty((BH, nC), dtype=torch.float32, device=dev)
+        part = torch.empty((2, R, G, S, N), dtype=torch.float32, device=dev)
+        _build.launch("ssd_scan_bwd_tc", dev, xh, dt, A, Bm, Cm, dy, dx, ddt, dA, dBm, dCm,
+                      states[0], states[1], dA_part, part, BH, S, P, N, H, H // G)
+        TC_LAUNCHES += 1
+    else:
+        part = torch.empty((2, BH, S, N), dtype=torch.float32, device=dev)
+        _build.launch("ssd_scan_bwd", dev, xh, dt, A, Bm, Cm, dy, dx, ddt, dA, part[0],
+                      part[1], dBm, dCm, BH, S, P, N, H, DTYPES[xh.dtype])
     LAUNCHES += 1
     return dx, ddt, dA, dBm, dCm
