@@ -162,7 +162,20 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      (llama 1 x 64 tokens, mamba2 1 x 256): the loss, every gradient leaf
      and the params after one Adam update within ``TRAIN_TOL``; then, on
      mamba2 in bf16, the resume drill: 4 steps checkpointed every 2,
-     resumed to 6 by a fresh call, bit-identical to 6 steps in one call.
+     resumed to 6 by a fresh call, bit-identical to 6 steps in one call;
+ 25. bfloat16 population storage and the geometry tuner (first process):
+     A, the five population kernels in float32 and bfloat16 storage
+     (``KernelConfig(dtype=...)``, csrc/<name>_bf16.cu) against their plain
+     versions at every shape this phase launches them at (Table I's, 8
+     islands', the 8,000-row polish batch; recorded as phase 1's checks);
+     B, Table I's fused DE with bfloat16 storage set only on
+     ``ExecutorConfig.kernel``, then in turns with the float32 route
+     (ms/gen), and 2 islands of 64 x 200 card vs CPU; C, the tuner
+     (``kernels.autotune``): a second build is a cache hit, and at each
+     of those shapes in both storage types the seconds of ``choose``, the
+     model's pick, the measured pick (``measure=True``) and
+     ``launch_geometry``'s pick (pso_step's old 256 threads) timed in
+     turns.
 
 flash_attention and ssd_scan take two routes by the input's type: bfloat16
 runs the tensor-core kernels (``csrc/*_tc.cu``), float32 the CUDA-core
@@ -177,7 +190,9 @@ them (bench_eval at Table I's population and the chunked path's 100 x
 wave, 8 islands of it and the 8-island steady state; eval_select at SA's
 800 x 1000), each with its bound, the launch geometry its wrapper chose
 and, for ga_step and eval_select, the share of rows taken or accepted; the compiler's registers, shared memory and spills
-for their libraries are printed. The main-path runs of GA and SA also
+for their libraries are printed. All five population kernels are also
+timed with bfloat16 storage at their first two shapes (bound at 2 bytes
+an element). The main-path runs of GA and SA also
 report the share of rows their fused kernel took or accepted.
 
 Phases 3-5, 7, 8, 10, 11, 13, 15-19, 21 and 23 are the main path: each run resets
@@ -265,6 +280,7 @@ class Run:
     # AsyncSchedule of an async run: {"seed": s} or {"cadences": (...)}.
     schedule: dict = dataclasses.field(default_factory=dict)
     jobs: int = 1            # jobs of a bucket, for the shapes it launches
+    storage: str = "float32"  # KernelConfig.dtype, threaded from ExecutorConfig.kernel
 
 
 # Table I's DE parameters (benchmarks/table1_de_scaling.py).
@@ -819,18 +835,19 @@ def card_rates(name: str) -> dict[str, float]:
     return CARD_RATES[name]
 
 
-def time_ms(fn, reps: int = 50, warmup: int = 3) -> float:
+def time_ms(fn, reps: int = 50, warmup: int = 3, spin: int = 200_000_000) -> float:
     """Mean device time of ``fn()`` over ``reps`` back-to-back runs, by CUDA
-    events. A spin kernel first holds the card while the host enqueues the
-    runs, so the events time the device work and not the host's launch
-    rate (a ctypes launch costs the host tens of microseconds)."""
+    events. A spin kernel of ``spin`` cycles (the default about 0.1 s)
+    first holds the card while the host enqueues the runs, so the events
+    time the device work and not the host's launch rate (a ctypes launch
+    costs the host tens of microseconds)."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)     # ~0.1 s of device cycles
+    torch.cuda._sleep(spin)
     start.record()
     for _ in range(reps):
         fn()
@@ -935,6 +952,8 @@ class Ctx:
         self.decided = {}
         for k in KERNELS:
             getattr(self.rt, k).LAUNCHES = 0
+        for k in POP_KERNELS:
+            getattr(self.rt, k).BF16_LAUNCHES = 0
         for k in TC_LIBRARY:
             getattr(self.rt, k).TC_LAUNCHES = 0
 
@@ -986,7 +1005,7 @@ def port_modules() -> types.SimpleNamespace:
     from repro_torch.optim import descent
     from repro_torch.functions import benchmarks as bm
     from repro_torch.configs import get_config
-    from repro_torch.kernels import (_build, bench_eval, de_step, eval_select,
+    from repro_torch.kernels import (_build, autotune, bench_eval, de_step, eval_select,
                                      flash_attention, flash_attention_bwd, ga_step,
                                      pso_step, ssd_scan, ssd_scan_bwd)
     from repro_torch import data
@@ -995,6 +1014,7 @@ def port_modules() -> types.SimpleNamespace:
     from repro_torch.optim import adam
     return types.SimpleNamespace(
         prng=prng, de=de, bm=bm, bench_eval=bench_eval, de_step=de_step,
+        autotune=autotune, KernelConfig=autotune.KernelConfig,
         eval_select=eval_select, pso_step=pso_step, ga_step=ga_step,
         flash_attention=flash_attention, ssd_scan=ssd_scan,
         flash_attention_bwd=flash_attention_bwd, ssd_scan_bwd=ssd_scan_bwd,
@@ -1032,8 +1052,9 @@ def _eval_inputs(c: Ctx, gen, shape, lo, hi):
         require(view.storage_offset() > 0, "row slice has no storage offset")
         out.append((f"rows 100:200 of {tuple(shape)}", view))
         shifted = _unaligned(c, pop)
-        require(c.dev.type != "cuda" or not c.rt.bench_eval.geometry_for(*shape, shifted).vec,
-                "a view one float past an aligned start took 16-byte loads")
+        require(c.dev.type != "cuda" or not c.rt.bench_eval.tuned_geometry(
+            "bench_eval", None, *shape, "sphere", shifted).vec,
+            "a view one float past an aligned start took 16-byte loads")
         out.append((f"unaligned view of {tuple(shape)}", shifted))
     return out
 
@@ -1213,11 +1234,11 @@ def _unaligned(c: Ctx, a):
     return view
 
 
-def _views(c: Ctx, shape, arrays):
-    """(label, arrays) to check: the arrays; at Table I's shape also rows
-    100:300 of each (at pop 800), views with a storage offset; and at Table
-    I's shape and GA's 200-row wave, the row arrays as unaligned views
-    (scalar slots in the kernels on eval_row.cuh)."""
+def _views(c: Ctx, shape, arrays, name: str):
+    """(label, arrays) to check for kernel ``name``: the arrays; at Table
+    I's shape also rows 100:300 of each (at pop 800), views with a storage
+    offset; and at Table I's shape and GA's 200-row wave, the row arrays as
+    unaligned views (scalar slots in the kernels on eval_row.cuh)."""
     out = [(str(tuple(shape)), arrays)]
     if tuple(shape) == (POP, DIM):
         rows = slice(POP // 8, 3 * POP // 8)
@@ -1226,8 +1247,8 @@ def _views(c: Ctx, shape, arrays):
         out.append((f"rows {rows.start}:{rows.stop} of {tuple(shape)}", view))
     if tuple(shape) in ((POP, DIM), (POP // 4, DIM)):
         moved = [_unaligned(c, a) if tuple(a.shape) == tuple(shape) else a for a in arrays]
-        require(c.dev.type != "cuda" or not c.rt.bench_eval.geometry_for(*shape, moved[0]).vec,
-                "an unaligned view took 16-byte loads")
+        require(c.dev.type != "cuda" or name == "pso_step" or not c.rt.bench_eval.tuned_geometry(
+            name, None, *shape, "sphere", moved[0]).vec, f"{name}: an unaligned view took 16-byte loads")
         out.append((f"unaligned views of {tuple(shape)}", moved))
     return out
 
@@ -1253,7 +1274,7 @@ def check_fused_kernels(c: Ctx) -> None:
             u = torch.rand(lead, generator=gen, device=c.dev)
             u.view(-1)[0] = 0.0
             th = -(0.5 * dF.abs().median()) * torch.log(u)
-            for label, (a, b, d, t, fa) in _views(c, shape, (pop, trial, dF, th, fit)):
+            for label, (a, b, d, t, fa) in _views(c, shape, (pop, trial, dF, th, fit), "eval_select"):
                 got = es.eval_select(a, fa, b, t, fn, shift, bias)
                 want = es.eval_select_ref(a, fa, b, t, fn, shift, bias)
                 c.sync()
@@ -1278,7 +1299,7 @@ def check_fused_kernels(c: Ctx) -> None:
             g = torch.gather(pb, -2, pbf.argmin(-1)[..., None, None].expand(
                 *lead[:-1], 1, shape[-1])).squeeze(-2).contiguous()
             kw = dict(w=0.6, fp=1.0, fg=1.0, vmax=0.2 * (hi - lo), lo=lo, hi=hi)
-            for label, (a, vv, p_, f_, q1, q2) in _views(c, shape, (x, v, pb, pbf, r1, r2)):
+            for label, (a, vv, p_, f_, q1, q2) in _views(c, shape, (x, v, pb, pbf, r1, r2), "pso_step"):
                 args = (a, vv, p_, f_, q1, q2, g, fn, shift, bias)
                 got = ps.pso_step(*args, **kw)
                 want = ps.pso_step_ref(*args, **kw)
@@ -1300,7 +1321,7 @@ def check_fused_kernels(c: Ctx) -> None:
             um = torch.rand(shape, generator=gen, device=c.dev)
             nz = torch.randn(shape, generator=gen, device=c.dev)
             kw = dict(pc=0.7, pm=0.1, sigma_m=0.1 * (hi - lo), lo=lo, hi=hi)
-            for label, arrs in _views(c, shape, (p1, p2, slot, slot_f, cut, co, um, nz)):
+            for label, arrs in _views(c, shape, (p1, p2, slot, slot_f, cut, co, um, nz), "ga_step"):
                 got = gs.ga_step(*arrs, fn, shift, bias, **kw)
                 want = gs.ga_step_ref(*arrs, fn, shift, bias, **kw)
                 child = gs.crossover(arrs[0], arrs[1], arrs[4], arrs[5], kw["pc"])
@@ -1416,7 +1437,9 @@ def _algo_opt(c: Ctx, r: Run, gens: int | None = None, round_callback=None,
         schedule = rt.AsyncSchedule(**r.schedule) if r.schedule else None
     params = ({k: dict(v) for k, v in r.params.items()} if r.portfolio else dict(r.params))
     return rt.IslandOptimizer(None if r.portfolio else rt.ALGORITHMS[r.algo], cfg,
-                              params=params, exec_cfg=rt.ExecutorConfig(backend="cuda"),
+                              params=params,
+                              exec_cfg=rt.ExecutorConfig(backend="cuda",
+                                                         kernel=rt.KernelConfig(dtype=r.storage)),
                               round_callback=round_callback, schedule=schedule,
                               device=c.dev if device is None else device,
                               mesh_cfg=mesh_cfg, mesh=mesh)
@@ -3743,6 +3766,9 @@ DE_TIMED = ((POP, DIM), (8, POP, DIM), (2, POP, DIM))
 GA_TIMED = ((POP // 4, DIM), (8, POP // 4, DIM), (8, 1, DIM), (2, POP // 4, DIM))
 ES_TIMED = ((POP, DIM), (2, POP, DIM))
 PSO_TIMED = ((POP, DIM), (2, POP, DIM))
+# Each population kernel is also timed with bfloat16 storage at the first
+# STORAGE_TIMED of its shapes (pso_step at both).
+STORAGE_TIMED = 2
 
 
 def _bound(rates: dict[str, float], nbytes: float, nops: float) -> dict:
@@ -3753,21 +3779,43 @@ def _bound(rates: dict[str, float], nbytes: float, nops: float) -> dict:
             "bound_by": "bytes" if nbytes / bw >= nops / flops else "operations"}
 
 
-def _time_bench_eval(c: Ctx, rates, gen, shape) -> dict:
-    """bench_eval on shifted Rosenbrock at ``shape``: kernel, plain, bound
-    (the population and shift read once, the fitness written once; 12
-    operations a lane) and the geometry the wrapper chose."""
+def _in_storage(c: Ctx, name: str, args: tuple, dtype: str) -> tuple[tuple, int]:
+    """``args`` of population kernel ``name`` with its (P, D) operands and
+    shift in storage ``dtype`` (so a timing holds no cast), and the
+    storage's bytes an element."""
+    st = c.rt.autotune.STORAGE[dtype]
+    out = [a.to(st) if i in ROW_OPERANDS[name] or (i == FN_ARG[name] + 1 and a is not None)
+           else a for i, a in enumerate(args)]
+    return tuple(out), st.itemsize
+
+
+def _geometry(c: Ctx, name: str, cfg, R: int, D: int, *tensors) -> dict:
+    """The geometry the wrapper launches ``name`` at for these tensors."""
+    if name == "pso_step":
+        return {"threads": c.rt.autotune.resolve(cfg, name, R, D, "shifted_rosenbrock",
+                                                 device=c.dev).threads}
+    return c.rt.bench_eval.tuned_geometry(name, cfg, R, D, "shifted_rosenbrock",
+                                          *tensors)._asdict()
+
+
+def _time_bench_eval(c: Ctx, rates, gen, shape, dtype: str = "float32") -> dict:
+    """bench_eval on shifted Rosenbrock at ``shape`` in storage ``dtype``:
+    kernel, plain, bound (the population and shift read once, the fitness
+    written once; 12 operations a lane) and the geometry the wrapper chose."""
     be = c.rt.bench_eval
     P, D = shape
     pop = _uniform(c.torch, gen, shape, -100.0, 100.0, c.dev)
-    ev = (pop, "shifted_rosenbrock", c.rt.bm.shift_vector(D, device=c.dev), 390.0)
-    return {"shape": list(shape), "ms": time_ms(lambda: be.bench_eval(*ev)),
-            "plain_ms": time_ms(lambda: be.bench_eval_ref(*ev)),
-            **_bound(rates, 4 * (P * D + D + P), 12 * P * D),
-            "geometry": be.geometry_for(P, D, pop, ev[2])._asdict()}
+    ev, isz = _in_storage(c, "bench_eval", (pop, "shifted_rosenbrock",
+                                            c.rt.bm.shift_vector(D, device=c.dev), 390.0), dtype)
+    cfg = c.rt.KernelConfig(dtype=dtype)
+    return {"shape": list(shape), "storage": dtype,
+            "ms": time_ms(lambda: be.bench_eval(*ev, kernel_cfg=cfg)),
+            "plain_ms": time_ms(lambda: be.bench_eval_ref(*ev, dtype=dtype)),
+            **_bound(rates, isz * (P * D + D) + 4 * P, 12 * P * D),
+            "geometry": _geometry(c, "bench_eval", cfg, P, D, ev[0], ev[2])}
 
 
-def _time_de_step(c: Ctx, rates, gen, shape) -> dict:
+def _time_de_step(c: Ctx, rates, gen, shape, dtype: str = "float32") -> dict:
     """de_step on shifted Rosenbrock at ``shape`` (``[I,] P, D``) with Table
     I's w and px: kernel, plain, bound and geometry. Bytes: pop and u read,
     the new population written; fit, idx, jrand, shift read; the new
@@ -3783,17 +3831,19 @@ def _time_de_step(c: Ctx, rates, gen, shape) -> dict:
     idx = ((torch.arange(P) + 1 + torch.randint(0, P - 1, (3, *lead, P), generator=gen))
            % P).to(c.dev)
     jr = torch.randint(0, D, (*lead, P), generator=gen).to(c.dev)
-    args = (pop, fit, idx, u, jr, "shifted_rosenbrock", shift, 390.0, 0.5, 0.2,
-            -100.0, 100.0)
-    n_cross = float((u < 0.2).sum()) + R
-    return {"shape": list(shape), "ms": time_ms(lambda: ds.de_step(*args)),
-            "plain_ms": time_ms(lambda: ds.de_step_ref(*args), reps=10),
-            **_bound(rates, 4 * 3 * R * D + 8 * 4 * R + 4 * (D + 2 * R),
+    args, isz = _in_storage(c, "de_step", (pop, fit, idx, u, jr, "shifted_rosenbrock", shift,
+                                           390.0, 0.5, 0.2, -100.0, 100.0), dtype)
+    cfg = c.rt.KernelConfig(dtype=dtype)
+    n_cross = float((args[3] < 0.2).sum()) + R
+    return {"shape": list(shape), "storage": dtype,
+            "ms": time_ms(lambda: ds.de_step(*args, kernel_cfg=cfg)),
+            "plain_ms": time_ms(lambda: ds.de_step_ref(*args, dtype=dtype), reps=10),
+            **_bound(rates, isz * (3 * R * D + D) + 8 * 4 * R + 4 * 2 * R,
                      12 * R * D + 4 * n_cross),
-            "geometry": be.geometry_for(R, D, pop, u, shift)._asdict()}
+            "geometry": _geometry(c, "de_step", cfg, R, D, args[0], args[3], args[6])}
 
 
-def _time_ga_step(c: Ctx, rates, gen, shape) -> dict:
+def _time_ga_step(c: Ctx, rates, gen, shape, dtype: str = "float32") -> dict:
     """ga_step on shifted Rosenbrock at ``shape`` (``[I,] N, D``) with GA's
     pc, pm and a sigma of a tenth of the box: kernel, plain, bound, the
     share of rows taken and the geometry. Bound: of each lane the parent
@@ -3811,17 +3861,21 @@ def _time_ga_step(c: Ctx, rates, gen, shape) -> dict:
     co = torch.rand((*lead, N), generator=gen).to(c.dev)
     um = torch.rand(shape, generator=gen).to(c.dev)
     nz = torch.randn(shape, generator=gen).to(c.dev)
-    args = (p1, p2, slot, slot_f, cut, co, um, nz, "shifted_rosenbrock", shift,
-            390.0, 0.7, 0.1, 20.0, -100.0, 100.0)
-    nbytes = 4 * 5 * R * D + 4 * (2 * R + D) + 8 * R + 4 * R + R
-    return {"shape": list(shape), "ms": time_ms(lambda: gs.ga_step(*args)),
-            "plain_ms": time_ms(lambda: gs.ga_step_ref(*args), reps=10),
+    args, isz = _in_storage(c, "ga_step", (p1, p2, slot, slot_f, cut, co, um, nz,
+                                           "shifted_rosenbrock", shift, 390.0, 0.7, 0.1, 20.0,
+                                           -100.0, 100.0), dtype)
+    cfg = c.rt.KernelConfig(dtype=dtype)
+    nbytes = isz * (5 * R * D + D) + 4 * 2 * R + 8 * R + 4 * R + R
+    return {"shape": list(shape), "storage": dtype,
+            "ms": time_ms(lambda: gs.ga_step(*args, kernel_cfg=cfg)),
+            "plain_ms": time_ms(lambda: gs.ga_step_ref(*args, dtype=dtype), reps=10),
             **_bound(rates, nbytes, 15 * R * D + 2 * float((um < 0.1).sum()) + R),
-            "decided_share": float(gs.ga_step(*args)[2].float().mean()),
-            "geometry": be.geometry_for(R, D, p1, p2, slot, um, nz, shift)._asdict()}
+            "decided_share": float(gs.ga_step(*args, kernel_cfg=cfg)[2].float().mean()),
+            "geometry": _geometry(c, "ga_step", cfg, R, D, *args[:3], args[6], args[7],
+                                  args[9])}
 
 
-def _time_eval_select(c: Ctx, rates, gen, shape) -> dict:
+def _time_eval_select(c: Ctx, rates, gen, shape, dtype: str = "float32") -> dict:
     """eval_select on shifted Rosenbrock at ``shape`` with Metropolis
     thresholds (-100 ln u): kernel, plain, bound, the share of rows
     accepted and the geometry. Bound: pop and trial read, the population
@@ -3833,16 +3887,19 @@ def _time_eval_select(c: Ctx, rates, gen, shape) -> dict:
     pop, trial = (_uniform(torch, gen, shape, -100.0, 100.0, c.dev) for _ in range(2))
     fit = be.bench_eval_ref(pop, "shifted_rosenbrock", shift, 390.0)
     th = -100.0 * torch.log(torch.rand((*lead, P), generator=gen)).to(c.dev)
-    args = (pop, fit, trial, th, "shifted_rosenbrock", shift, 390.0)
-    nbytes = 4 * 3 * R * D + 4 * (3 * R + D) + 4 * R + R
-    return {"shape": list(shape), "ms": time_ms(lambda: es.eval_select(*args)),
-            "plain_ms": time_ms(lambda: es.eval_select_ref(*args)),
+    args, isz = _in_storage(c, "eval_select", (pop, fit, trial, th, "shifted_rosenbrock", shift,
+                                               390.0), dtype)
+    cfg = c.rt.KernelConfig(dtype=dtype)
+    nbytes = isz * (3 * R * D + D) + 4 * 3 * R + 4 * R + R
+    return {"shape": list(shape), "storage": dtype,
+            "ms": time_ms(lambda: es.eval_select(*args, kernel_cfg=cfg)),
+            "plain_ms": time_ms(lambda: es.eval_select_ref(*args, dtype=dtype)),
             **_bound(rates, nbytes, 12 * R * D + 3 * R),
-            "decided_share": float(es.eval_select(*args)[2].float().mean()),
-            "geometry": be.geometry_for(R, D, pop, trial, shift)._asdict()}
+            "decided_share": float(es.eval_select(*args, kernel_cfg=cfg)[2].float().mean()),
+            "geometry": _geometry(c, "eval_select", cfg, R, D, args[0], args[2], args[5])}
 
 
-def _time_pso_step(c: Ctx, rates, gen, shape) -> dict:
+def _time_pso_step(c: Ctx, rates, gen, shape, dtype: str = "float32") -> dict:
     """pso_step on shifted Rosenbrock at ``shape`` (``[I,] P, D``) with Fig.
     4's w, fp, fg and vmax 0.2 of the box: kernel, plain and bound. Bytes:
     x, v, pbest, r1, r2 in; x, v, pbest out; pbest_f, gbest, shift in;
@@ -3857,12 +3914,16 @@ def _time_pso_step(c: Ctx, rates, gen, shape) -> dict:
     pbf = be.bench_eval_ref(pb, "shifted_rosenbrock", shift, 390.0)
     best = pbf.argmin(-1)[..., None, None].expand(*lead, 1, D)
     gbest = torch.gather(pb, -2, best).squeeze(-2).contiguous()
-    args = (x, v, pb, pbf, r1, r2, gbest, "shifted_rosenbrock", shift, 390.0, 0.6, 1.0,
-            1.0, 40.0, -100.0, 100.0)
-    return {"shape": list(shape), "ms": time_ms(lambda: c.rt.pso_step.pso_step(*args)),
-            "plain_ms": time_ms(lambda: c.rt.pso_step.pso_step_ref(*args)),
-            **_bound(rates, 4 * 8 * R * D + 4 * (R + (math.prod(lead) + 1) * D) + 4 * 2 * R,
-                     (13 + 12) * R * D + R)}
+    args, isz = _in_storage(c, "pso_step", (x, v, pb, pbf, r1, r2, gbest, "shifted_rosenbrock",
+                                            shift, 390.0, 0.6, 1.0, 1.0, 40.0, -100.0, 100.0),
+                            dtype)
+    cfg = c.rt.KernelConfig(dtype=dtype)
+    return {"shape": list(shape), "storage": dtype,
+            "ms": time_ms(lambda: c.rt.pso_step.pso_step(*args, kernel_cfg=cfg)),
+            "plain_ms": time_ms(lambda: c.rt.pso_step.pso_step_ref(*args, dtype=dtype)),
+            **_bound(rates, isz * (8 * R * D + (math.prod(lead) + 1) * D) + 4 * R + 4 * 2 * R,
+                     (13 + 12) * R * D + R),
+            "geometry": _geometry(c, "pso_step", cfg, R, D)}
 
 
 def kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
@@ -3874,21 +3935,26 @@ def kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
                                 ("eval_select", _time_eval_select, ES_TIMED),
                                 ("ga_step", _time_ga_step, GA_TIMED)):
         rows = [timer(c, rates, gen, shape) for shape in shapes]
+        bf16 = [timer(c, rates, gen, shape, "bfloat16") for shape in shapes[:STORAGE_TIMED]]
         c.kern[name].update({key: rows[0][key] for key in
-                             ("ms", "plain_ms", "bound_ms", "bound_by")}, shapes=rows)
-        for r in rows:
+                             ("ms", "plain_ms", "bound_ms", "bound_by")}, shapes=rows,
+                            bf16_shapes=bf16)
+        for r in rows + bf16:
             extra = f", decided_share {r['decided_share']:.6g}" if "decided_share" in r else ""
-            log(f"timing {name} at {tuple(r['shape'])}: kernel {r['ms']:.5f} ms, plain "
+            log(f"timing {name} {r['storage']} at {tuple(r['shape'])}: kernel {r['ms']:.5f} ms, plain "
                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
                 f"{extra}, geometry {r['geometry']}")
 
     # pso_step at Table I's shape and at phase 17's group of two islands.
     rows = [_time_pso_step(c, rates, gen, shape) for shape in PSO_TIMED]
+    bf16 = [_time_pso_step(c, rates, gen, shape, "bfloat16") for shape in PSO_TIMED]
     c.kern["pso_step"].update({key: rows[0][key] for key in
-                               ("ms", "plain_ms", "bound_ms", "bound_by")}, shapes=rows)
-    for r in rows:
-        log(f"timing pso_step at {tuple(r['shape'])}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                               ("ms", "plain_ms", "bound_ms", "bound_by")}, shapes=rows,
+                              bf16_shapes=bf16)
+    for r in rows + bf16:
+        log(f"timing pso_step {r['storage']} at {tuple(r['shape'])}: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"geometry {r['geometry']}")
     model_kernel_timings(c, rates)
     grad_kernel_timings(c, rates)
 
@@ -4255,6 +4321,316 @@ def ptxas_summary(entries: list[dict]) -> dict:
 # process runs the rest (1-5, 7-9, 16-18) and then, alone on the card, the
 # kernel timings. The second process takes half of torch's default CPU
 # threads for the CPU sides of its card-vs-CPU phases.
+# -- phase 25: bfloat16 population storage and the geometry tuner ------------------
+
+# B: Table I's fused DE with KernelConfig(dtype="bfloat16") set only on
+# ExecutorConfig.kernel, in turns with the float32 route; two islands of
+# 64 x 200 with bfloat16 storage, card vs CPU.
+STORAGE_RUNS = tuple(Run(f"Table I fused, {dt} storage", "de", 50,
+                         {**DE_TABLE1, "fused": True}, profile=False, storage=dt)
+                     for dt in ("bfloat16", "float32"))
+STORAGE_VS_CPU = Run("de ring fused 2 x 64 x 200, bfloat16 storage", "de", 40,
+                     {**DE_TABLE1, "fused": True}, seed=11, n_islands=2, pop=64, dim=200,
+                     profile=False, storage="bfloat16")
+# C: where the tuner's picks are compared, per kernel: Table I's rows (one
+# island) and 8 islands' (the fused kernels' (I, P, D) state; GA's wave of
+# P / 4), and for bench_eval also the hybrid's polish batch of 8,000 rows.
+TUNER_SHAPES = {"bench_eval": ((POP, DIM), (8 * POP, DIM), (8_000, DIM)),
+                "de_step": ((1, POP, DIM), (8, POP, DIM)),
+                "eval_select": ((1, POP, DIM), (8, POP, DIM)),
+                "pso_step": ((1, POP, DIM), (8, POP, DIM)),
+                "ga_step": ((1, POP // 4, DIM), (8, POP // 4, DIM))}
+STORAGES = ("float32", "bfloat16")
+# Positions of each population kernel's (P, D) operands (the broadcast rows
+# follow them in the same type) among its positional arguments, and of fn.
+ROW_OPERANDS = {"bench_eval": (0,), "de_step": (0, 3), "eval_select": (0, 2),
+                "pso_step": (0, 1, 2, 4, 5, 6), "ga_step": (0, 1, 2, 6, 7)}
+FN_ARG = {"bench_eval": 1, "de_step": 5, "eval_select": 4, "pso_step": 7, "ga_step": 8}
+# Phase 25's timings: a short spin ahead of 30 launches (a wrapper call
+# costs the host under 0.1 ms).
+TUNER_REPS, TUNER_SPIN = 30, 10_000_000
+
+
+def _pop_args(c: Ctx, gen, name: str, shape, cast: str | None = None) -> tuple:
+    """Positional arguments of population kernel ``name`` at ``shape`` on
+    shifted Rosenbrock (the wrapper's and its plain version's), the ``(P,
+    D)`` operands and the shift cast to ``cast`` if given: the main path's
+    parameters, thresholds -100 ln u, two dead GA slots a row block."""
+    torch, be, bm = c.torch, c.rt.bench_eval, c.rt.bm
+    *lead, P, D = shape
+    lead = tuple(lead)
+    fn, lo, hi = "shifted_rosenbrock", -100.0, 100.0
+    shift = bm.shift_vector(D, device=c.dev)
+    U = lambda *sh: torch.rand(sh, generator=gen, device=c.dev)   # noqa: E731
+    box = lambda *sh: U(*sh) * (hi - lo) + lo                      # noqa: E731
+    fit_of = lambda x: be.bench_eval_ref(x, fn, shift, 390.0)     # noqa: E731
+    if name == "bench_eval":
+        rows = [box(*shape)]
+        tail = (fn, shift, 390.0)
+    elif name == "de_step":
+        pop = box(*shape)
+        idx = (torch.arange(P, device=c.dev) + 1
+               + torch.randint(0, P - 1, (3, *lead, P), generator=gen, device=c.dev)) % P
+        rows = [pop, fit_of(pop), idx, U(*shape),
+                torch.randint(0, D, (*lead, P), generator=gen, device=c.dev)]
+        tail = (fn, shift, 390.0, 0.5, 0.2, lo, hi)
+    elif name == "eval_select":
+        pop, trial = box(*shape), box(*shape)
+        rows = [pop, fit_of(pop), trial, -100.0 * torch.log(U(*lead, P))]
+        tail = (fn, shift, 390.0)
+    elif name == "pso_step":
+        x, pb = box(*shape), box(*shape)
+        pbf = fit_of(pb)
+        g = torch.gather(pb, -2, pbf.argmin(-1)[..., None, None].expand(
+            *lead, 1, D)).squeeze(-2).contiguous()
+        rows = [x, U(*shape) * 40.0 - 20.0, pb, pbf, U(*shape), U(*shape), g]
+        tail = (fn, shift, 390.0, 0.6, 1.0, 1.0, 40.0, lo, hi)
+    else:
+        slot = box(*shape)
+        slot_f = fit_of(slot)
+        slot_f[..., :2] = torch.inf
+        rows = [box(*shape), box(*shape), slot, slot_f,
+                torch.randint(1, D, (*lead, P), generator=gen, device=c.dev), U(*lead, P),
+                U(*shape), torch.randn(shape, generator=gen, device=c.dev)]
+        tail = (fn, shift, 390.0, 0.7, 0.1, 20.0, lo, hi)
+    if cast is not None:
+        st = c.rt.autotune.STORAGE[cast]
+        rows = [t.to(st) if i in ROW_OPERANDS[name] else t for i, t in enumerate(rows)]
+        tail = (tail[0], tail[1].to(st), *tail[2:])
+    return (*rows, *tail)
+
+
+def _ulps(torch, got, want) -> tuple[bool, float]:
+    """Stored elements: each within one bfloat16 ulp of the plain
+    version's (NaN where NaN), and the share with equal bits."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs())
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+    ok = bool((((g - w).abs() <= ulp) | (torch.isnan(g) & torch.isnan(w))).all())
+    same = float((g.view(torch.int32) == w.view(torch.int32)).float().mean()) if g.numel() else 1.0
+    return ok, same
+
+
+def _check_stored(c: Ctx, name: str, label: str, dtype: str, got, want) -> float:
+    """A kernel's stored (P, D) output against the plain version's: bitwise
+    in float32 (the children, trials and positions carry no evaluation;
+    de_step's mutation within 1e-5, as phase 1 holds it), within one ulp
+    and the same bits on 99% of the elements in bfloat16."""
+    torch = c.torch
+    if got.numel() == 0:
+        return 1.0
+    pe = float((got.float() - want.float()).abs().nan_to_num().max())
+    c.kern[name]["max_abs_err"] = max(c.kern[name]["max_abs_err"], pe)
+    if dtype == "float32":
+        require(pe < 1e-5 if name == "de_step" else pe == 0.0,
+                f"{name} {label}: stored rows differ by {pe:.3g}")
+        return 1.0
+    ok, same = _ulps(torch, got, want)
+    require(ok and same >= 0.99, f"{name} {label}: stored rows over one bfloat16 ulp "
+            f"({ok}) or equal bits on {same:.4f} < 0.99")
+    require(bool(torch.equal(got.to(torch.bfloat16).float(), got.float())),
+            f"{name} {label}: stored rows not bfloat16-representable")
+    return same
+
+
+def _check_storage_case(c: Ctx, gen, name: str, shape, dtype: str) -> float:
+    """Kernel ``name`` with KernelConfig(dtype=``dtype``) against its plain
+    version at ``dtype`` on the same float32 inputs (the wrapper casts, as
+    on the main path): fitness within phase 1's bounds, decisions equal on
+    clear rows, stored rows as :func:`_check_stored`; the share of stored
+    elements with equal bits."""
+    torch, rt = c.torch, c.rt
+    mod = getattr(rt, name)
+    args = _pop_args(c, gen, name, shape)
+    cfg = rt.KernelConfig(dtype=dtype)
+    n_bf16 = mod.BF16_LAUNCHES
+    got = getattr(mod, name)(*args, kernel_cfg=cfg)
+    want = getattr(mod, f"{name}_ref")(*args, dtype=dtype)
+    c.sync()
+    require(mod.BF16_LAUNCHES == n_bf16 + (dtype == "bfloat16"),
+            f"{name} {dtype}: the bfloat16 route was not counted")
+    label = f"{dtype} {tuple(shape)}"
+    if name == "bench_eval":
+        rel = c.err(name, got, want)
+        require(rel < 1e-5, f"{label}: bench_eval rel err {rel:.3g}")
+        return 1.0
+    s = lambda t: rt.bench_eval.storage(t, dtype)   # noqa: E731
+    fn, shift, bias = args[FN_ARG[name]:FN_ARG[name] + 3]
+    if name == "de_step":
+        pop, fit, idx, u, jr = args[:5]
+        trial = rt.de_step.trial_ref(s(pop), idx, s(u), jr, 0.5, 0.2, -100.0, 100.0)
+        cand, comp, took, rtook = (rt.bench_eval.bench_eval_ref(trial, fn, s(shift), bias), fit,
+                                   got[1] != fit, want[1] != fit)
+        tol, stored, wstored, fits = 1e-5, got[0], want[0], (got[1], want[1])
+    elif name == "eval_select":
+        pop, fit, trial, th = args[:4]
+        cand = rt.bench_eval.bench_eval_ref(trial, fn, shift, bias, dtype)
+        comp, took, rtook = fit, got[2], want[2]
+        tol, stored, wstored, fits = FUSED_TOL, got[0], want[0], (got[1], want[1])
+        clear_th = _clear(torch, cand - fit, th) | ~torch.isfinite(th)
+    elif name == "pso_step":
+        pbf = args[3]
+        cand, comp, took, rtook = want[2], pbf, got[4] != pbf, want[4] != pbf
+        tol, stored, wstored, fits = FUSED_TOL, got[3], want[3], (got[2], want[2])
+        for k in (0, 1):
+            _check_stored(c, name, f"{label} {'xv'[k]}", dtype, got[k], want[k])
+    else:
+        slot_f = args[3]
+        cand = torch.where(got[2], got[1], want[1])
+        comp, took, rtook = slot_f, got[2], want[2]
+        tol, stored, wstored, fits = FUSED_TOL, got[0], want[0], (got[1], want[1])
+    clear = (cand.double() - comp.double()).abs() > tol * (comp.double().abs() + 1.0)
+    clear |= ~torch.isfinite(comp)
+    if name == "eval_select":
+        clear &= clear_th
+    near = _decide(c, name, label, took, rtook, clear)
+    agree = took == rtook
+    rel = c.err(name, fits[0][agree], fits[1][agree], absolute=False)
+    require(rel < tol, f"{name} {label}: fitness rel err {rel:.3g}")
+    same = _check_stored(c, name, label, dtype, stored[agree], wstored[agree])
+    if near:
+        log(f"phase 25: {name} {label}: near-tie rows deciding differently {near}")
+    return same
+
+
+def storage_check_shapes(c: Ctx) -> dict[str, set[tuple[int, ...]]]:
+    """Every (kernel, shape) phase 25 launches: TUNER_SHAPES and their rows
+    flattened to (R, D) (its measured sweep), and the runs of B."""
+    out = {k: set(v) for k, v in TUNER_SHAPES.items()}
+    for k, shapes in TUNER_SHAPES.items():
+        out[k] |= {(math.prod(s[:-1]), s[-1]) for s in shapes}
+    for r in (*STORAGE_RUNS, STORAGE_VS_CPU):
+        for k, shapes in launch_shapes(r).items():
+            out[k] |= shapes
+    return out
+
+
+def check_storage_kernels(c: Ctx) -> None:
+    """A: the five population kernels in both storage types against their
+    plain versions at every shape phase 25 launches them at."""
+    gen = c.torch.Generator(device=c.dev).manual_seed(25)
+    for name, shapes in storage_check_shapes(c).items():
+        for dtype in STORAGES:
+            same = [_check_storage_case(c, gen, name, shape, dtype) for shape in sorted(shapes)]
+            log(f"phase 25: A, {name} {dtype} at {sorted(shapes)}: max rel err "
+                f"{c.kern[name]['max_rel_err']:.3g}, least share of stored elements with "
+                f"equal bits {min(same):.6f}")
+
+
+def _storage_runs(c: Ctx) -> dict:
+    """B: Table I's fused DE with bfloat16 storage on the main path (its
+    launches, the bfloat16 route's, the best below the initial best), then
+    in turns with the float32 route; the 2-island run card vs CPU."""
+    rt = c.rt
+    out = _run_main(c, 25, STORAGE_RUNS[0])
+    bf16 = {k: getattr(rt, k).BF16_LAUNCHES for k in POP_KERNELS}
+    require(bf16["de_step"] == out["launches"]["de_step"] > 0 and bf16["bench_eval"] >= 2,
+            f"B: bfloat16 launches {bf16}, expected every de_step and bench_eval launch")
+    ms, res = _in_turns(c, list(STORAGE_RUNS))
+    for r in STORAGE_RUNS:
+        arg = c.torch.as_tensor(res[r.label][0][0].arg)
+        bits = bool(c.torch.equal(arg.to(c.torch.bfloat16).float(), arg.float()))
+        require(bits == (r.storage == "bfloat16"),
+                f"B: {r.label}: incumbent bfloat16-representable is {bits}")
+    out["ms_per_gen_in_turns"] = ms
+    out["best_in_turns"] = {k: v[0][0].value for k, v in res.items()}
+    log(f"phase 25: B, {STORAGE_RUNS[0].label} in turns with {STORAGE_RUNS[1].label}: "
+        f"ms/gen {json.dumps(ms)}, best {json.dumps(out['best_in_turns'])}, bfloat16 "
+        f"launches {bf16}")
+    _card_vs_cpu(c, 25, STORAGE_VS_CPU)
+    return out
+
+
+def _tuner_case(c: Ctx, gen, name: str, shape, dtype: str) -> dict:
+    """C at one shape and storage type: the seconds of a first and of a
+    cached ``choose``, the model's pick, the measured pick and
+    launch_geometry's (pso_step: its fixed 256 threads), timed in turns
+    (model, measured, heuristic, heuristic, measured, model) on inputs
+    already in the storage type, so no cast is timed."""
+    rt = c.rt
+    at, be = rt.autotune, rt.bench_eval
+    *lead, P, D = shape
+    R = math.prod(lead) * P
+    key = dict(dtype=dtype, device=c.dev)
+    t0 = time.perf_counter()
+    model = at.choose(name, R, D, "shifted_rosenbrock", **key)
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(100):
+        at.choose(name, R, D, "shifted_rosenbrock", **key)
+    t_cached = (time.perf_counter() - t0) / 100
+    measured = at.choose(name, R, D, "shifted_rosenbrock", measure=True, **key)
+    if name == "pso_step":
+        heur = rt.KernelConfig(threads=rt.pso_step.MAX_THREADS, dtype=dtype)
+    else:
+        g = be.launch_geometry(R, D, 16, be.sm_count(c.dev), at.STORAGE[dtype].itemsize)
+        heur = rt.KernelConfig(vec=g.vec, warps_per_row=g.warps_per_row,
+                               rows_per_block=g.rows_per_block, dtype=dtype)
+    args = _pop_args(c, gen, name, shape, cast=dtype)
+    fn = getattr(getattr(rt, name), name)
+    picks = {"model": model, "measured": measured, "heuristic": heur}
+    us = {k: [] for k in picks}
+    for k in ("model", "measured", "heuristic", "heuristic", "measured", "model"):
+        us[k].append(1e3 * time_ms(lambda: fn(*args, kernel_cfg=picks[k]),
+                                   reps=TUNER_REPS, spin=TUNER_SPIN))
+    pred = at.predict(name, R, D, model, "shifted_rosenbrock", card=at.rl.card_of(c.dev))
+    return {"shape": list(shape), "storage": dtype, "choose_first_us": t_first * 1e6,
+            "choose_cached_us": t_cached * 1e6,
+            "picks": {k: {f: getattr(v, f) for f in at.GEOMETRY_FIELDS[name]}
+                      for k, v in picks.items()},
+            "us": {k: sum(v) / len(v) for k, v in us.items()}, "us_in_turns": us,
+            "model_us": pred.t_total * 1e6}
+
+
+def _tuner(c: Ctx) -> list[dict]:
+    """C: the tuner at TUNER_SHAPES in both storage types, after a check
+    that a second build of a shape class is a cache hit."""
+    rt = c.rt
+    at = rt.autotune
+    at.clear_cache()
+    pop = _pop_args(c, c.torch.Generator(device=c.dev).manual_seed(7), "bench_eval",
+                    (POP, DIM))
+    s0 = at.cache_stats()
+    rt.bench_eval.bench_eval(*pop)
+    s1 = at.cache_stats()
+    rt.bench_eval.bench_eval(*pop)
+    s2 = at.cache_stats()
+    require(s1["misses"] == s0["misses"] + 1 and s2 == {**s1, "hits": s1["hits"] + 1},
+            f"C: a second build was not a cache hit: {s0} {s1} {s2}")
+    log(f"phase 25: C, cache on two builds of bench_eval {POP} x {DIM}: {s0} -> {s1} -> {s2}")
+    gen = c.torch.Generator(device=c.dev).manual_seed(26)
+    rows = []
+    for name, shapes in TUNER_SHAPES.items():
+        for dtype in STORAGES:
+            for shape in shapes:
+                r = _tuner_case(c, gen, name, shape, dtype)
+                rows.append({"kernel": name, **r})
+                log(f"phase 25: C, {name} {dtype} {tuple(shape)}: choose {r['choose_first_us']:.1f}"
+                    f" us first, {r['choose_cached_us']:.2f} cached; picks {json.dumps(r['picks'])};"
+                    f" us {json.dumps({k: round(v, 3) for k, v in r['us'].items()})}, model "
+                    f"{r['model_us']:.2f}")
+    stats = at.cache_stats()
+    require(stats["measured"] == len(rows), f"C: {stats['measured']} measured sweeps, expected "
+            f"{len(rows)}")
+    log(f"phase 25: C, tuner cache {stats}")
+    return rows
+
+
+def phase_storage_tuner(c: Ctx) -> dict:
+    """Phase 25: A, the bfloat16 storage route of the five population
+    kernels against their plain versions (recorded as phase 1's checks, so
+    the launches of B and C count as checked); B, Table I's fused DE with
+    bfloat16 storage; C, the geometry tuner."""
+    c.phase = 1
+    try:
+        check_storage_kernels(c)
+    finally:
+        c.phase = 25
+    out = _storage_runs(c)
+    out["tuner"] = _tuner(c)
+    return out
+
+
 SECOND_PROCESS_PHASES = frozenset({6, 10, 11, 12, 13, 14, 15, 19, 20, 21, 22, 23, 24})
 # Seconds from the script's start after which the second process is killed
 # (the script's whole limit is 1,200).
@@ -4341,11 +4717,16 @@ def log_ptxas(c: Ctx, _build) -> None:
         entries = ptxas_entries(_build.ptxas_report(name))
         c.kern[name]["ptxas"] = ptxas_summary(entries)
         log(f"ptxas {name}: {json.dumps(c.kern[name]['ptxas'])}")
+    for name in POP_KERNELS:
+        # The bfloat16 storage build of each population kernel.
+        entries = ptxas_entries(_build.ptxas_report(f"{name}_bf16"))
+        c.kern[name]["ptxas_bf16"] = ptxas_summary(entries)
+        log(f"ptxas {name}_bf16: {json.dumps(c.kern[name]['ptxas_bf16'])}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default=",".join(str(n) for n in range(1, 25)),
+    ap.add_argument("--phases", default=",".join(str(n) for n in range(1, 26)),
                     help="comma-separated phases to run (default: all)")
     # Internal: run as the second process, writing the record to this file.
     ap.add_argument("--part-out", default=None, help=argparse.SUPPRESS)
@@ -4394,7 +4775,7 @@ def main() -> int:
              **{n: run_train_phase(n) for n in TRAIN_RUNS},
              **{n: train_card_vs_cpu_phase(n) for n in CARD_VS_CPU_TRAIN_RUNS},
              15: phase_hybrid, 16: phase_service, 17: phase_portfolio_async,
-             18: phase_mesh}
+             18: phase_mesh, 25: phase_storage_tuner}
     # The second process's phases run beside this process's.
     second = phases & SECOND_PROCESS_PHASES if first else set()
     part = SecondProcess(second) if second and phases - second else None
@@ -4462,12 +4843,13 @@ def main() -> int:
             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"),
             "bound_ms": k.get("bound_ms"), "bound_by": k.get("bound_by"),
             "library_ms": k.get("library_ms")}
-        if name in ROW_KERNELS:
-            # Every timed shape with its bound and geometry, and the
-            # compiler's registers, shared memory and spills.
-            row.update(shapes=k.get("shapes"), ptxas=k.get("ptxas"))
-        elif name == "pso_step":
-            row.update(shapes=k.get("shapes"))
+        if name in POP_KERNELS:
+            # Every timed shape with its bound and geometry, in float32 and
+            # bfloat16 storage (csrc/<name>_bf16.cu), and the compiler's
+            # registers, shared memory and spills.
+            row.update(shapes=k.get("shapes"), bf16_shapes=k.get("bf16_shapes"),
+                       bf16_source=f"src/repro_torch/kernels/csrc/{name}_bf16.cu",
+                       ptxas=k.get("ptxas"), ptxas_bf16=k.get("ptxas_bf16"))
         if name in TC_LIBRARY:
             # The CUDA-core design at the same shape (the float32 route), and
             # the tensor-core instructions in the bf16 route's SASS.

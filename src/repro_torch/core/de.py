@@ -31,6 +31,7 @@ from repro_torch.core.islands import (MetaHeuristic, State, clip_box,
                                       uniform_init)
 from repro_torch.functions.benchmarks import Function
 from repro_torch.kernels import registry as kreg
+from repro_torch.kernels.autotune import KernelConfig
 from repro_torch.kernels.de_step import gather_rows, mutate
 from repro_torch.kernels.de_step import de_step as _de_step_kernel
 
@@ -72,6 +73,7 @@ def make(
     barrier_mode: str = "sync",        # sync | chunked ("non-determinism-ok")
     n_chunks: int = 8,
     fused: bool = False,               # whole generation in one kernel launch
+    kernel_cfg: KernelConfig | None = None,   # the fused kernel's storage and geometry
 ) -> MetaHeuristic:
     """Differential Evolution per-island policy (DE/rand/1/bin, DE/best/1/bin)."""
     if strategy not in ("rand1bin", "best1bin"):
@@ -138,7 +140,7 @@ def make(
             new_pop, new_fit = _de_step_kernel(
                 p, state["fit"], idx, u, jrand, fn=spec.eval_tag,
                 shift=f.shift_on(p.device), bias=f.bias,
-                w=w, px=px, lo=lo, hi=hi)
+                w=w, px=px, lo=lo, hi=hi, kernel_cfg=kernel_cfg)
             return track_best(state, new_pop, new_fit)
 
         step_override = gen_fused

@@ -15,6 +15,9 @@ pluggable:
   * ``cuda``   the hand-written ``bench_eval`` kernel, for functions with an
                entry in ``kernels.registry`` (the counterpart of ``pallas``).
                On a CPU tensor the kernel wrapper runs its plain version.
+               ``ExecutorConfig.kernel`` (a ``kernels.autotune.KernelConfig``:
+               the storage type and geometry) reaches it, and, through the
+               engine, every fused generation kernel.
 
 Over a mesh (``core.mesh``: one process per rank) the population can be
 split as the Java library splits a batch into equal chunks, one per worker:
@@ -33,6 +36,7 @@ import torch
 from repro_torch.core import mesh
 from repro_torch.functions.benchmarks import Function
 from repro_torch.kernels import registry as kreg
+from repro_torch.kernels.autotune import KernelConfig
 from repro_torch.kernels.bench_eval import bench_eval as _bench_eval
 
 Tensor = torch.Tensor
@@ -42,11 +46,17 @@ BACKENDS = ("torch", "cuda")
 
 @dataclasses.dataclass(frozen=True)
 class ExecutorConfig:
-    """How candidate batches are evaluated: backend choice and retry policy."""
+    """How candidate batches are evaluated: backend choice and retry policy,
+    and the kernel configuration."""
 
     backend: str = "torch"        # evaluation backend: "torch" | "cuda"
     retry_bad: bool = True        # paper: resubmit a failed batch once
     retry_eps: float = 1e-6       # perturbation used for the retry evaluation
+    # One KernelConfig threaded to every kernel this config touches: the
+    # cuda evaluation backend here and the fused generation kernels the
+    # engine builds (islands and portfolios inject it into the makers).
+    # Unset geometry fields are tuned per shape class by kernels.autotune.
+    kernel: KernelConfig = KernelConfig()
 
 
 def _make_eval_once(f: Function, cfg: ExecutorConfig) -> Callable[[Tensor], Tensor]:
@@ -58,7 +68,7 @@ def _make_eval_once(f: Function, cfg: ExecutorConfig) -> Callable[[Tensor], Tens
 
         def eval_cuda(pop: Tensor) -> Tensor:
             return _bench_eval(pop, spec.eval_tag, shift=f.shift_on(pop.device),
-                               bias=f.bias)
+                               bias=f.bias, kernel_cfg=cfg.kernel)
 
         return eval_cuda
     raise ValueError(f"unknown backend {cfg.backend!r}; expected one of {BACKENDS}")

@@ -29,6 +29,7 @@ from repro_torch.core.islands import (MetaHeuristic, State, clip_box,
                                       uniform_init)
 from repro_torch.functions.benchmarks import Function
 from repro_torch.kernels import registry as kreg
+from repro_torch.kernels.autotune import KernelConfig
 from repro_torch.kernels.de_step import gather_rows
 from repro_torch.kernels.ga_step import crossover
 from repro_torch.kernels.ga_step import ga_step as _ga_step_kernel
@@ -48,6 +49,7 @@ def make(
     age_mean: float = 1e9,      # aging disabled by default (Fig.4 single-island runs)
     age_sd: float = 0.0,
     fused: bool = False,        # offspring wave in one kernel launch
+    kernel_cfg: KernelConfig | None = None,   # the fused kernel's storage and geometry
 ) -> MetaHeuristic:
     """Genetic Algorithm per-island policy (1-pt crossover, Gaussian mutation,
     optional aging — the paper's DGA island member)."""
@@ -143,7 +145,7 @@ def make(
                 p1, p2, gather_rows(state["pop"], order), fit.gather(1, order),
                 cut, co, um, nz, fn=spec.eval_tag,
                 shift=f.shift_on(p1.device), bias=f.bias, pc=pc, pm=pm,
-                sigma_m=sigma_m, lo=lo, hi=hi)
+                sigma_m=sigma_m, lo=lo, hi=hi, kernel_cfg=kernel_cfg)
             return place(state, ks[:, 5], fit, age, alive, order, nslot,
                          nslot_f, take)
 

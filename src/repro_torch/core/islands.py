@@ -205,6 +205,17 @@ class AsyncSchedule:
 AlgoMaker = Callable[..., MetaHeuristic]
 
 
+def _accepts_kernel_cfg(maker: AlgoMaker) -> bool:
+    """Whether a policy maker declares a ``kernel_cfg`` parameter (the hook
+    the engine threads ``ExecutorConfig.kernel`` into fused kernels
+    through). Makers without it are not injected into."""
+    import inspect
+    try:
+        return "kernel_cfg" in inspect.signature(maker).parameters
+    except (TypeError, ValueError):      # builtins and odd callables
+        return False
+
+
 class IslandOptimizer:
     """popt4jlib OptimizerIntf over the island engine.
 
@@ -358,19 +369,27 @@ class IslandOptimizer:
 
     def _build(self, f: Function, evaluator: Callable[[Tensor], Tensor] | None = None):
         """The run's policy object: a ``MetaHeuristic`` from ``algo_maker``,
-        or a ``core.portfolio.Portfolio`` in portfolio mode."""
+        or a ``core.portfolio.Portfolio`` in portfolio mode.
+
+        ``ExecutorConfig.kernel`` is injected as ``kernel_cfg`` into every
+        maker that declares the parameter (explicit per-policy params win),
+        so one threaded ``KernelConfig`` reaches the fused generation
+        kernels as it reaches the cuda evaluation backend."""
         cfg = self.cfg
         evaluator = evaluator or self._evaluator(f)
         if cfg.portfolio:
             from repro_torch.core import portfolio as pf  # late: pf imports the algos
             port = pf.build_portfolio(
                 pf.expand(cfg.portfolio, cfg.n_islands), f=f, evaluator=evaluator,
-                pop=cfg.pop, dim=cfg.dim, params=self.params)
+                pop=cfg.pop, dim=cfg.dim, params=self.params,
+                kernel_cfg=self.exec_cfg.kernel)
             if self._shard is not None:
                 port.block = (self._shard.rank * self._n_local, self._n_local)
             return port
-        return self.algo_maker(f=f, evaluator=evaluator, pop=cfg.pop, dim=cfg.dim,
-                               **self.params)
+        kw = dict(self.params)
+        if "kernel_cfg" not in kw and _accepts_kernel_cfg(self.algo_maker):
+            kw["kernel_cfg"] = self.exec_cfg.kernel
+        return self.algo_maker(f=f, evaluator=evaluator, pop=cfg.pop, dim=cfg.dim, **kw)
 
     def _eval_totals(self, algo) -> tuple[int, int]:
         """(per-generation, init) evaluation totals across all islands —

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bh, de, ea, fa, ga, mc, pso, sa
-from repro_torch.core.islands import AlgoMaker, MetaHeuristic, State
+from repro_torch.core.islands import AlgoMaker, MetaHeuristic, State, _accepts_kernel_cfg
 from repro_torch.functions.benchmarks import Function
 
 Tensor = torch.Tensor
@@ -419,6 +419,7 @@ def build_portfolio(
     pop: int,
     dim: int,
     params: dict[str, Any] | None = None,
+    kernel_cfg: Any = None,
 ) -> Portfolio:
     """Materialize a per-island policy assignment into a :class:`Portfolio`.
 
@@ -426,6 +427,11 @@ def build_portfolio(
     :func:`expand`. ``params`` maps policy name -> extra maker kwargs (a
     dict, or the pair-tuple form JSONL requests freeze it to); entries for
     policies outside the portfolio are rejected so typos fail loudly.
+    ``kernel_cfg`` (a ``kernels.autotune.KernelConfig``, threaded from
+    ``ExecutorConfig.kernel`` by the engine) is injected into every maker
+    that declares the parameter; explicit per-policy params win. Unlike the
+    reference, which writes it into the per-policy dicts it is given, the
+    port leaves the caller's dicts as they are.
     """
     params = dict(params or {})
     distinct = list(dict.fromkeys(names))
@@ -436,10 +442,11 @@ def build_portfolio(
             f"(portfolio: {distinct})")
     policies = []
     for n in distinct:
-        kw = params.get(n, {})
-        if not isinstance(kw, dict):   # OptRequest freezes dicts to pairs
-            kw = dict(kw)
+        kw = dict(params.get(n, {}))   # OptRequest freezes dicts to pairs
         spec = REGISTRY[n]
+        if (kernel_cfg is not None and "kernel_cfg" not in kw
+                and _accepts_kernel_cfg(spec.maker)):
+            kw["kernel_cfg"] = kernel_cfg
         algo = spec.maker(f=f, evaluator=evaluator, pop=pop, dim=dim, **kw)
         policies.append(UnifiedPolicy(spec, algo, pop, dim))
     return Portfolio(tuple(names), policies)

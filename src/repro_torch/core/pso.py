@@ -26,6 +26,7 @@ from repro_torch.core.islands import (MetaHeuristic, State, clip_box,
                                       uniform_init)
 from repro_torch.functions.benchmarks import Function
 from repro_torch.kernels import registry as kreg
+from repro_torch.kernels.autotune import KernelConfig
 from repro_torch.kernels.pso_step import pso_step as _pso_step_kernel
 from repro_torch.kernels.pso_step import velocity
 
@@ -42,6 +43,7 @@ def make(
     fg: float = 1.0,
     vmax_frac: float = 0.2,
     fused: bool = False,               # whole generation in one kernel launch
+    kernel_cfg: KernelConfig | None = None,   # the fused kernel's storage and geometry
 ) -> MetaHeuristic:
     """Particle Swarm per-island policy (inertia w, cognitive fp, social fg)."""
     lo, hi = f.lo, f.hi
@@ -89,7 +91,8 @@ def make(
             out = _pso_step_kernel(
                 x, state["vel"], state["pbest"], state["pbest_f"], r1, r2,
                 state["best_arg"], fn=spec.eval_tag, shift=f.shift_on(x.device),
-                bias=f.bias, w=w, fp=fp, fg=fg, vmax=vmax, lo=lo, hi=hi)
+                bias=f.bias, w=w, fp=fp, fg=fg, vmax=vmax, lo=lo, hi=hi,
+                kernel_cfg=kernel_cfg)
             return finish(state, *out)
 
         step_override = gen_fused

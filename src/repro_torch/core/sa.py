@@ -28,6 +28,7 @@ from repro_torch.core.islands import (MetaHeuristic, State, clip_box,
                                       uniform_init)
 from repro_torch.functions.benchmarks import Function
 from repro_torch.kernels import registry as kreg
+from repro_torch.kernels.autotune import KernelConfig
 from repro_torch.kernels.eval_select import eval_select as _eval_select_kernel
 
 Tensor = torch.Tensor
@@ -60,6 +61,7 @@ def make(
     n_gens_hint: int = 10_000,   # horizon for the linear schedule
     step_frac: float = 0.1,      # proposal sigma as a fraction of the box width
     fused: bool = False,         # evaluate+accept in one kernel launch
+    kernel_cfg: KernelConfig | None = None,   # the fused kernel's storage and geometry
 ) -> MetaHeuristic:
     """Simulated Annealing per-island policy (population of parallel chains)."""
     if schedule not in SCHEDULES:
@@ -109,7 +111,7 @@ def make(
             thresh = -Tm * f32.log(u)
             x, fx, _ = _eval_select_kernel(
                 state["pop"], state["fit"], y, thresh, fn=spec.eval_tag,
-                shift=f.shift_on(y.device), bias=f.bias)
+                shift=f.shift_on(y.device), bias=f.bias, kernel_cfg=kernel_cfg)
             return finish(state, x, fx)
 
         step_override = gen_fused

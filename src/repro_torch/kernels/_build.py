@@ -27,18 +27,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# C signatures of the five population kernels' entries, whose float32 and
+# bfloat16 storage builds (``<name>.cu``, ``<name>_bf16.cu``) take the same
+# arguments.
+_POPULATION = {
+    "bench_eval": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P),
+    "de_step": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P),
+    "eval_select": (*(_P,) * 8, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P),
+    "pso_step": (*(_P,) * 13, _I, _I, _I, _I, *(_F,) * 7, _I, _P),
+    "ga_step": (*(_P,) * 12, _I, _I, _I, *(_F,) * 6, _I, _I, _I, _I, _I, _P),
+}
 # C signature of each library's launch entry: (name, argtypes); restype int.
 SIGNATURES = {
-    "bench_eval": ("bench_eval_launch", (_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P)),
-    "de_step": ("de_step_launch",
-                (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                 _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P)),
-    "eval_select": ("eval_select_launch",
-                    (*(_P,) * 8, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P)),
-    "pso_step": ("pso_step_launch",
-                 (*(_P,) * 13, _I, _I, _I, _I, *(_F,) * 7, _P)),
-    "ga_step": ("ga_step_launch",
-                (*(_P,) * 12, _I, _I, _I, *(_F,) * 6, _I, _I, _I, _I, _I, _P)),
+    **{f"{k}{sfx}": (f"{k}{sfx}_launch", argtypes)
+       for k, argtypes in _POPULATION.items() for sfx in ("", "_bf16")},
     "flash_attention": ("flash_attention_launch",
                         (*(_P,) * 5, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P)),
     "ssd_scan": ("ssd_scan_launch", (*(_P,) * 6, *(_I,) * 6, _P)),
@@ -155,16 +158,18 @@ def on_card(name: str, x: torch.Tensor, dims: tuple[int, ...] = (2, 3)) -> bool:
     return True
 
 
-def check_inputs(device, *specs, dtype: torch.dtype = torch.float32) -> None:
-    """Raise unless each ``(name, tensor, shape)`` is a contiguous ``dtype``
-    tensor of that shape on ``device``; a ``None`` tensor is skipped."""
+def check_inputs(device, *specs, dtype: torch.dtype | tuple = torch.float32) -> None:
+    """Raise unless each ``(name, tensor, shape)`` is a contiguous tensor of
+    that shape on ``device`` whose type is ``dtype`` (or one of them); a
+    ``None`` tensor is skipped."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     for name, t, shape in specs:
         if t is None:
             continue
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise ValueError(f"{name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():

@@ -17,19 +17,29 @@
 // where aligned), the neighbour from registers, and at most one barrier; the
 // writing lane computes the finishing formula. Rows longer than one batch of
 // registers are walked in batches.
+//
+// Storage: the rows and the shift are float32 here; bench_eval_bf16.cu
+// includes this file with bfloat16 (POPT_STORAGE), which halves the bytes
+// read. Each lane widens to float32 as it is loaded.
 #include "eval_row.cuh"
+
+// The storage type of the rows and the C entry's name.
+#ifndef POPT_STORAGE
+#define POPT_STORAGE float
+#define POPT_ENTRY bench_eval_launch
+#endif
 
 namespace {
 
 using namespace popt::row;
 
-template <int TAG, int V>
+template <int TAG, int V, typename T>
 __global__ void __launch_bounds__(kBlockThreads)
-bench_eval_kernel(const float* __restrict__ pop, const float* __restrict__ shift,
+bench_eval_kernel(const T* __restrict__ pop, const T* __restrict__ shift,
                   float* __restrict__ out, int P, int D, float bias, int W) {
   constexpr int K = kMaxSlots;
   const Place at(W, P, D / V);
-  const float* row = pop + static_cast<size_t>(at.active ? at.r : 0) * D;
+  const T* row = pop + static_cast<size_t>(at.active ? at.r : 0) * D;
   popt::row::Acc<TAG> acc;
   for (int kb = 0; kb < at.iters; kb += K) {
     Slot<V> x[K], sh[K];
@@ -43,29 +53,28 @@ bench_eval_kernel(const float* __restrict__ pop, const float* __restrict__ shift
   if (at.active && at.w == 0 && at.lane == 0) out[at.r] = f;
 }
 
-template <int TAG>
-int launch(const float* pop, const float* shift, float* out, int P, int D,
+template <int TAG, typename T>
+int launch(const T* pop, const T* shift, float* out, int P, int D,
            float bias, int vec, int W, int R, cudaStream_t s) {
   const dim3 grid((P + R - 1) / R), block(32 * W * R);
   if (vec)
-    bench_eval_kernel<TAG, 4><<<grid, block, 0, s>>>(pop, shift, out, P, D, bias, W);
+    bench_eval_kernel<TAG, 4, T><<<grid, block, 0, s>>>(pop, shift, out, P, D, bias, W);
   else
-    bench_eval_kernel<TAG, 1><<<grid, block, 0, s>>>(pop, shift, out, P, D, bias, W);
+    bench_eval_kernel<TAG, 1, T><<<grid, block, 0, s>>>(pop, shift, out, P, D, bias, W);
   return 0;
 }
 
 }  // namespace
 
-// pop (P, D) float32 rows; shift (D,) float32 or null; out (P,). Geometry
-// from kernels/bench_eval.py::launch_geometry: `vec` (16-byte loads; needs
-// D % 4 == 0 and 16-byte aligned pop and shift), W warps per row (a power
-// of two), R rows per block (W * R <= 8). Launches on `stream` and returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a geometry the kernel
-// does not take.
-extern "C" int bench_eval_launch(const float* pop, const float* shift,
-                                 float* out, int P, int D, int tag,
-                                 float bias, int vec, int W, int R,
-                                 void* stream) {
+// pop (P, D) rows and shift (D,) (or null) of the storage type; out (P,)
+// float32. Geometry from kernels/autotune.py: `vec` (4-lane vector loads;
+// needs D % 4 == 0 and pop and shift aligned to 4 elements), W warps per
+// row (a power of two), R rows per block (W * R <= 8). Launches on `stream`
+// and returns cudaGetLastError(), or cudaErrorInvalidValue for a geometry
+// the kernel does not take.
+extern "C" int POPT_ENTRY(const POPT_STORAGE* pop, const POPT_STORAGE* shift,
+                          float* out, int P, int D, int tag, float bias,
+                          int vec, int W, int R, void* stream) {
   if (P <= 0) return 0;
   if (W < 1 || (W & (W - 1)) != 0 || R < 1 || W * R > kMaxWarps || (vec && D % 4 != 0))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -35,22 +35,35 @@
 // Donor indices are local to the island and clamped to [0, P) as JAX's
 // gather clamps. The mutation is one fused multiply-add (__fmaf_rn), as
 // XLA contracts it, so trial vectors are bit-exact with the plain version.
+//
+// Storage: pop, u, the shift and the new population are float32 here;
+// de_step_bf16.cu includes this file with bfloat16 (POPT_STORAGE). Then the
+// donors are read from the bfloat16 population, every lane widens to
+// float32 as it is loaded, the trial is built and evaluated in float32, and
+// the kept row is rounded to bfloat16 as it is stored; fit stays float32.
 #include <cstdint>
 
 #include "eval_row.cuh"
+
+// The storage type of the (P, D) rows and the shift, and the C entry's name.
+#ifndef POPT_STORAGE
+#define POPT_STORAGE float
+#define POPT_ENTRY de_step_launch
+#endif
 
 namespace {
 
 using namespace popt::row;
 
+template <typename T>
 struct Args {
-  const float* pop;
+  const T* pop;
   const float* fit;
   const int64_t* idx;
-  const float* u;
+  const T* u;
   const int64_t* jrand;
-  const float* shift;  // nullptr when unshifted
-  float* npop;
+  const T* shift;  // nullptr when unshifted
+  T* npop;
   float* nfit;
   int rows, P, D;
   float bias, w, px, lo, hi;
@@ -66,7 +79,8 @@ struct Head {
   float fit = 0.0f;
 };
 
-__device__ __forceinline__ Head load_head(const Args& a, const Place& at) {
+template <typename T>
+__device__ __forceinline__ Head load_head(const Args<T>& a, const Place& at) {
   Head h;
   if (at.active) {
     const size_t R = static_cast<size_t>(a.rows);
@@ -79,15 +93,16 @@ __device__ __forceinline__ Head load_head(const Args& a, const Place& at) {
   return h;
 }
 
-__device__ __forceinline__ const float* donor(const Args& a, const Place& at, int64_t i) {
+template <typename T>
+__device__ __forceinline__ const T* donor(const Args<T>& a, const Place& at, int64_t i) {
   const size_t base = static_cast<size_t>(at.r - at.r % a.P);  // island's first row
   return a.pop + (base + clamp_row(i, a.P)) * a.D;
 }
 
 // Which of this thread's slots of batch kb take a mutant lane: the donors
 // are read for those slots only.
-template <int V, int K>
-__device__ __forceinline__ void crossed(const Args& a, const Place& at, int kb, int64_t jrand,
+template <int V, int K, typename T>
+__device__ __forceinline__ void crossed(const Args<T>& a, const Place& at, int kb, int64_t jrand,
                                         const Slot<V> (&uu)[K], bool (&cross)[K]) {
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -101,8 +116,8 @@ __device__ __forceinline__ void crossed(const Args& a, const Place& at, int kb, 
 
 // Loads the slots of batch kb of donor row `row` that `cross` marks; the
 // others are zero.
-template <int V, int K>
-__device__ __forceinline__ void load_donor(const float* __restrict__ row, const Place& at, int kb,
+template <int V, int K, typename T>
+__device__ __forceinline__ void load_donor(const T* __restrict__ row, const Place& at, int kb,
                                            const bool (&cross)[K], Slot<V> (&x)[K]) {
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -114,8 +129,8 @@ __device__ __forceinline__ void load_donor(const float* __restrict__ row, const 
 // Batch kb of the row at `off`: loads the parent p, u and (`with_shift`)
 // the shift sh; then, once u and the row's indices have arrived, the donor
 // slots that take a mutant lane; and builds the trial t.
-template <int V, int K>
-__device__ __forceinline__ void trial_batch(const Args& a, const Place& at, const Head& h,
+template <int V, int K, typename T>
+__device__ __forceinline__ void trial_batch(const Args<T>& a, const Place& at, const Head& h,
                                             size_t off, int kb, bool with_shift,
                                             Slot<V> (&p)[K], Slot<V> (&sh)[K],
                                             Slot<V> (&t)[K]) {
@@ -140,9 +155,9 @@ __device__ __forceinline__ void trial_batch(const Args& a, const Place& at, cons
 }
 
 // The whole row in registers (at.iters <= K): one pass.
-template <int TAG, int V, int K>
+template <int TAG, int V, int K, typename T>
 __global__ void __launch_bounds__(kBlockThreads)
-de_step_staged(const Args a, int W) {
+de_step_staged(const Args<T> a, int W) {
   const Place at(W, a.rows, a.D / V);
   const Head h = load_head(a, at);
   const size_t off = static_cast<size_t>(at.active ? at.r : 0) * a.D;
@@ -159,9 +174,9 @@ de_step_staged(const Args a, int W) {
 
 // A row longer than one batch: pass 1 evaluates the trial batch by batch,
 // pass 2 rebuilds each batch's trial (or reads the parent) and writes it.
-template <int TAG, int V>
+template <int TAG, int V, typename T>
 __global__ void __launch_bounds__(kBlockThreads)
-de_step_stream(const Args a, int W) {
+de_step_stream(const Args<T> a, int W) {
   constexpr int K = kMaxSlots;
   const Place at(W, a.rows, a.D / V);
   const Head h = load_head(a, at);
@@ -185,53 +200,54 @@ de_step_stream(const Args a, int W) {
   }
 }
 
-template <int TAG, int V>
-int launch_v(const Args& a, int W, int R, int K, int staged, cudaStream_t s) {
+template <int TAG, int V, typename T>
+int launch_v(const Args<T>& a, int W, int R, int K, int staged, cudaStream_t s) {
   const dim3 grid((a.rows + R - 1) / R), block(32 * W * R);
   if (!staged) {
-    de_step_stream<TAG, V><<<grid, block, 0, s>>>(a, W);
+    de_step_stream<TAG, V, T><<<grid, block, 0, s>>>(a, W);
     return 0;
   }
   const int slots = a.D / V;
   if (slots > 32 * W * K) return static_cast<int>(cudaErrorInvalidValue);
   switch (K) {
-    case 2: de_step_staged<TAG, V, 2><<<grid, block, 0, s>>>(a, W); break;
-    case 4: de_step_staged<TAG, V, 4><<<grid, block, 0, s>>>(a, W); break;
+    case 2: de_step_staged<TAG, V, 2, T><<<grid, block, 0, s>>>(a, W); break;
+    case 4: de_step_staged<TAG, V, 4, T><<<grid, block, 0, s>>>(a, W); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
 }
 
-template <int TAG>
-int launch(const Args& a, int vec, int W, int R, int K, int staged, cudaStream_t s) {
+template <int TAG, typename T>
+int launch(const Args<T>& a, int vec, int W, int R, int K, int staged, cudaStream_t s) {
   return vec ? launch_v<TAG, 4>(a, W, R, K, staged, s)
              : launch_v<TAG, 1>(a, W, R, K, staged, s);
 }
 
 }  // namespace
 
-// pop, u (R, D) float32 with R = islands * P rows, island-major; fit (R,);
-// idx (3, R) int64 donor rows local to each island; jrand (R,) int64;
-// shift (D,) or null. Geometry from kernels/bench_eval.py::launch_geometry:
-// `vec` (16-byte loads; needs D % 4 == 0 and pop, u, shift and npop 16-byte
-// aligned), W warps per row (a power of two), R rows per block (W * R <= 8),
-// K slots per
-// thread (1, 2 or 4), and `staged` (the row fits W * 32 * K slots: one
-// pass) or not (two passes in batches). Writes npop (R, D) and nfit (R,) on
+// pop, u (R, D) of the storage type with R = islands * P rows,
+// island-major; fit (R,) float32; idx (3, R) int64 donor rows local to each
+// island; jrand (R,) int64; shift (D,) of the storage type or null.
+// Geometry from kernels/autotune.py: `vec` (4-lane vector loads; needs
+// D % 4 == 0 and pop, u, shift and npop aligned to 4 elements), W warps
+// per row (a power of two), R rows per block (W * R <= 8), K slots per
+// thread (2 or 4), and `staged` (the row fits W * 32 * K slots: one pass)
+// or not (two passes in batches). Writes npop (R, D) and nfit (R,) on
 // `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for a
 // geometry the kernel does not take.
-extern "C" int de_step_launch(const float* pop, const float* fit,
-                              const int64_t* idx, const float* u,
-                              const int64_t* jrand, const float* shift,
-                              float* npop, float* nfit, int rows, int P, int D,
-                              int tag, float bias, float w, float px,
-                              float lo, float hi, int vec, int W, int R, int K,
-                              int staged, void* stream) {
+extern "C" int POPT_ENTRY(const POPT_STORAGE* pop, const float* fit,
+                          const int64_t* idx, const POPT_STORAGE* u,
+                          const int64_t* jrand, const POPT_STORAGE* shift,
+                          POPT_STORAGE* npop, float* nfit, int rows, int P, int D,
+                          int tag, float bias, float w, float px, float lo,
+                          float hi, int vec, int W, int R, int K, int staged,
+                          void* stream) {
   if (rows <= 0) return 0;
   if (W < 1 || (W & (W - 1)) != 0 || R < 1 || W * R > kMaxWarps || (vec && D % 4 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{pop, fit, idx, u, jrand, shift, npop, nfit, rows, P, D, bias, w, px, lo, hi};
+  const Args<POPT_STORAGE> a{pop, fit, idx, u, jrand, shift, npop, nfit,
+                            rows, P, D, bias, w, px, lo, hi};
   int err = 0;
 #define LAUNCH(T) err = launch<T>(a, vec, W, R, K, staged, s)
   POPT_DISPATCH_TAG(tag, LAUNCH)

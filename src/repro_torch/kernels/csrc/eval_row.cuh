@@ -19,15 +19,16 @@
 // broadcast the result with a second barrier; and 100 rows gave 100 blocks.
 //
 // This design:
-// - The wrapper picks the geometry (kernels/bench_eval.py::launch_geometry):
-//   W warps share a row (1, 2, 4 or 8), R rows share a block (R * W <= 8),
-//   and each thread holds K slots of the row in registers (K <= 4). A slot
-//   is four lanes read as one 16-byte float4 where every pointer is 16-byte
-//   aligned and D % 4 == 0 (V = 4), else one lane read by a scalar load
-//   (V = 1).
+// - The wrapper picks the geometry (kernels/autotune.py, whose candidates
+//   are those of kernels/bench_eval.py::geometry): W warps share a row (1,
+//   2, 4 or 8), R rows share a block (R * W <= 8), and each thread holds K
+//   slots of the row in registers (K <= 4). A slot is four lanes read as
+//   one vector load (16 bytes of float, 8 of bfloat16) where every pointer
+//   is aligned to it and D % 4 == 0 (V = 4), else one lane read by a scalar
+//   load (V = 1).
 // - Warp w of a row owns slots [w * S, (w + 1) * S), S = 32 * ceil(slots /
 //   (32 W)); in iteration k its lane l holds slot w * S + 32 k + l, so each
-//   warp-wide load covers 512 (or 128) contiguous bytes. The slots are
+//   warp-wide load covers 512 (or 128) contiguous bytes of float. The slots are
 //   unrolled register arrays: every load of a batch is issued before any
 //   arithmetic.
 // - Rosenbrock's lane d+1 comes from registers: inside a slot from the same
@@ -42,6 +43,10 @@
 // - A row longer than one batch (more than 8 * 32 * K slots) is walked in
 //   batches by eight warps; the carry crosses batches.
 //
+// Storage: rows are float32 or bfloat16 (`T` of load, store and their
+// batches). A bfloat16 lane widens to float32 as it is loaded and is
+// rounded to nearest even as it is stored; everything between is float32.
+//
 // Numerics as eval_tile.cuh: float32 throughout, accurate sinf/cosf/expf/
 // sqrtf (no --use_fast_math), constants rounded to float32, x**20 by
 // repeated squaring. Only the order of the sum changes: each thread adds its
@@ -51,6 +56,9 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "bf16.cuh"       // to_f, from_f
 #include "eval_tile.cuh"  // Tag, sq, pow20, the constants, POPT_DISPATCH_TAG
 
 namespace popt {
@@ -65,37 +73,74 @@ __host__ __device__ constexpr bool is_rosenbrock(int tag) {
   return tag == kRosenbrock || tag == kShiftedRosenbrock;
 }
 
-// V consecutive lanes of a row.
+// V consecutive lanes of a row, in float32 whatever the storage type.
 template <int V>
 struct Slot {
   float v[V];
 };
 
-// Slot s of p. kStream: data read once (evict first from L1 and L2, so
-// what is read again, such as de_step's donor rows, stays in L2).
-template <int V, bool kStream = false>
-__device__ __forceinline__ Slot<V> load(const float* __restrict__ p, int s) {
+// Lanes stored as bfloat16 widen to float32 exactly: the 16 bits are the
+// high half of the float.
+__device__ __forceinline__ float widen(unsigned bits) { return __uint_as_float(bits << 16); }
+
+// Slot s of p, whose lanes are stored as T (float or __nv_bfloat16). A
+// 4-lane slot is one 16-byte load of float4, or one 8-byte load of four
+// bfloat16. kStream: data read once (evict first from L1 and L2, so what is
+// read again, such as de_step's donor rows, stays in L2).
+template <int V, bool kStream = false, typename T>
+__device__ __forceinline__ Slot<V> load(const T* __restrict__ p, int s) {
   Slot<V> x;
-  if constexpr (V == 4) {
-    const float4* q4 = reinterpret_cast<const float4*>(p) + s;
-    const float4 q = kStream ? __ldcs(q4) : __ldg(q4);
-    x.v[0] = q.x;
-    x.v[1] = q.y;
-    x.v[2] = q.z;
-    x.v[3] = q.w;
+  if constexpr (std::is_same_v<T, float>) {
+    if constexpr (V == 4) {
+      const float4* q4 = reinterpret_cast<const float4*>(p) + s;
+      const float4 q = kStream ? __ldcs(q4) : __ldg(q4);
+      x.v[0] = q.x;
+      x.v[1] = q.y;
+      x.v[2] = q.z;
+      x.v[3] = q.w;
+    } else {
+      x.v[0] = kStream ? __ldcs(p + s) : __ldg(p + s);
+    }
   } else {
-    x.v[0] = kStream ? __ldcs(p + s) : __ldg(p + s);
+    static_assert(std::is_same_v<T, __nv_bfloat16>, "float or bfloat16 storage");
+    if constexpr (V == 4) {
+      const uint2* q2 = reinterpret_cast<const uint2*>(p) + s;
+      const uint2 q = kStream ? __ldcs(q2) : __ldg(q2);
+      x.v[0] = widen(q.x & 0xffffu);
+      x.v[1] = widen(q.x >> 16);
+      x.v[2] = widen(q.y & 0xffffu);
+      x.v[3] = widen(q.y >> 16);
+    } else {
+      const unsigned short* h = reinterpret_cast<const unsigned short*>(p) + s;
+      x.v[0] = widen(kStream ? __ldcs(h) : __ldg(h));
+    }
   }
   return x;
 }
 
-// Writes slot s of p as streaming data (evict first).
-template <int V>
-__device__ __forceinline__ void store(float* __restrict__ p, int s, const Slot<V>& x) {
-  if constexpr (V == 4) {
-    __stcs(reinterpret_cast<float4*>(p) + s, make_float4(x.v[0], x.v[1], x.v[2], x.v[3]));
+// The bits of x rounded to bfloat16 (to nearest even, NaN kept).
+__device__ __forceinline__ unsigned narrow(float x) {
+  return __bfloat16_as_ushort(popt::from_f<__nv_bfloat16>(x));
+}
+
+// Writes slot s of p as streaming data (evict first), rounding to T.
+template <int V, typename T>
+__device__ __forceinline__ void store(T* __restrict__ p, int s, const Slot<V>& x) {
+  if constexpr (std::is_same_v<T, float>) {
+    if constexpr (V == 4) {
+      __stcs(reinterpret_cast<float4*>(p) + s, make_float4(x.v[0], x.v[1], x.v[2], x.v[3]));
+    } else {
+      __stcs(p + s, x.v[0]);
+    }
   } else {
-    __stcs(p + s, x.v[0]);
+    if constexpr (V == 4) {
+      __stcs(reinterpret_cast<uint2*>(p) + s,
+             make_uint2(narrow(x.v[0]) | (narrow(x.v[1]) << 16),
+                        narrow(x.v[2]) | (narrow(x.v[3]) << 16)));
+    } else {
+      __stcs(reinterpret_cast<unsigned short*>(p) + s,
+             static_cast<unsigned short>(narrow(x.v[0])));
+    }
   }
 }
 
@@ -130,8 +175,8 @@ struct Place {
 
 // Loads this thread's slots of batch kb of `row`; slots it does not hold
 // are zero.
-template <int V, int K, bool kStream = false>
-__device__ __forceinline__ void load_batch(const float* __restrict__ row, const Place& at,
+template <int V, int K, bool kStream = false, typename T>
+__device__ __forceinline__ void load_batch(const T* __restrict__ row, const Place& at,
                                            int kb, Slot<V> (&x)[K]) {
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -317,8 +362,8 @@ __device__ __forceinline__ void eval_batch(Acc<TAG>& acc, const Place& at, int k
 }
 
 // Writes this thread's slots of batch kb of `out`: x where `first`, else y.
-template <int V, int K>
-__device__ __forceinline__ void store_batch(float* __restrict__ out, const Place& at, int kb,
+template <int V, int K, typename T>
+__device__ __forceinline__ void store_batch(T* __restrict__ out, const Place& at, int kb,
                                             bool first, const Slot<V> (&x)[K],
                                             const Slot<V> (&y)[K]) {
 #pragma unroll

@@ -30,21 +30,33 @@
 // trial is accepted: one round trip, for simplicity. Reading it after the
 // decision, only where the trial was not accepted, was 0.4-1.6% faster on
 // the H100 at half the rows accepted (PERF.md).
+//
+// Storage: pop, trial, the shift and the new population are float32 here;
+// eval_select_bf16.cu includes this file with bfloat16 (POPT_STORAGE). Every
+// lane widens to float32 as it is loaded; fit and thresh stay float32.
 #include <cstdint>
 
 #include "eval_row.cuh"
+
+// The storage type of the (rows, D) rows and the shift, and the C entry's
+// name.
+#ifndef POPT_STORAGE
+#define POPT_STORAGE float
+#define POPT_ENTRY eval_select_launch
+#endif
 
 namespace {
 
 using namespace popt::row;
 
+template <typename T>
 struct Args {
-  const float* pop;
+  const T* pop;
   const float* fit;
-  const float* trial;
+  const T* trial;
   const float* thresh;  // nullptr: greedy (a threshold of 0)
-  const float* shift;   // nullptr when unshifted
-  float* npop;
+  const T* shift;       // nullptr when unshifted
+  T* npop;
   float* nfit;
   bool* acc;
   int rows, D;
@@ -57,7 +69,8 @@ struct Head {
   float thresh = 0.0f;
 };
 
-__device__ __forceinline__ Head load_head(const Args& a, const Place& at) {
+template <typename T>
+__device__ __forceinline__ Head load_head(const Args<T>& a, const Place& at) {
   Head h;
   if (at.active) {
     h.fit = a.fit[at.r];
@@ -67,7 +80,8 @@ __device__ __forceinline__ Head load_head(const Args& a, const Place& at) {
 }
 
 // The decision: the new fitness and the accept flag, written once.
-__device__ __forceinline__ bool decide(const Args& a, const Place& at, const Head& h,
+template <typename T>
+__device__ __forceinline__ bool decide(const Args<T>& a, const Place& at, const Head& h,
                                        float tfit) {
   const float dF = __fsub_rn(tfit, h.fit);
   const bool accept = (dF <= 0.0f) || (dF < h.thresh);
@@ -79,9 +93,9 @@ __device__ __forceinline__ bool decide(const Args& a, const Place& at, const Hea
 }
 
 // The whole row in registers (at.iters <= K): one pass.
-template <int TAG, int V, int K>
+template <int TAG, int V, int K, typename T>
 __global__ void __launch_bounds__(kBlockThreads)
-eval_select_staged(const Args a, int W) {
+eval_select_staged(const Args<T> a, int W) {
   const Place at(W, a.rows, a.D / V);
   const Head h = load_head(a, at);
   const size_t off = static_cast<size_t>(at.active ? at.r : 0) * a.D;
@@ -98,9 +112,9 @@ eval_select_staged(const Args a, int W) {
 
 // A row longer than one batch: pass 1 evaluates the trial batch by batch,
 // pass 2 copies the trial or the incumbent batch by batch.
-template <int TAG, int V>
+template <int TAG, int V, typename T>
 __global__ void __launch_bounds__(kBlockThreads)
-eval_select_stream(const Args a, int W) {
+eval_select_stream(const Args<T> a, int W) {
   constexpr int K = kMaxSlots;
   const Place at(W, a.rows, a.D / V);
   const Head h = load_head(a, at);
@@ -114,58 +128,58 @@ eval_select_stream(const Args a, int W) {
   }
   const float tfit = fitness<TAG>(acc, W, at, a.D, a.bias, true);
   if (!at.active) return;
-  const float* src = (decide(a, at, h, tfit) ? a.trial : a.pop) + off;
+  const T* src = (decide(a, at, h, tfit) ? a.trial : a.pop) + off;
   for (int kb = 0; kb < at.iters; kb += K) {
     load_batch<V, K>(src, at, kb, x);
     store_batch<V, K>(a.npop + off, at, kb, true, x, x);
   }
 }
 
-template <int TAG, int V>
-int launch_v(const Args& a, int W, int R, int K, int staged, cudaStream_t s) {
+template <int TAG, int V, typename T>
+int launch_v(const Args<T>& a, int W, int R, int K, int staged, cudaStream_t s) {
   const dim3 grid((a.rows + R - 1) / R), block(32 * W * R);
   if (!staged) {
-    eval_select_stream<TAG, V><<<grid, block, 0, s>>>(a, W);
+    eval_select_stream<TAG, V, T><<<grid, block, 0, s>>>(a, W);
     return 0;
   }
   const int slots = a.D / V;
   if (slots > 32 * W * K) return static_cast<int>(cudaErrorInvalidValue);
   switch (K) {
-    case 2: eval_select_staged<TAG, V, 2><<<grid, block, 0, s>>>(a, W); break;
-    case 4: eval_select_staged<TAG, V, 4><<<grid, block, 0, s>>>(a, W); break;
+    case 2: eval_select_staged<TAG, V, 2, T><<<grid, block, 0, s>>>(a, W); break;
+    case 4: eval_select_staged<TAG, V, 4, T><<<grid, block, 0, s>>>(a, W); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
 }
 
-template <int TAG>
-int launch(const Args& a, int vec, int W, int R, int K, int staged, cudaStream_t s) {
+template <int TAG, typename T>
+int launch(const Args<T>& a, int vec, int W, int R, int K, int staged, cudaStream_t s) {
   return vec ? launch_v<TAG, 4>(a, W, R, K, staged, s)
              : launch_v<TAG, 1>(a, W, R, K, staged, s);
 }
 
 }  // namespace
 
-// pop, trial (rows, D) float32; fit (rows,); thresh (rows,) or null (greedy);
-// shift (D,) or null. Geometry from kernels/bench_eval.py::launch_geometry:
-// `vec` (16-byte loads; needs D % 4 == 0 and pop, trial, shift and npop
-// 16-byte aligned), W warps per row (a power of two), R rows per block
-// (W * R <= 8), K slots per thread (2 or 4), and `staged` (the row fits
-// W * 32 * K slots: one pass) or not (two passes in batches). Writes npop
-// (rows, D), nfit (rows,) and acc (rows,) bool on `stream` and returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a geometry the kernel
-// does not take.
-extern "C" int eval_select_launch(const float* pop, const float* fit,
-                                  const float* trial, const float* thresh,
-                                  const float* shift, float* npop, float* nfit,
-                                  bool* acc, int rows, int D, int tag, float bias,
-                                  int vec, int W, int R, int K, int staged,
-                                  void* stream) {
+// pop, trial (rows, D) of the storage type; fit (rows,) float32; thresh
+// (rows,) float32 or null (greedy); shift (D,) of the storage type or null.
+// Geometry from kernels/autotune.py: `vec` (4-lane vector loads; needs
+// D % 4 == 0 and pop, trial, shift and npop aligned to 4 elements), W warps
+// per row (a power of two), R rows per block (W * R <= 8), K slots per
+// thread (2 or 4), and `staged` (the row fits W * 32 * K slots: one pass)
+// or not (two passes in batches). Writes npop (rows, D), nfit (rows,) and
+// acc (rows,) bool on `stream` and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a geometry the kernel does not take.
+extern "C" int POPT_ENTRY(const POPT_STORAGE* pop, const float* fit,
+                          const POPT_STORAGE* trial, const float* thresh,
+                          const POPT_STORAGE* shift, POPT_STORAGE* npop,
+                          float* nfit, bool* acc, int rows, int D, int tag,
+                          float bias, int vec, int W, int R, int K, int staged,
+                          void* stream) {
   if (rows <= 0) return 0;
   if (W < 1 || (W & (W - 1)) != 0 || R < 1 || W * R > kMaxWarps || (vec && D % 4 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{pop, fit, trial, thresh, shift, npop, nfit, acc, rows, D, bias};
+  const Args<POPT_STORAGE> a{pop, fit, trial, thresh, shift, npop, nfit, acc, rows, D, bias};
   int err = 0;
 #define LAUNCH(T) err = launch<T>(a, vec, W, R, K, staged, s)
   POPT_DISPATCH_TAG(tag, LAUNCH)

@@ -42,25 +42,38 @@
 // launches; reading the old slot row only where the child did not take
 // was up to 4.5% slower at 200 and 8 x 1 rows, up to 1.7% faster at
 // 8 x 200 (PERF.md).
+//
+// Storage: p1, p2, the slot rows, um, noise and the shift are float32 here;
+// ga_step_bf16.cu includes this file with bfloat16 (POPT_STORAGE). Then
+// every lane widens to float32 as it is loaded, the child is built and
+// evaluated in float32 and rounded to bfloat16 as it is stored; slot_f and
+// co stay float32.
 #include <cstdint>
 
 #include "eval_row.cuh"
+
+// The storage type of the (N, D) rows and the shift, and the C entry's name.
+#ifndef POPT_STORAGE
+#define POPT_STORAGE float
+#define POPT_ENTRY ga_step_launch
+#endif
 
 namespace {
 
 using namespace popt::row;
 
+template <typename T>
 struct Args {
-  const float* p1;
-  const float* p2;
-  const float* slot;
+  const T* p1;
+  const T* p2;
+  const T* slot;
   const float* slot_f;
   const int64_t* cut;
   const float* co;
-  const float* um;
-  const float* nz;
-  const float* shift;  // nullptr when unshifted
-  float* nslot;
+  const T* um;
+  const T* nz;
+  const T* shift;  // nullptr when unshifted
+  T* nslot;
   float* nslot_f;
   bool* take;
   int rows, D;
@@ -74,7 +87,8 @@ struct Head {
   float slot_f = 0.0f;
 };
 
-__device__ __forceinline__ Head load_head(const Args& a, const Place& at) {
+template <typename T>
+__device__ __forceinline__ Head load_head(const Args<T>& a, const Place& at) {
   Head h;
   if (at.active) {
     const int64_t cut = a.cut[at.r];
@@ -86,24 +100,27 @@ __device__ __forceinline__ Head load_head(const Args& a, const Place& at) {
 
 // Slot s of the child's parent lanes: p1 below `split`, p2 from it on. The
 // one slot that straddles `split` is read lane by lane from both.
-template <int V>
-__device__ __forceinline__ Slot<V> load_parent(const float* __restrict__ p1,
-                                               const float* __restrict__ p2, int s,
+template <int V, typename T>
+__device__ __forceinline__ Slot<V> load_parent(const T* __restrict__ p1,
+                                               const T* __restrict__ p2, int s,
                                                int64_t split) {
   const int64_t d0 = static_cast<int64_t>(s) * V;
   if (d0 + V <= split) return load<V>(p1, s);
   if (d0 >= split) return load<V>(p2, s);
   Slot<V> x;
 #pragma unroll
-  for (int j = 0; j < V; ++j) x.v[j] = __ldg((d0 + j < split ? p1 : p2) + d0 + j);
+  for (int j = 0; j < V; ++j) {
+    const int d = static_cast<int>(d0) + j;
+    x.v[j] = load<1>(d < split ? p1 : p2, d).v[0];
+  }
   return x;
 }
 
 // Batch kb of the row at `off`: loads um, noise and (`with_shift`) the
 // shift sh; then, once the head has arrived, the parent lanes the child
 // takes; builds the child c.
-template <int V, int K>
-__device__ __forceinline__ void child_batch(const Args& a, const Place& at, const Head& h,
+template <int V, int K, typename T>
+__device__ __forceinline__ void child_batch(const Args<T>& a, const Place& at, const Head& h,
                                             size_t off, int kb, bool with_shift,
                                             Slot<V> (&c)[K], Slot<V> (&sh)[K]) {
   Slot<V> uu[K], nz[K];
@@ -125,7 +142,8 @@ __device__ __forceinline__ void child_batch(const Args& a, const Place& at, cons
 }
 
 // The decision: the slot's new fitness and the take flag, written once.
-__device__ __forceinline__ bool decide(const Args& a, const Place& at, const Head& h,
+template <typename T>
+__device__ __forceinline__ bool decide(const Args<T>& a, const Place& at, const Head& h,
                                        float cfit) {
   const bool take = cfit < h.slot_f;
   if (at.w == 0 && at.lane == 0) {
@@ -136,9 +154,9 @@ __device__ __forceinline__ bool decide(const Args& a, const Place& at, const Hea
 }
 
 // The whole row in registers (at.iters <= K): one pass.
-template <int TAG, int V, int K>
+template <int TAG, int V, int K, typename T>
 __global__ void __launch_bounds__(kBlockThreads)
-ga_step_staged(const Args a, int W) {
+ga_step_staged(const Args<T> a, int W) {
   const Place at(W, a.rows, a.D / V);
   const Head h = load_head(a, at);
   const size_t off = static_cast<size_t>(at.active ? at.r : 0) * a.D;
@@ -155,9 +173,9 @@ ga_step_staged(const Args a, int W) {
 // A row longer than one batch: pass 1 evaluates the child batch by batch,
 // pass 2 rebuilds each batch's child where it took (or reads the old slot
 // row) and writes it.
-template <int TAG, int V>
+template <int TAG, int V, typename T>
 __global__ void __launch_bounds__(kBlockThreads)
-ga_step_stream(const Args a, int W) {
+ga_step_stream(const Args<T> a, int W) {
   constexpr int K = kMaxSlots;
   const Place at(W, a.rows, a.D / V);
   const Head h = load_head(a, at);
@@ -180,55 +198,56 @@ ga_step_stream(const Args a, int W) {
   }
 }
 
-template <int TAG, int V>
-int launch_v(const Args& a, int W, int R, int K, int staged, cudaStream_t s) {
+template <int TAG, int V, typename T>
+int launch_v(const Args<T>& a, int W, int R, int K, int staged, cudaStream_t s) {
   const dim3 grid((a.rows + R - 1) / R), block(32 * W * R);
   if (!staged) {
-    ga_step_stream<TAG, V><<<grid, block, 0, s>>>(a, W);
+    ga_step_stream<TAG, V, T><<<grid, block, 0, s>>>(a, W);
     return 0;
   }
   const int slots = a.D / V;
   if (slots > 32 * W * K) return static_cast<int>(cudaErrorInvalidValue);
   switch (K) {
-    case 2: ga_step_staged<TAG, V, 2><<<grid, block, 0, s>>>(a, W); break;
-    case 4: ga_step_staged<TAG, V, 4><<<grid, block, 0, s>>>(a, W); break;
+    case 2: ga_step_staged<TAG, V, 2, T><<<grid, block, 0, s>>>(a, W); break;
+    case 4: ga_step_staged<TAG, V, 4, T><<<grid, block, 0, s>>>(a, W); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
 }
 
-template <int TAG>
-int launch(const Args& a, int vec, int W, int R, int K, int staged, cudaStream_t s) {
+template <int TAG, typename T>
+int launch(const Args<T>& a, int vec, int W, int R, int K, int staged, cudaStream_t s) {
   return vec ? launch_v<TAG, 4>(a, W, R, K, staged, s)
              : launch_v<TAG, 1>(a, W, R, K, staged, s);
 }
 
 }  // namespace
 
-// p1, p2, slot, um, noise (N, D) float32 with N = islands * offspring rows;
-// slot_f, co (N,) float32; cut (N,) int64; shift (D,) or null. Geometry
-// from kernels/bench_eval.py::launch_geometry: `vec` (16-byte loads; needs
-// D % 4 == 0 and every row pointer 16-byte aligned), W warps per row (a
-// power of two), R rows per block (W * R <= 8), K slots per thread (2 or
-// 4), and `staged` (the row fits W * 32 * K slots: one pass) or not (two
-// passes in batches). Writes nslot (N, D), nslot_f (N,) and take (N,) bool
-// on `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for
-// a geometry the kernel does not take.
-extern "C" int ga_step_launch(const float* p1, const float* p2,
-                              const float* slot, const float* slot_f,
-                              const int64_t* cut, const float* co,
-                              const float* um, const float* nz,
-                              const float* shift, float* nslot, float* nslot_f,
-                              bool* take, int N, int D, int tag, float bias,
-                              float pc, float pm, float sigma_m, float lo,
-                              float hi, int vec, int W, int R, int K, int staged,
-                              void* stream) {
+// p1, p2, slot, um, noise (N, D) of the storage type with N = islands *
+// offspring rows; slot_f, co (N,) float32; cut (N,) int64; shift (D,) of
+// the storage type or null. Geometry from kernels/autotune.py: `vec` (4-lane
+// vector loads; needs D % 4 == 0 and every row pointer aligned to 4
+// elements), W warps per row (a power of two), R rows per block (W * R <=
+// 8), K slots per thread (2 or 4), and `staged` (the row fits W * 32 * K
+// slots: one pass) or not (two passes in batches). Writes nslot (N, D),
+// nslot_f (N,) and take (N,) bool on `stream` and returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a geometry the kernel
+// does not take.
+extern "C" int POPT_ENTRY(const POPT_STORAGE* p1, const POPT_STORAGE* p2,
+                          const POPT_STORAGE* slot, const float* slot_f,
+                          const int64_t* cut, const float* co,
+                          const POPT_STORAGE* um, const POPT_STORAGE* nz,
+                          const POPT_STORAGE* shift, POPT_STORAGE* nslot,
+                          float* nslot_f, bool* take, int N, int D, int tag,
+                          float bias, float pc, float pm, float sigma_m,
+                          float lo, float hi, int vec, int W, int R, int K,
+                          int staged, void* stream) {
   if (N <= 0) return 0;
   if (W < 1 || (W & (W - 1)) != 0 || R < 1 || W * R > kMaxWarps || (vec && D % 4 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{p1, p2, slot, slot_f, cut, co, um, nz, shift, nslot, nslot_f, take,
-               N, D, bias, pc, pm, sigma_m, lo, hi};
+  const Args<POPT_STORAGE> a{p1, p2, slot, slot_f, cut, co, um, nz, shift, nslot,
+                            nslot_f, take, N, D, bias, pc, pm, sigma_m, lo, hi};
   int err = 0;
 #define LAUNCH(T) err = launch<T>(a, vec, W, R, K, staged, s)
   POPT_DISPATCH_TAG(tag, LAUNCH)

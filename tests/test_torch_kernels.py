@@ -262,7 +262,7 @@ def test_bench_eval_kernel_unaligned_view(cuda_dev, fn, P, D):
     f = tbm.FUNCTIONS.get(fn, tbm.FUNCTIONS["rosenbrock"])
     x = np.random.default_rng(D).uniform(max(f.lo, -5.0), min(f.hi, 5.0), (P, D))
     pop = _unaligned(x.astype(np.float32), cuda_dev)
-    assert not be.geometry_for(P, D, pop).vec
+    assert not be.tuned_geometry("bench_eval", None, P, D, fn, pop).vec
     got = be.bench_eval(pop, fn)
     want = be.bench_eval_ref(pop, fn)
     assert _rel(got.cpu(), want.cpu()) < (1e-4 if fn == "michalewicz" else 1e-5)
@@ -294,7 +294,8 @@ def _check_de_step(pop, u, idx, jr, D):
 def test_de_step_kernel_matches_plain(cuda_dev, lead, P, D):
     pop, u, idx, jr = (torch.from_numpy(a).to(cuda_dev)
                        for a in _de_inputs(P, D, lead, seed=P))
-    staged = be.geometry_for(pop[..., 0].numel(), D, pop, u).staged
+    staged = be.tuned_geometry("de_step", None, pop[..., 0].numel(), D, "shifted_rosenbrock",
+                               pop, u).staged
     assert staged == (D not in STAGE_CAP_D)
     _check_de_step(pop, u, idx, jr, D)
 
@@ -304,7 +305,7 @@ def test_de_step_kernel_matches_plain(cuda_dev, lead, P, D):
 def test_de_step_kernel_unaligned_views(cuda_dev, P, D):
     pop, u, idx, jr = _de_inputs(P, D, seed=P)
     pop, u = (_unaligned(a, cuda_dev) for a in (pop, u))
-    assert not be.geometry_for(P, D, pop, u).vec
+    assert not be.tuned_geometry("de_step", None, P, D, "shifted_rosenbrock", pop, u).vec
     _check_de_step(pop, u, torch.from_numpy(idx).to(cuda_dev),
                    torch.from_numpy(jr).to(cuda_dev), D)
 
@@ -412,7 +413,8 @@ def _check_eval_select(arrs, shift, dF, label):
 def test_ga_step_kernel_matches_plain(cuda_dev, shape):
     arrs, shift = _ga_on_card(shape, cuda_dev, seed=shape[-1])
     *lead, N, D = shape
-    assert be.geometry_for(math.prod(lead) * N, D, *arrs[:3]).staged == (D not in STAGE_CAP_D)
+    assert be.tuned_geometry("ga_step", None, math.prod(lead) * N, D, "shifted_rosenbrock",
+                             *arrs[:3]).staged == (D not in STAGE_CAP_D)
     _check_ga_step(arrs, shift, shape)
 
 
@@ -428,8 +430,9 @@ def test_eval_select_kernel_matches_plain(cuda_dev, shape):
 def test_ga_step_and_eval_select_kernels_unaligned_views(cuda_dev, shape):
     """Every row input one float past an aligned start: scalar slots."""
     arrs, shift = _ga_on_card(shape, cuda_dev, seed=1, unaligned=True)
-    assert not be.geometry_for(shape[0], shape[1], *arrs[:3]).vec
+    assert not be.tuned_geometry("ga_step", None, *shape, "shifted_rosenbrock", *arrs[:3]).vec
     _check_ga_step(arrs, shift, shape)
     arrs, shift, dF = _es_on_card(shape, cuda_dev, seed=2, unaligned=True)
-    assert not be.geometry_for(shape[0], shape[1], arrs[0], arrs[2]).vec
+    assert not be.tuned_geometry("eval_select", None, *shape, "shifted_rosenbrock", arrs[0],
+                                 arrs[2]).vec
     _check_eval_select(arrs, shift, dF, shape)

@@ -110,7 +110,7 @@ def cases(dev) -> dict:
     idx = ((torch.arange(P) + 1 + torch.randint(0, P - 1, (3, P), generator=gen)) % P).to(dev)
     jr = torch.randint(0, D, (P,), generator=gen).to(dev)
     npop, nfit = torch.empty_like(pop), torch.empty_like(fit)
-    g = be.geometry_for(P, D, pop, u, shift, npop)
+    g = be.tuned_geometry("de_step", None, P, D, FN, pop, u, shift, npop)
     de_args = (pop, fit, idx, u, jr, shift, npop, nfit, P, P, D, TAG, BIAS, 0.5, 0.2,
                -100.0, 100.0, int(g.vec), g.warps_per_row, g.rows_per_block,
                g.slots_per_thread, int(g.staged))
@@ -122,7 +122,7 @@ def cases(dev) -> dict:
     outs = [torch.empty_like(x) for _ in range(2)] + [torch.empty_like(pbf),
                                                      torch.empty_like(x), torch.empty_like(pbf)]
     kw = (BIAS, 0.6, 1.0, 1.0, 40.0, -100.0, 100.0)
-    ps_args = (x, v, pb, pbf, r1, r2, gb, shift, *outs, P, P, D, TAG, *kw)
+    ps_args = (x, v, pb, pbf, r1, r2, gb, shift, *outs, P, P, D, TAG, *kw, ps.MAX_THREADS)
     ps_want = ps.pso_step_ref(x, v, pb, pbf, r1, r2, gb, FN, shift, *kw)
     return {"de_step": (de_args, (npop, nfit), de_want),
             "pso_step": (ps_args, tuple(outs), ps_want)}

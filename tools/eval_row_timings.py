@@ -20,8 +20,8 @@ Run from the root of a checkout on a machine with a Hopper GPU:
   current kernel through its wrapper, which allocates its outputs.
 - ``sweep``: each kernel through its C entry at every geometry the kernel
   takes (16-byte or scalar slots, warps per row x rows per block up to 8
-  warps, the staged kernels' slots per thread), beside the one
-  ``launch_geometry`` picks.
+  warps, the staged kernels' slots per thread), beside the one the
+  wrapper launches (``tuned_geometry``).
 
 Shapes: every shape the main path launches each kernel at. bench_eval:
 Table I's population (800 x 1000) and the chunked path's 100-row chunk;
@@ -240,8 +240,8 @@ class GaCase(_Deciding):
                 LO, HI)
 
     def geometry(self):
-        return be.geometry_for(self.R, self.D, self.p1, self.p2, self.slot, self.um,
-                               self.nz, self.shift, self.out[0])
+        return be.tuned_geometry("ga_step", None, self.R, self.D, FN, self.p1, self.p2,
+                                 self.slot, self.um, self.nz, self.shift, self.out[0])
 
     def new(self):
         return gs.ga_step(*self.inputs)
@@ -272,7 +272,8 @@ class EsCase(_Deciding):
                 self.D, TAG, BIAS)
 
     def geometry(self):
-        return be.geometry_for(self.R, self.D, self.pop, self.trial, self.shift, self.out[0])
+        return be.tuned_geometry("eval_select", None, self.R, self.D, FN, self.pop, self.trial,
+                                 self.shift, self.out[0])
 
     def new(self):
         return es.eval_select(*self.inputs)
@@ -310,9 +311,10 @@ def _case(name, gen, shape, dev, dead):
 
 def _geometry(name, case):
     if name == "bench_eval":
-        return be.geometry_for(case.P, case.D, case.pop, case.shift)
+        return be.tuned_geometry("bench_eval", None, case.P, case.D, FN, case.pop, case.shift)
     if name == "de_step":
-        return be.geometry_for(case.R, case.D, case.pop, case.u, case.shift)
+        return be.tuned_geometry("de_step", None, case.R, case.D, FN, case.pop, case.u,
+                                 case.shift)
     return case.geometry()
 
 
