@@ -175,7 +175,31 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      of those shapes in both storage types the seconds of ``choose``, the
      model's pick, the measured pick (``measure=True``) and
      ``launch_geometry``'s pick (pso_step's old 256 threads) timed in
-     turns.
+     turns;
+ 26. sharded training (``launch.train.train(mesh=...)`` on DTensor, the
+     ``parallel.sharding`` rules) over 2 gloo ranks on cuda:0, every
+     collective staged through host memory (``launch.mesh.StagedGloo``),
+     at full width, bf16 on float32 masters, 512-token rows
+     (``SHARD_RUNS``): A, llama3.2-1b at 2 of its 16 layers
+     (``PHASE26_DEPTH``) on a (1, 2) mesh with batch 8 and on (2, 1) with
+     batch 16 (the batch over data); B, mamba2-370m at 4 of 48 layers on
+     (1, 2); C, granite-3-8b under tp+fsdp at 2 layers on (2, 1): each
+     the unsharded ``train`` on each rank, then 3 steps of
+     ``train(mesh=)`` (B 4) with the counters reset just before and read
+     just after (each rank's launches of the four model kernels at its own
+     batch rows and heads, ``train_cases``); each rank's shards after step
+     1 against the same slices of the unsharded step 1 (same weights and
+     batch, ``TRAIN_TOL``'s bf16 bounds: loss, first moments, params), the
+     losses against the unsharded ones, ms/step of the later steps each
+     way on rank 0's host clock, each rank's bytes of params and moments
+     (about half the unsharded under C's tp+fsdp); D, B's run checkpointed
+     every 2 steps, its step-2 checkpoint restored onto (2, 1) (each rank's
+     shards bit-equal to the saved files' slices) and resumed there, and
+     resumed on (1, 2) bit-identical to B's 4 steps in one call; E,
+     ``compressed_pod_mean`` on a (2, 1, 1) pod mesh on the card, its int8
+     payload and mean bit-equal to the CPU's. The ranks record their
+     launches and launch shapes, which come
+     back to the phase (``--phases 1,26`` runs it with its kernel checks).
 
 flash_attention and ssd_scan take two routes by the input's type: bfloat16
 runs the tensor-core kernels (``csrc/*_tc.cu``), float32 the CUDA-core
@@ -195,22 +219,28 @@ timed with bfloat16 storage at their first two shapes (bound at 2 bytes
 an element). The main-path runs of GA and SA also
 report the share of rows their fused kernel took or accepted.
 
-Phases 3-5, 7, 8, 10, 11, 13, 15-19, 21 and 23 are the main path: each run resets
-the kernels' launch counters, drives its entry point
+Phases 3-5, 7, 8, 10, 11, 13, 15-19, 21, 23 and 26 are the main path: each run
+resets the kernels' launch counters, drives its entry point
 (``IslandOptimizer.minimize``, ``explore_then_polish``, ``serve``, a prefill
-step, ``launch.steps``, ``OptimizationService.handle``, ``launch.train.train``)
-and reads the counters right after. Each engine configuration is then profiled over a few rounds of a
+step, ``launch.steps``, ``OptimizationService.handle``, ``launch.train.train``,
+over a mesh in 26) and reads the counters right after. Each engine configuration is then profiled over a few rounds of a
 further run, init excluded, and each serve run over a few further decode
 steps, for the device's busy time and idle share.
 Every launch records its kernel and input shape; the run fails if a phase
 launched a kernel at a shape phase 1 did not check, or if a run marked to
 adopt migrants never did.
 
-Phases 6, 10-15 and 19-24 run in a second process of this script, started
-after the build, beside the first process's phases 1-5, 7-9 and 16-18
-(``SECOND_PROCESS_PHASES``); both drive the one card, so each phase's
-seconds and host-clock readings are taken beside the other process's
-work. The second process's lines are relayed through the first; when it
+Phases 6, 10-12, 14, 15, 19-24 and 26 run in a second process of this
+script, started after the build, beside the first process's phases 1-5,
+7-9, 13, 16-18 and 25 (``SECOND_PROCESS_PHASES``); both drive the one
+card, so each phase's seconds and host-clock readings are taken beside
+the other process's work. Phase 26 comes last in the second process: its
+two ranks peak near 50 GB of the card together (granite-3-8b's unsharded
+steps), so it must not meet the second process's model phases (phase 19
+holds 40-57 GB, phase 23's llama 42), and beside it the first process
+runs only population engines. Phase 13 moved to the first process for
+it: before phase 26 the two processes' phases took 622 and 630 s on an
+H100 80GB HBM3 at 700 W. The second process's lines are relayed through the first; when it
 ends, its launches, errors and launch shapes join the first's record. The
 kernel timings run after both, alone on the card.
 
@@ -1009,16 +1039,19 @@ def port_modules() -> types.SimpleNamespace:
                                      flash_attention, flash_attention_bwd, ga_step,
                                      pso_step, ssd_scan, ssd_scan_bwd)
     from repro_torch import data
+    from repro_torch.launch import mesh as lmesh
     from repro_torch.launch import serve, steps, train
     from repro_torch.models import layers, transformer
     from repro_torch.optim import adam
+    from repro_torch.parallel import compress, sharding
     return types.SimpleNamespace(
         prng=prng, de=de, bm=bm, bench_eval=bench_eval, de_step=de_step,
         autotune=autotune, KernelConfig=autotune.KernelConfig,
         eval_select=eval_select, pso_step=pso_step, ga_step=ga_step,
         flash_attention=flash_attention, ssd_scan=ssd_scan,
         flash_attention_bwd=flash_attention_bwd, ssd_scan_bwd=ssd_scan_bwd,
-        train=train, data=data, adam=adam,
+        train=train, data=data, adam=adam, lmesh=lmesh, sharding=sharding,
+        compress=compress,
         ALGORITHMS=ALGORITHMS, migration=migration, mesh=mesh, executor=executor,
         OptRequest=OptRequest,
         _build=_build, ExecutorConfig=ExecutorConfig, IslandConfig=IslandConfig,
@@ -1554,7 +1587,7 @@ def main_path_phases() -> dict[str, set[int]]:
         for r in runs:
             for k in MODEL_KERNEL[r.arch]:
                 out[k].add(phase)
-    for phase, runs in TRAIN_RUNS.items():
+    for phase, runs in (*TRAIN_RUNS.items(), *SHARD_RUNS.items()):
         for r in runs:
             for k in MODEL_KERNEL[r.arch]:
                 out[k].add(phase)
@@ -3339,6 +3372,10 @@ class TrainRun:
     n_layers: int = 0
     compute_dtype: str = "bfloat16"
     drill: bool = False
+    # Phase 26: the (data, model) mesh of the ranks, and the sharding mode
+    # ("" keeps the config's).
+    mesh: tuple = ()
+    mode: str = ""
 
 
 # llama3.2-1b and mamba2-370m at their own training shape (seq_len 512,
@@ -3394,32 +3431,59 @@ def train_cfg(rt, r: TrainRun):
     over = {"compute_dtype": r.compute_dtype, "seq_len": r.seq, "global_batch": r.batch}
     if r.n_layers:
         over["n_layers"] = r.n_layers
+    if r.mode:
+        over["sharding_mode"] = r.mode
     return dataclasses.replace(rt.get_config(r.arch), **over)
 
 
+def _rank_share(rt, cfg, r: TrainRun) -> tuple[int, int]:
+    """(batch rows, heads) of one rank of ``r.mesh``: the batch over
+    ``data`` where ``batch_specs`` shards it, the heads over ``model`` where
+    the compute layout shards the head projections (``wq``, ``w_x``), as
+    ``parallel.ctx.on_local_shards`` gives the kernels their shards."""
+    heads = cfg.n_heads if cfg.block_pattern == "attn" else cfg.ssm_heads
+    if not r.mesh:
+        return r.batch, heads
+    data, model = r.mesh
+    axes = ("data", "model")
+    _, bax = rt.sharding.batch_specs(cfg, axes, r.batch)
+    spec = rt.sharding.compute_specs(cfg, axes) or rt.sharding.param_specs(cfg, axes)
+    layer = spec["layers"]
+    w = layer["attn"]["wq"] if cfg.block_pattern == "attn" else layer["ssm"]["w_x"]
+    split = w[-1] == "model" and heads % model == 0
+    return (r.batch // data if bax else r.batch), (heads // model if split else heads)
+
+
 def train_cases(rt, r: TrainRun) -> dict[str, list[tuple[tuple, int]]]:
-    """The kernel launches one train step of ``r`` makes: ``{kernel:
-    [(case, launches)]}`` in ``model_cases``' form. The forward kernel runs
-    twice a layer under remat (the forward and the backward's recompute),
-    the backward kernel once."""
+    """The kernel launches one train step of ``r`` makes (on each rank of
+    its mesh, at the rank's batch rows and heads): ``{kernel: [(case,
+    launches)]}`` in ``model_cases``' form. The forward kernel runs twice a
+    layer under remat (the forward and the backward's recompute), the
+    backward kernel once."""
     cfg = train_cfg(rt, r)
     fwd = 2 if cfg.remat else 1
+    B, H = _rank_share(rt, cfg, r)
     if cfg.block_pattern == "attn" and not cfg.local_global_pattern:
-        case = ((r.batch * cfg.n_heads, r.seq, cfg.hd), r.seq, r.compute_dtype,
+        case = ((B * H, r.seq, cfg.hd), r.seq, r.compute_dtype,
                 (max(cfg.window, 0), cfg.attn_softcap, True))
         return {"flash_attention": [(case, fwd * cfg.n_layers)],
                 "flash_attention_bwd": [(case, cfg.n_layers)]}
     if cfg.block_pattern == "ssm":
-        case = ((r.batch * cfg.ssm_heads, r.seq, cfg.ssm_head_dim), cfg.ssm_state,
-                cfg.ssm_heads, min(cfg.ssm_chunk, r.seq), r.compute_dtype)
+        case = ((B * H, r.seq, cfg.ssm_head_dim), cfg.ssm_state,
+                H, min(cfg.ssm_chunk, r.seq), r.compute_dtype)
         return {"ssd_scan": [(case, fwd * cfg.n_layers)], "ssd_scan_bwd": [(case, cfg.n_layers)]}
     raise ValueError(f"no training cases for {r.arch}")
 
 
 def _train_runs():
-    for table in (TRAIN_RUNS, CARD_VS_CPU_TRAIN_RUNS):
+    """Every training run of phases 23, 24 and 26; a sharded run also
+    unsharded, as phase 26's reference step launches it."""
+    for table in (TRAIN_RUNS, CARD_VS_CPU_TRAIN_RUNS, SHARD_RUNS):
         for runs in table.values():
-            yield from runs
+            for r in runs:
+                yield r
+                if r.mesh:
+                    yield dataclasses.replace(r, mesh=())
 
 
 def _grad_err(c: Ctx, name: str, got, want) -> float:
@@ -3547,8 +3611,8 @@ class StepWatch:
         inner = self.inner = self.train.make_train_step
         c, after = self.c, self.after
 
-        def watching(cfg, acfg):
-            step_fn, n = inner(cfg, acfg), [0]
+        def watching(cfg, acfg, *rest):
+            step_fn, n = inner(cfg, acfg, *rest), [0]
 
             def step(params, opt_state, batch):
                 out = step_fn(params, opt_state, batch)
@@ -3749,6 +3813,358 @@ def train_card_vs_cpu_phase(phase: int):
         for r in CARD_VS_CPU_TRAIN_RUNS[phase]:
             _timed(phase, r, lambda: _train_card_vs_cpu(c, phase, r))
     return run
+
+
+# Phase 26: sharded training over 2 gloo ranks on the one card, at full
+# width, bf16 on float32 masters, 512-token rows: llama3.2-1b at 2 of its
+# 16 layers on (1, 2) with batch 8 and on (2, 1) with batch 16 (the batch
+# over data), mamba2-370m at 4 of 48 on (1, 2), granite-3-8b (tp+fsdp) at 2
+# layers on (2, 1). Each run: the unsharded train on each rank, then
+# train(mesh=...) for ``steps`` steps (the main path: the counters reset
+# just before, read just after), each rank's step-1 shards against the
+# unsharded step 1's at TRAIN_TOL's bf16 bounds, the losses against the
+# unsharded ones. mamba2's run is the resume drill's (``drill``): 4 steps
+# checkpointed every 2 (0.31 GB of params and 0.62 of moments; llama's at
+# 4 layers, 505,956,352 params, would be 6 GB), resumed onto the other
+# mesh and its own. On an H100 80GB HBM3 at 700 W the phase took 241 s
+# with llama at 4 layers and a separate drill at 8, then 135 s with mamba2
+# at 8 and the drill at 4: a sharded step is host-bound, 2.4-5.6 s, most
+# of it in collectives staged through host memory.
+PHASE26_DEPTH = {"llama3.2-1b": 2, "mamba2-370m": 4, "granite-3-8b": 2}
+SHARD_RUNS = {26: (
+    TrainRun("llama3.2-1b on (1, 2)", "llama3.2-1b", 8, 512, steps=3,
+             n_layers=PHASE26_DEPTH["llama3.2-1b"], mesh=(1, 2)),
+    TrainRun("llama3.2-1b on (2, 1), the batch over data", "llama3.2-1b", 16, 512, steps=3,
+             n_layers=PHASE26_DEPTH["llama3.2-1b"], mesh=(2, 1)),
+    TrainRun("mamba2-370m on (1, 2), checkpointed every 2 steps", "mamba2-370m", 8, 512,
+             steps=4, n_layers=PHASE26_DEPTH["mamba2-370m"], mesh=(1, 2), drill=True),
+    TrainRun("granite-3-8b tp+fsdp on (2, 1)", "granite-3-8b", 8, 512, steps=3,
+             n_layers=PHASE26_DEPTH["granite-3-8b"], mesh=(2, 1), mode="tp+fsdp"))}
+# compressed_pod_mean's gradient tree (leaf shapes) for phase 26 E.
+POD_LEAVES = {"a": (2048, 2048), "b": {"c": (8192,), "d": (64, 2048, 4)}}
+
+
+def _local_bytes(tree) -> int:
+    """Bytes of this rank's shards of a tree's leaves."""
+    return sum(_local(v).nbytes for _, v in _named(tree))
+
+
+def _local_of(full, like):
+    """This rank's shard of the plain tensor ``full`` in ``like``'s layout
+    (``like`` itself when it is plain): a slice, no transfer."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if not isinstance(like, DTensor):
+        return full
+    return distribute_tensor(full, like.device_mesh, like.placements,
+                             src_data_rank=None).to_local()
+
+
+def _local(t):
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _shard_step_check(c: Ctx, r: TrainRun, got, want, acfg) -> dict:
+    """This rank's shards after one sharded step (``got``: params, opt
+    state, metrics) against the same slices of the unsharded step
+    (``want``, whole) from the same weights and batch: the loss; each
+    leaf's first moment, 0.1 of its clipped gradient, within the gradient
+    bound of the whole leaf's largest; the params where the gradient is
+    clear within 1e-3 lr, else 2 lr (as phase 24). The worst of each and
+    the leaves out of bounds; the phase holds them to TRAIN_TOL."""
+    torch, rt = c.torch, c.rt
+    tol = TRAIN_TOL[r.compute_dtype]
+    (gp, go, gm), (wp, wo, wm) = got, want
+    lr0 = float(rt.adam.schedule(torch.zeros((), dtype=torch.int32), acfg))
+    out = {"loss": float(_local(gm["loss"])), "unsharded_loss": float(wm["loss"]),
+           "max_grad_err": 0.0, "params_err_lr": 0.0, "bad": []}
+    out["loss_rel_err"] = abs(out["loss"] - out["unsharded_loss"]) / abs(out["unsharded_loss"])
+    gmu, gpd, wpd = dict(_named(go.mu)), dict(_named(gp)), dict(_named(wp))
+    for name, mw_full in _named(wo.mu):
+        scale = float(mw_full.float().abs().max())
+        m, mw = _local(gmu[name]).float(), _local_of(mw_full, gmu[name]).float()
+        if scale == 0.0:
+            if bool(m.abs().max() > 0):
+                out["bad"].append(f"{name}: gradient not 0")
+            continue
+        err = float((m - mw).abs().max()) / scale
+        out["max_grad_err"] = max(out["max_grad_err"], err)
+        d = (_local(gpd[name]).float() - _local_of(wpd[name], gpd[name]).float()).abs()
+        clear = (mw.abs() > tol["grad"] * scale) & (mw.abs() * 10 > 1e-5)
+        worst = float(d[clear].max()) if bool(clear.any()) else 0.0
+        out["params_err_lr"] = max(out["params_err_lr"], worst / lr0)
+        if err >= tol["grad"] or float(d.max()) > 2 * lr0 * (1 + 1e-3) or worst > 1e-3 * lr0:
+            out["bad"].append(f"{name}: gradient err {err:.3g} of its max, params max diff "
+                              f"{float(d.max()):.3g} ({worst:.3g} where clear; lr {lr0:.3g})")
+    return out
+
+
+def _watched_train(c: Ctx, r: TrainRun, cfg, acfg, mesh=None, on_step1=None,
+                   ckpt_dir=None) -> dict:
+    """``launch.train.train`` of ``r`` (over ``mesh``, or unsharded;
+    checkpointed every 2 steps under ``ckpt_dir`` when given), each step
+    timed on the host clock from the end of the last step's bookkeeping to
+    the end of its own synchronise; at step 1 each rank's bytes of params
+    and moments, and ``on_step1(params, opt_state, metrics)`` (by default
+    the three themselves); the last params and state."""
+    rec = {"ms": []}
+
+    def after(n, params, opt_state, metrics):
+        rec["ms"].append((time.perf_counter() - mark[0]) * 1e3)
+        if n == 1:
+            rec["param_bytes"] = _local_bytes(params)
+            rec["moment_bytes"] = _local_bytes(opt_state.mu) + _local_bytes(opt_state.nu)
+            rec["step1"] = (on_step1 or (lambda *a: a))(params, opt_state, metrics)
+        mark[0] = time.perf_counter()
+
+    t0 = time.perf_counter()
+    mark = [t0]
+    with StepWatch(c, after):
+        *rec["final"], rec["losses"] = c.rt.train.train(
+            cfg, steps=r.steps, adam_cfg=acfg, log_every=r.steps, device=c.dev, mesh=mesh,
+            ckpt_dir=ckpt_dir, ckpt_every=2)
+    c.sync()
+    rec["train_s"] = time.perf_counter() - t0
+    return rec
+
+
+def _shard_run(c: Ctx, r: TrainRun) -> dict:
+    """One phase-26 run on this rank (see SHARD_RUNS): the unsharded train,
+    its step 1 kept; then the sharded train on every rank (the counters
+    reset just before it and read just after), each rank's step-1 shards
+    held to the same slices of the unsharded step 1; for a ``drill`` run
+    checkpointed, then resumed (``_shard_drill``)."""
+    import torch.distributed as dist
+    torch, rt = c.torch, c.rt
+    rank = dist.get_rank()
+    cfg = train_cfg(rt, r)
+    acfg = rt.adam.AdamConfig(**TRAIN_ADAM, total_steps=r.steps)
+    if c.dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    mesh = rt.lmesh.make_host_mesh(*r.mesh, device=c.dev)
+    root = ROOT / "build" / "shard_drill"
+    if r.drill and rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    # step 1 kept without its second moments
+    base = _watched_train(c, r, cfg, acfg,
+                          on_step1=lambda p, o, m: (p, o._replace(nu=None), m))
+    base.pop("final")
+    if c.dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    c.reset()
+    got = _watched_train(c, r, cfg, acfg, mesh, on_step1=lambda *step1: _shard_step_check(
+        c, r, step1, base["step1"], acfg), ckpt_dir=str(root / "whole") if r.drill else None)
+    out = {"counts": c.counts(), "tc": {k: getattr(rt, k).TC_LAUNCHES for k in TC_LIBRARY},
+           "losses": got["losses"], "train_s": got["train_s"], "check": got["step1"],
+           "ms_per_step": statistics.fmean(got["ms"][1:]),
+           "param_bytes": got["param_bytes"], "moment_bytes": got["moment_bytes"],
+           "unsharded_param_bytes": base["param_bytes"],
+           "unsharded_moment_bytes": base["moment_bytes"],
+           "unsharded_losses": base["losses"],
+           "unsharded_ms_per_step": statistics.fmean(base["ms"][1:])}
+    if r.drill:
+        out["drill"] = _shard_drill(c, r, cfg, mesh, root, got["final"])
+    del got, base
+    if c.dev.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _shard_drill(c: Ctx, r: TrainRun, cfg, same, root: Path, whole) -> dict:
+    """After ``r``'s 4 steps on ``same`` checkpointed every 2 under
+    ``root / "whole"`` (rank 0 writes; ``whole`` its last params and
+    state): the step-2 checkpoint restored onto the other mesh (each rank's
+    shard of every leaf bit-equal to the same slice of the saved file) and
+    resumed to 4 there by a fresh call, and resumed to 4 on ``same``: each
+    rank's shards bit-identical to ``whole``'s."""
+    import numpy as np
+    import torch.distributed as dist
+    rt = c.rt
+    rank = dist.get_rank()
+    acfg = rt.adam.AdamConfig(**TRAIN_ADAM, total_steps=r.steps)
+    other = rt.lmesh.make_host_mesh(*reversed(r.mesh), device=c.dev)
+    dirs = {k: root / k for k in ("whole", "same", "other")}
+    step2 = dirs["whole"] / "step_00000002"
+    if rank == 0:
+        for k in ("same", "other"):
+            dirs[k].mkdir(parents=True)
+            shutil.copytree(step2, dirs[k] / "step_00000002")
+    dist.barrier()
+    t0 = time.perf_counter()
+    man = rt.train.CheckpointStore(str(dirs["whole"]), writer=False).read_manifest(2)
+    files = {e["name"]: step2 / e["file"] for e in man["leaves"]}
+    p_sh, o_sh, _, _ = rt.train.layouts(cfg, other)
+    meta = rt.T.init_params(rt.prng.PRNGKey(0, "meta"), cfg)
+    _, tree, _ = rt.train.CheckpointStore(str(dirs["other"]), writer=False).restore(
+        rt.train.snapshot(meta, rt.adam.init(meta)), step=2, device=c.dev,
+        shardings=rt.train.snapshot(p_sh, o_sh))
+    differ = []
+    for name, leaf in _named(tree):
+        key = "".join(f"[{k!r}]" for k in name.strip("/").split("/"))
+        saved = c.torch.from_numpy(np.load(files[key])).to(c.dev)
+        if not c.torch.equal(_local(leaf), _local_of(saved, leaf)):
+            differ.append(name)
+    del tree
+    # a resumed call writes its final checkpoint only
+    kw = dict(steps=r.steps, adam_cfg=acfg, log_every=100, device=c.dev, ckpt_every=100)
+    _, _, other_losses = rt.train.train(cfg, ckpt_dir=str(dirs["other"]), mesh=other, **kw)
+    ps, os_, same_losses = rt.train.train(cfg, ckpt_dir=str(dirs["same"]), mesh=same, **kw)
+    p4, o4 = whole
+    bits = [n for (n, x), (_, y) in zip(_named({"p": p4, "mu": o4.mu, "nu": o4.nu}),
+                                        _named({"p": ps, "mu": os_.mu, "nu": os_.nu}))
+            if not c.torch.equal(_local(x), _local(y))]
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"leaves": len(files), "restored_differ": differ, "same": same_losses,
+            "other": other_losses, "same_bits_differ": bits,
+            "seconds": time.perf_counter() - t0}
+
+
+def _pod_mean_check(c: Ctx) -> dict:
+    """Phase 26 E: ``compressed_pod_mean`` over the pod group of a (2, 1,
+    1) mesh on the card and the same over the world group on the CPU, from
+    each rank's own gradient tree: the int8 payload (``quantize`` of each
+    leaf) and the mean bit for bit."""
+    import torch.distributed as dist
+    torch, rt = c.torch, c.rt
+    rank = dist.get_rank()
+    gen = torch.Generator().manual_seed(100 + rank)
+
+    def tree(spec):
+        if isinstance(spec, dict):
+            return {k: tree(v) for k, v in spec.items()}
+        return torch.randn(spec, generator=gen) * (1 + rank)
+
+    cpu = tree(POD_LEAVES)
+    card = rt.T.tree_map(lambda t: t.to(c.dev), cpu)
+    mesh = rt.lmesh.make_mesh((2, 1, 1), ("pod", "data", "model"), device=c.dev)
+    key = rt.prng.PRNGKey(4)
+    payload = [n for (n, a), (_, b) in zip(_named(cpu), _named(card))
+               if not all(torch.equal(x.cpu(), y) for x, y in zip(
+                   rt.compress.quantize(b, key.to(c.dev)), rt.compress.quantize(a, key)))]
+    t0 = time.perf_counter()
+    got = rt.compress.compressed_pod_mean(card, key.to(c.dev), group=mesh.get_group("pod"))
+    c.sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = rt.compress.compressed_pod_mean(cpu, key, group=None)
+    differ = [n for (n, a), (_, b) in zip(_named(got), _named(want))
+              if not torch.equal(a.cpu(), b)]
+    return {"payload_differ": payload, "mean_differ": differ, "ms": ms,
+            "bytes": sum(v.numel() for _, v in _named(cpu))}
+
+
+def _shard_rank(runs, device: str) -> dict:
+    """A spawned rank of phase 26: every run (the drill in its run) and the
+    pod mean;
+    its launch shapes and per-run counts gathered to rank 0 with its
+    results."""
+    t_in = time.perf_counter()
+    import torch
+    import torch.distributed as dist
+    rt = port_modules()
+    c = Ctx(torch, rt, device)
+    record_launch_shapes(c)
+    c.phase = 26
+    out = {"runs": [_shard_run(c, r) for r in runs]}
+    out["pod"] = _pod_mean_check(c)
+    mine = {"counts": [r["counts"] for r in out["runs"]], "tc": [r["tc"] for r in out["runs"]],
+            "check": [r["check"] for r in out["runs"]],
+            "bytes": [(r["param_bytes"], r["moment_bytes"]) for r in out["runs"]],
+            "peak_gb": [r.get("peak_gb") for r in out["runs"]],
+            "shapes": c.shapes.get(26, set()), "device": str(c.dev),
+            "pod": out["pod"],
+            "drill": [{k: r["drill"][k] for k in ("same_bits_differ", "restored_differ")}
+                      for r in out["runs"] if "drill" in r]}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    out["ranks"] = every
+    out["rank_s"] = time.perf_counter() - t_in
+    return out
+
+
+def phase_sharded(c: Ctx) -> dict:
+    """Phase 26 (see the module docstring): A-C the runs of SHARD_RUNS, D
+    the drill, E the pod mean; every check on the ranks' results here."""
+    t0 = time.perf_counter()
+    runs = SHARD_RUNS[26]
+    # This process's cached blocks go back to the card first: after the
+    # model phases before it they can hold tens of GB (phase 23's 42), and
+    # the ranks' own peaks sum to 55.
+    PARAMS.drop()
+    if c.dev.type == "cuda":
+        c.torch.cuda.empty_cache()
+    out = c.rt.mesh.spawn(2, _shard_rank, runs, c.dev.type, backend="gloo", timeout=600)
+    spawn_s = time.perf_counter() - t0 - out["rank_s"]
+    for rank in out["ranks"]:
+        c.shapes.setdefault(26, set()).update(rank["shapes"])
+        for counts in rank["counts"]:
+            c.add_launches(counts)
+    for i, (r, res) in enumerate(zip(runs, out["runs"])):
+        tol = TRAIN_TOL[r.compute_dtype]["loss"]
+        want = {k: 0 for k in KERNELS}
+        for k, cases in train_cases(c.rt, r).items():
+            want[k] = r.steps * sum(n for _, n in cases)
+        ranks = out["ranks"]
+        require(all(k["counts"][i] == want for k in ranks),
+                f"{r.label}: each rank's launches {[k['counts'][i] for k in ranks]}, expected "
+                f"{want}")
+        require(all(k["tc"][i] == {n: k["counts"][i][n] for n in TC_LIBRARY} for k in ranks),
+                f"{r.label}: tensor-core launches {[k['tc'][i] for k in ranks]}")
+        checks = [k["check"][i] for k in ranks]
+        require(all(not k["bad"] and k["loss_rel_err"] < tol for k in checks),
+                f"{r.label}: step 1 against the unsharded step, by rank: {checks}")
+        losses, base = res["losses"], res["unsharded_losses"]
+        require(len(losses) == r.steps and all(map(math.isfinite, losses))
+                and all(abs(a - b) <= tol * abs(b) for a, b in zip(losses, base)),
+                f"{r.label}: train(mesh=) losses {losses} against the unsharded {base}")
+        share = [(p / res["unsharded_param_bytes"], m / res["unsharded_moment_bytes"])
+                 for p, m in (k["bytes"][i] for k in ranks)]
+        if r.mode == "tp+fsdp":
+            require(all(0.45 < p < 0.55 and 0.45 < m < 0.55 for p, m in share),
+                    f"{r.label}: each rank's share of params and moments {share}")
+        line = {"mesh": dict(zip(("data", "model"), r.mesh)), "batch": r.batch, "seq": r.seq,
+                "layers": train_cfg(c.rt, r).n_layers,
+                **{k: max(x[k] for x in checks) for k in ("loss_rel_err", "max_grad_err",
+                                                          "params_err_lr")},
+                "ms_per_step": res["ms_per_step"],
+                "unsharded_ms_per_step": res["unsharded_ms_per_step"],
+                "losses": losses, "unsharded_losses": base,
+                "launches_per_step_per_rank": [
+                    {k: v / r.steps for k, v in k_["counts"][i].items() if v} for k_ in ranks],
+                "param_and_moment_share_per_rank": share,
+                "param_bytes_per_rank": [k_["bytes"][i][0] for k_ in ranks],
+                "peak_gb_per_rank": [k_["peak_gb"][i] for k_ in ranks],
+                "train_s": res["train_s"]}
+        log(f"phase 26: {r.label}: {json.dumps(line)}")
+    for r, res in zip(runs, out["runs"]):
+        if not r.drill:
+            continue
+        d, whole = res["drill"], res["losses"][2:]
+        ranks = [x for k in out["ranks"] for x in k["drill"]]
+        require(all(not x["restored_differ"] for x in ranks) and d["leaves"] > 0,
+                f"drill: restored shards differ from the saved leaves: {ranks}")
+        require(all(not x["same_bits_differ"] for x in ranks) and d["same"] == whole,
+                f"drill: the same-mesh resume differs: losses {d['same']} against {whole}, "
+                f"{ranks}")
+        tol = TRAIN_TOL[r.compute_dtype]["loss"]
+        require(all(abs(a - b) <= tol * abs(b) for a, b in zip(d["other"], whole)),
+                f"drill: the other mesh's losses {d['other']} against {whole}")
+        log(f"phase 26: drill {r.label}: the step-2 checkpoint's {d['leaves']} leaves restored "
+            f"onto the other mesh, every rank's shards bit-equal to the saved files' slices; "
+            f"resumed to {r.steps} there (losses {d['other']} against {whole}) and on the "
+            f"same mesh bit-identical ({d['seconds']:.1f} s)")
+    pods = [k["pod"] for k in out["ranks"]]
+    require(all(not p["payload_differ"] and not p["mean_differ"] for p in pods),
+            f"pod mean card vs cpu: {pods}")
+    log(f"phase 26: compressed_pod_mean on a (2, 1, 1) pod mesh on the card: payload and mean "
+        f"bit-equal to the CPU's on each rank; {pods[0]['bytes']} elements a rank, "
+        f"{[round(p['ms'], 2) for p in pods]} ms")
+    log(f"phase 26: spawn {spawn_s:.1f} s, ranks {out['rank_s']:.1f} s")
+    return out
 
 
 # Shapes the kernels on eval_row.cuh are timed at, the first giving the
@@ -4631,7 +5047,7 @@ def phase_storage_tuner(c: Ctx) -> dict:
     return out
 
 
-SECOND_PROCESS_PHASES = frozenset({6, 10, 11, 12, 13, 14, 15, 19, 20, 21, 22, 23, 24})
+SECOND_PROCESS_PHASES = frozenset({6, 10, 11, 12, 14, 15, 19, 20, 21, 22, 23, 24, 26})
 # Seconds from the script's start after which the second process is killed
 # (the script's whole limit is 1,200).
 PART_TIMEOUT = 1100.0
@@ -4726,7 +5142,7 @@ def log_ptxas(c: Ctx, _build) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default=",".join(str(n) for n in range(1, 26)),
+    ap.add_argument("--phases", default=",".join(str(n) for n in range(1, 27)),
                     help="comma-separated phases to run (default: all)")
     # Internal: run as the second process, writing the record to this file.
     ap.add_argument("--part-out", default=None, help=argparse.SUPPRESS)
@@ -4775,7 +5191,7 @@ def main() -> int:
              **{n: run_train_phase(n) for n in TRAIN_RUNS},
              **{n: train_card_vs_cpu_phase(n) for n in CARD_VS_CPU_TRAIN_RUNS},
              15: phase_hybrid, 16: phase_service, 17: phase_portfolio_async,
-             18: phase_mesh, 25: phase_storage_tuner}
+             18: phase_mesh, 25: phase_storage_tuner, 26: phase_sharded}
     # The second process's phases run beside this process's.
     second = phases & SECOND_PROCESS_PHASES if first else set()
     part = SecondProcess(second) if second and phases - second else None

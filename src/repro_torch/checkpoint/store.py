@@ -13,7 +13,12 @@ checksum and a caller's ``extra`` dict.
     writes the files on a thread, so the next round overlaps the IO (the
     paper's PDAsynch* executors);
   * ``restore`` checks every leaf's shape and dtype against a template and
-    the checksum over the leaf bytes before it hands anything back.
+    the checksum over the leaf bytes before it hands anything back;
+  * DTensor leaves (``launch.train`` over a mesh) are gathered whole on
+    every rank for ``save`` and only a ``writer`` store writes them, so the
+    files and the manifest are the unsharded state's; ``restore`` lays the
+    leaves out on the current mesh (``shardings``), whatever mesh wrote
+    them.
 """
 from __future__ import annotations
 
@@ -50,6 +55,9 @@ def _unflatten(names: list[str], leaves: list[Any], like: Tree, path: str = "") 
 
 def _host(x: Any) -> np.ndarray:
     if isinstance(x, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+        if isinstance(x, DTensor):
+            x = x.full_tensor()     # a collective: every rank of the mesh saves
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
@@ -65,11 +73,13 @@ class CheckpointStore:
     """Snapshots of nested dicts of tensors under ``root``: atomic commits,
     async writes, ``keep``-based garbage collection, and a checksum and
     shape/dtype check on restore. Used per dispatched service bucket
-    (``core.scheduler``)."""
+    (``core.scheduler``). A store with ``writer=False`` (a rank other than
+    0 of a mesh) takes part in ``save``'s gathers and writes nothing."""
 
-    def __init__(self, root: str, keep: int = 3):
+    def __init__(self, root: str, keep: int = 3, writer: bool = True):
         self.root = root
         self.keep = keep
+        self.writer = writer
         os.makedirs(root, exist_ok=True)
         self._thread: threading.Thread | None = None
 
@@ -81,6 +91,8 @@ class CheckpointStore:
         is taken now and the files are written on a thread."""
         flat = _flatten(state)
         host = [(name, _host(x)) for name, x in flat]
+        if not self.writer:
+            return
 
         def _write():
             tmp = os.path.join(self.root, f".tmp_step_{step:08d}")
@@ -148,11 +160,15 @@ class CheckpointStore:
             return json.load(f)
 
     def restore(self, like: Tree, step: int | None = None,
-                device: str | torch.device = "cpu") -> tuple[int, Tree, dict]:
+                device: str | torch.device = "cpu",
+                shardings: Tree | None = None) -> tuple[int, Tree, dict]:
         """``(step, tree, extra)``: the checkpoint in ``like``'s nesting as
         tensors on ``device``. Every leaf of ``like`` (anything with
-        ``shape`` and ``dtype``, e.g. a ``meta`` tensor) must match the
-        saved leaf's shape and dtype, and the leaf bytes the checksum."""
+        ``shape`` and ``dtype``, e.g. a ``meta`` tensor or a DTensor) must
+        match the saved leaf's shape and dtype, and the leaf bytes the
+        checksum. With ``shardings`` (a tree like ``like`` of
+        ``parallel.sharding.Layout``) each leaf comes back as a DTensor in
+        its layout, each rank keeping its own shards."""
         step, d = self._step_dir(step)
         manifest = self.read_manifest(step)
         by_name = {e["name"]: e for e in manifest["leaves"]}
@@ -172,4 +188,8 @@ class CheckpointStore:
             leaves.append(torch.from_numpy(arr).to(device))
         if digest.hexdigest() != manifest["checksum"]:
             raise IOError(f"checkpoint step {step} failed checksum validation")
-        return step, _unflatten(names, leaves, like), manifest["extra"]
+        tree = _unflatten(names, leaves, like)
+        if shardings is not None:
+            from repro_torch.parallel.sharding import place
+            tree = place(tree, shardings)
+        return step, tree, manifest["extra"]

@@ -3,7 +3,8 @@ serving loop call them.
 
 Counterpart of ``repro.launch.steps``. Each is a plain function of
 (params, [opt_state | state], batch); PyTorch runs eagerly, so there is
-nothing to compile.
+nothing to compile. The train step takes plain tensors or DTensors laid
+out by ``parallel.sharding`` (``launch.train.train(mesh=...)``).
 """
 from __future__ import annotations
 
@@ -15,35 +16,50 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.transformer import decode_step, loss_fn, prefill, tree_map
 from repro_torch.optim import adam
+from repro_torch.parallel import ctx
 
 PyTree = Any
 
 
-def _cast_params(params: PyTree, cfg: ModelConfig) -> PyTree:
+def _cast_params(params: PyTree, cfg: ModelConfig,
+                 compute_shardings: PyTree | None = None) -> PyTree:
     """float32 leaves with two or more dimensions in ``cfg.compute_dtype``;
     vectors (norm scales, SSM constants) stay float32. Leaves already in
-    another type pass through, so casting twice changes nothing."""
+    another type pass through, so casting twice changes nothing. With
+    ``compute_shardings`` (a tree of ``parallel.sharding.Layout``, ``None``
+    leaves kept) each copy is redistributed to its compute layout: under
+    tp+fsdp one all-gather over the data axes a step, whose backward
+    reduce-scatters the gradient."""
     cd = dtype_of(cfg.compute_dtype)
-    return tree_map(
+    cast = tree_map(
         lambda p: p.to(cd) if p.dtype == torch.float32 and p.dim() >= 2 else p,
         params)
+    if compute_shardings is None:
+        return cast
+    return adam.tree_map(ctx.redistribute, cast, compute_shardings)
 
 
-def loss_and_grads(params: PyTree, cfg: ModelConfig, batch: PyTree):
+def loss_and_grads(params: PyTree, cfg: ModelConfig, batch: PyTree,
+                   compute_shardings: PyTree | None = None):
     """(loss, metrics, grads): the loss of the compute-type copies of the
     float32 masters (``_cast_params``) and its gradient back to the masters
     by autograd, a tree like ``params`` (zeros for a leaf the loss does not
-    reach, as the reference's ``value_and_grad`` gives)."""
+    reach, as the reference's ``value_and_grad`` gives). On DTensors the
+    loss is replicated before the backward, and each gradient comes back
+    in its master's layout (the sum over the batch's shards)."""
     params = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    loss, metrics = loss_fn(_cast_params(params, cfg), cfg, batch)
+    loss, metrics = loss_fn(_cast_params(params, cfg, compute_shardings), cfg, batch)
+    loss = ctx.replicated(loss)
     leaves = adam.tree_leaves(params)
     got = torch.autograd.grad(loss, leaves, allow_unused=True)
-    by_leaf = {id(p): torch.zeros_like(p) if g is None else g for p, g in zip(leaves, got)}
-    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+    by_leaf = {id(p): torch.zeros_like(p) if g is None else ctx.placed_like(g, p)
+               for p, g in zip(leaves, got)}
+    return (loss.detach(), {k: ctx.replicated(v).detach() for k, v in metrics.items()},
             tree_map(lambda p: by_leaf[id(p)], params))
 
 
-def make_train_step(cfg: ModelConfig, adam_cfg: adam.AdamConfig | None = None):
+def make_train_step(cfg: ModelConfig, adam_cfg: adam.AdamConfig | None = None,
+                    compute_shardings: PyTree | None = None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: :func:`loss_and_grads`, one Adam update
     (``optim.adam.update``, clipping included) and the metrics ``ce``,
@@ -51,11 +67,13 @@ def make_train_step(cfg: ModelConfig, adam_cfg: adam.AdamConfig | None = None):
     of squares over every leaf, before clipping). Like the reference it
     returns new params and state: the update holds the old and the new
     params, mu and nu at once (at llama3.2-1b, float32, about 15 GB of
-    them)."""
+    them). ``compute_shardings`` (``parallel.sharding.to_shardings`` of
+    ``compute_specs``) lays out the compute copies, see
+    :func:`_cast_params`."""
     acfg = adam_cfg or adam.AdamConfig()
 
     def train_step(params: PyTree, opt_state: adam.AdamState, batch: PyTree):
-        loss, metrics, grads = loss_and_grads(params, cfg, batch)
+        loss, metrics, grads = loss_and_grads(params, cfg, batch, compute_shardings)
         new_params, new_opt = adam.update(grads, opt_state, params, acfg)
         gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                             for g in adam.tree_leaves(grads)))

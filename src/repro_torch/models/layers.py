@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch import prng
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import ctx
 
 Tensor = torch.Tensor
 Params = dict[str, Any]
@@ -69,10 +70,12 @@ def normal_leaf(key: Tensor, shape: tuple[int, ...], mul: float,
     blocks of rows whose counters continue where the last block's
     stopped. In a 16-bit type ``mul``, a weak float32 scalar in the
     reference, is rounded to the type before the product."""
-    if dtype != torch.float32:
-        mul = torch.tensor(mul, dtype=dtype).item()
     lead = tuple(key.shape[:-1])
     out = torch.empty((*lead, *shape), dtype=dtype, device=key.device)
+    if key.device.type == "meta":
+        return out          # shapes only (``parallel.sharding.param_shapes``)
+    if dtype != torch.float32:
+        mul = torch.tensor(mul, dtype=dtype).item()
     keys, rows_out = key.reshape(-1, 2), out.reshape(-1, *shape)
     row = math.prod(shape[1:])
     step = max(1, DRAW_BLOCK // max(row, 1))
@@ -106,7 +109,7 @@ def _rope_freqs(half: int, theta: float, device: torch.device) -> Tensor:
 
 def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     """x: (..., S, H, hd); positions: (..., S). Computed in float32."""
-    freqs = _rope_freqs(x.shape[-1] // 2, float(theta), x.device)
+    freqs = ctx.like(_rope_freqs(x.shape[-1] // 2, float(theta), x.device), positions)
     angles = positions[..., :, None, None].float() * freqs   # (..., S, 1, half)
     sin, cos = torch.sin(angles), torch.cos(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -186,7 +189,14 @@ def _attend_direct_g(q, k, v, q_pos, k_pos, window, softcap_val, scale):
 
 def _attend_flash(q, k, v, window, softcap_val):
     """q (B, S, H, hd), k/v (B, T, H, hd) expanded -> (B, S, H, hd), causal
-    from index 0, through the ``flash_attention`` kernel on (B*H, S, hd)."""
+    from index 0, through the ``flash_attention`` kernel on (B*H, S, hd).
+    DTensors go to the kernel as each rank's own batch rows and heads
+    (``ctx.on_local_shards``)."""
+    return ctx.on_local_shards(_attend_flash_local, [(q, 0, 2), (k, 0, 2), (v, 0, 2)],
+                               (0, 2), window, softcap_val)
+
+
+def _attend_flash_local(q, k, v, window, softcap_val):
     B, S, H, hd = q.shape
     T = k.shape[1]
 
@@ -213,7 +223,7 @@ def attention(params: Params, x: Tensor, cfg: ModelConfig, *,
     cd = dtype_of(cfg.compute_dtype)
     wq, wk, wv, wo = (params[n].to(cd) for n in ("wq", "wk", "wv", "wo"))
     if positions is None:
-        positions = torch.arange(S, device=x.device)
+        positions = ctx.like(torch.arange(S, device=x.device), x)
 
     q = (x @ wq).reshape(B, S, H, hd)
     k = (x @ wk).reshape(B, S, KV, hd)
@@ -246,8 +256,14 @@ def attention(params: Params, x: Tensor, cfg: ModelConfig, *,
         y = out.reshape(B, S, H * hd) @ wo
         return y, (ck, cv)
 
-    out = _attend_flash(q, _repeat_kv(k, rep), _repeat_kv(v, rep), window,
-                        cfg.attn_softcap)
+    kf, vf = _repeat_kv(k, rep), _repeat_kv(v, rep)
+    if S % 16 == 0:
+        # sequence-parallel attention, a no-op unless the attn_seq rules
+        # are installed (``parallel.ctx``)
+        q = ctx.constrain(q, "attn_seq_q")
+        kf = ctx.constrain(kf, "attn_seq_kv")
+        vf = ctx.constrain(vf, "attn_seq_kv")
+    out = _attend_flash(q, kf, vf, window, cfg.attn_softcap)
     y = out.reshape(B, S, H * hd) @ wo
     return y, (k, v)
 
@@ -373,11 +389,14 @@ def moe(params: Params, x: Tensor, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
     cap = max(1, int(cfg.capacity_factor * (T // G) * K / E))
     eb, dest, gate, aux = moe_dispatch(params, x.reshape(G, T // G, D), cfg, cap)
     aux = aux.mean()
+    eb = ctx.constrain(eb, "moe_eb")
 
     act = _act(cfg)
-    g = act(torch.einsum("gecd,edf->gecf", eb, params["w_gate"].to(cd)))
-    u = torch.einsum("gecd,edf->gecf", eb, params["w_up"].to(cd))
-    out = torch.einsum("gecf,efd->gecd", g * u, params["w_down"].to(cd))
+    g = ctx.constrain(act(torch.einsum("gecd,edf->gecf", eb, params["w_gate"].to(cd))),
+                      "moe_hidden")
+    u = ctx.constrain(torch.einsum("gecd,edf->gecf", eb, params["w_up"].to(cd)), "moe_hidden")
+    out = ctx.constrain(torch.einsum("gecf,efd->gecd", g * u, params["w_down"].to(cd)),
+                        "moe_eb")
 
     flat = torch.cat([out.reshape(G, E * cap, D),
                       torch.zeros((G, 1, D), dtype=cd, device=x.device)], dim=1)

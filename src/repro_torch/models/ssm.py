@@ -20,6 +20,7 @@ from repro_torch import prng
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of, inv_sqrt, normal_leaf
+from repro_torch.parallel import ctx
 
 Tensor = torch.Tensor
 Params = dict[str, Any]
@@ -75,7 +76,8 @@ def _causal_conv(x: Tensor, w: Tensor, b: Tensor, state: Tensor | None = None):
     where state is the last K-1 inputs (decode cache)."""
     K = w.shape[0]
     if state is None:
-        pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+        pad = ctx.like(torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                                   device=x.device), x)
     else:
         pad = state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)            # (B, S+K-1, C)
@@ -86,7 +88,14 @@ def _causal_conv(x: Tensor, w: Tensor, b: Tensor, state: Tensor | None = None):
 def _ssd(xh: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor, Q: int):
     """xh (B, S, H, P); dt (B, S, H) float32; A (H,); Bm/Cm (B, S, N), one
     group. Returns y (B, S, H, P) from the ``ssd_scan`` kernel on
-    (B*H, S, P) rows, row b*H + h reading B/C row b."""
+    (B*H, S, P) rows, row b*H + h reading B/C row b. DTensors go to the
+    kernel as each rank's own batch rows and heads, B/C whole on every
+    head shard (``ctx.on_local_shards``)."""
+    return ctx.on_local_shards(_ssd_local, [(xh, 0, 2), (dt, 0, 2), (A, None, 0),
+                                            (Bm, 0, None), (Cm, 0, None)], (0, 2), Q)
+
+
+def _ssd_local(xh: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor, Q: int):
     Bsz, S, H, P = xh.shape
     y = ssd_scan(xh.permute(0, 2, 1, 3).reshape(Bsz * H, S, P).contiguous(),
                  dt.permute(0, 2, 1).reshape(Bsz * H, S).contiguous(),

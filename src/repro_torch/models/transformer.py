@@ -18,6 +18,12 @@ with its shared-attention application) in the backward too.
 Decode caches are preallocated; ``decode_step`` writes them in place and
 keeps the cache position ``pos`` as a host integer, so no step reads the
 device to find it.
+
+The same code trains on DTensor parameters (``launch.train`` over a mesh):
+its plain constants become replicated DTensors (``parallel.ctx.like``),
+the two kernels take each rank's shards (``ctx.on_local_shards``), and the
+CE reduces vocab-split logits across the shards; on plain tensors none of
+this changes a bit.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from repro_torch import prng
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import ctx
 
 Tensor = torch.Tensor
 Params = dict[str, Any]
@@ -176,7 +183,7 @@ def embed_inputs(params: Params, cfg: ModelConfig, tokens: Tensor | None,
     if embeds is not None:
         parts.append(embeds.to(cd) @ params["frontend"]["proj"].to(cd))
     if tokens is not None:
-        parts.append(params["embed"][tokens].to(cd))
+        parts.append(_lookup(params["embed"], tokens).to(cd))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     if cfg.scale_embeddings:
         # sqrt(d_model) in float32, rounded to the compute type, as a host
@@ -184,8 +191,30 @@ def embed_inputs(params: Params, cfg: ModelConfig, tokens: Tensor | None,
         x = x * float(torch.tensor(float(np.sqrt(np.float32(cfg.d_model)))).to(cd))
     if cfg.pos_embedding == "sinusoidal":
         pos = L.sinusoidal_pos(torch.arange(x.shape[1], device=x.device), cfg.d_model)
-        x = x + pos[None].to(cd)
+        x = x + ctx.like(pos[None].to(cd), x)
     return x
+
+
+def _lookup(table: Tensor, tokens: Tensor) -> Tensor:
+    """``table[tokens]``. Tokens that are a DTensor split over the batch are
+    gathered first and the rows split after: DTensor's sharding rule for
+    the lookup's backward (``index_put``) rejects a split index in torch
+    2.11."""
+    if not ctx.split(tokens, 0):
+        return table[tokens]
+    return ctx.placed_like(table[ctx.replicated(tokens)], tokens)
+
+
+def _logsumexp(x: Tensor) -> Tensor:
+    """``torch.logsumexp`` over the last dim. On logits split over the
+    vocab (a DTensor sharded on it) the max and the sum of exponentials
+    are reduced across the shards, where DTensor's own rule would gather
+    the (B, S, V) logits on every rank; the max is a constant to autograd,
+    so the gradient is the softmax."""
+    if not ctx.split(x, -1):
+        return torch.logsumexp(x, dim=-1)
+    m = torch.amax(x, dim=-1, keepdim=True).detach()
+    return (m + torch.log(torch.sum(torch.exp(x - m), dim=-1, keepdim=True)))[..., 0]
 
 
 def _head_logits(params: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
@@ -197,7 +226,7 @@ def _head_logits(params: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
         head = params["embed"].T
     logits = L.softcap(x @ head.to(cd), cfg.final_softcap)
     if cfg.padded_vocab != cfg.vocab:
-        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+        pad = ctx.like(torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab, logits)
         logits = torch.where(pad, L.NEG_INF, logits.float())
     return logits.float()
 
@@ -222,7 +251,7 @@ def _layer_span(layers: list[Params], shared: Params | None, cfg: ModelConfig, x
     application of the ``shared`` attention block, if any) -> (x, aux plus
     their MoE aux losses, added in layer order)."""
     for i in range(lo, hi):
-        lp = layers[i]
+        lp = ctx.constrain_layer_weights(layers[i])
         if cfg.block_pattern == "attn":
             x, a, _ = _attn_block(lp, x, cfg, i, positions)
         else:
@@ -272,8 +301,8 @@ def forward_hidden(params: Params, cfg: ModelConfig,
     so it has no counterpart."""
     check_supported(cfg)
     x = embed_inputs(params, cfg, tokens, embeds)
-    positions = torch.arange(x.shape[1], device=x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    positions = ctx.like(torch.arange(x.shape[1], device=x.device), x)
+    aux = ctx.like(torch.zeros((), dtype=torch.float32, device=x.device), x)
     layers, shared = _unstacked(params["layers"]), params.get("shared_attn")
     if cfg.remat and _trains(params):
         for lo, hi in remat_spans(cfg):
@@ -295,8 +324,10 @@ def _ce_from_logits(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
     """(summed CE over the positions whose label is >= 0, their count)."""
     mask = (labels >= 0).float()
     safe = labels.long().clamp_min(0)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    lse = _logsumexp(logits)
+    # gathered from vocab-sharded logits, a DTensor is a masked partial sum:
+    # reduced before the index drops its last dim
+    ll = ctx.replicated(torch.gather(logits, -1, safe[..., None]))[..., 0]
     return torch.sum((lse - ll) * mask), torch.sum(mask)
 
 
@@ -326,7 +357,7 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: dict[str, Tensor]):
         x, aux = forward_hidden(params, cfg, tokens=batch.get("tokens"),
                                 embeds=batch.get("embeds"))
         C = x.shape[1] // n_chunks
-        tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        tot = cnt = ctx.like(torch.zeros((), dtype=torch.float32, device=x.device), x)
         trains = _trains(params)
         for c in range(n_chunks):
             xs, ls = x[:, c * C:(c + 1) * C], labels[:, c * C:(c + 1) * C]

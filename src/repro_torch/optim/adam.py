@@ -24,6 +24,7 @@ from repro_torch import f32, prng
 from repro_torch.core.api import OptimizeResult
 from repro_torch.functions.benchmarks import Function
 from repro_torch.optim.numgrad import make_grad
+from repro_torch.parallel import ctx
 
 Tensor = torch.Tensor
 Tree = Any   # a tensor, or a dict of trees
@@ -70,7 +71,8 @@ def tree_leaves(tree: Tree) -> list[Tensor]:
 def init(params: Tree) -> AdamState:
     """Zero-initialized AdamState shaped like ``params`` (float32 moments)."""
     zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
-    step = torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
+    leaf = tree_leaves(params)[0]
+    step = ctx.like(torch.zeros((), dtype=torch.int32, device=leaf.device), leaf)
     return AdamState(step=step, mu=zeros, nu=tree_map(torch.clone, zeros))
 
 

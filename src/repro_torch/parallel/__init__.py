@@ -1,6 +1,11 @@
-"""Cost models of the port's kernels on the card.
+"""Sharding and cost models (counterpart of ``repro.parallel``).
 
-Counterpart of ``repro.parallel``, so far in part: ``roofline`` (the
-``Roofline`` record and the card's rates) and ``memmodel`` (a block's
-footprint on Hopper), which ``kernels.autotune`` scores geometries with.
+``sharding`` (the partition-spec rules for params, optimizer state,
+batches and decode caches, and their placement as DTensors on a device
+mesh), ``ctx`` (the layout hooks in the model code, and the replicated
+constants an op on DTensors needs), ``compress`` (int8 gradient
+compression and the cross-pod mean); ``roofline`` (the ``Roofline``
+record and the card's rates) and ``memmodel`` (a block's footprint on
+Hopper), which ``kernels.autotune`` scores geometries with. The meshes
+themselves come from ``launch.mesh``.
 """
