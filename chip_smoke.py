@@ -184,22 +184,41 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      (``PHASE26_DEPTH``) on a (1, 2) mesh with batch 8 and on (2, 1) with
      batch 16 (the batch over data); B, mamba2-370m at 4 of 48 layers on
      (1, 2); C, granite-3-8b under tp+fsdp at 2 layers on (2, 1): each
-     the unsharded ``train`` on each rank, then 3 steps of
-     ``train(mesh=)`` (B 4) with the counters reset just before and read
-     just after (each rank's launches of the four model kernels at its own
-     batch rows and heads, ``train_cases``); each rank's shards after step
-     1 against the same slices of the unsharded step 1 (same weights and
-     batch, ``TRAIN_TOL``'s bf16 bounds: loss, first moments, params), the
-     losses against the unsharded ones, ms/step of the later steps each
-     way on rank 0's host clock, each rank's bytes of params and moments
-     (about half the unsharded under C's tp+fsdp); D, B's run checkpointed
-     every 2 steps, its step-2 checkpoint restored onto (2, 1) (each rank's
-     shards bit-equal to the saved files' slices) and resumed there, and
-     resumed on (1, 2) bit-identical to B's 4 steps in one call; E,
-     ``compressed_pod_mean`` on a (2, 1, 1) pod mesh on the card, its int8
-     payload and mean bit-equal to the CPU's. The ranks record their
-     launches and launch shapes, which come
-     back to the phase (``--phases 1,26`` runs it with its kernel checks).
+     the unsharded ``train`` once, on rank 0, its step-1 params and first
+     moments brought to the host and each rank's slices handed to it, then
+     2 steps of ``train(mesh=)`` (B 4) with the counters reset just before
+     and read just after (each rank's launches of the four model kernels
+     at its own batch rows and heads, ``train_cases``); each rank's shards
+     after step 1 against its slices of the unsharded step 1 (same weights
+     and batch, ``TRAIN_TOL``'s bf16 bounds: loss, first moments, params),
+     the losses against the unsharded ones, ms/step of the later steps
+     each way on rank 0's host clock, each rank's bytes of params and
+     moments (about half the unsharded under C's tp+fsdp); D, B's run
+     checkpointed every 2 steps, its step-2 checkpoint restored onto (2,
+     1) (each rank's shards bit-equal to the saved files' slices) and
+     resumed there, and resumed on (1, 2) bit-identical to B's 4 steps in
+     one call; E, ``compressed_pod_mean`` on a (2, 1, 1) pod mesh on the
+     card, its int8 payload and mean bit-equal to the CPU's. The ranks
+     record their launches and launch shapes, which come back to the phase
+     (``--phases 1,26`` runs it with its kernel checks);
+ 27. sharded training of the MoE archs, zamba2 and the stub frontends, as
+     phase 26 and in its spawn, 2 sharded steps a run (``SHARD_RUNS[27]``):
+     A, qwen2-moe-a2.7b at 1 of 24 layers on (1, 2) (the expert hidden dim
+     over model) and on (2, 1) at batch 16 (each rank dispatching its own
+     8 of the 16 token groups); B, llama4-scout-17b-a16e at 1 of 48 layers
+     on (1, 2), vocab cut to 32,768 (the 16
+     experts over model, attention replicated); C, zamba2-7b at 6 Mamba2
+     layers and one application of the shared block on (1, 2); D,
+     internvl2-2b at 2 layers on (2, 1) at batch 16; E, musicgen-medium at
+     2 layers on (1, 2), its 24 heads replicated. The MoE runs replay the
+     reference's routing at each rank's groups (``RoutingReplay``), their
+     own top-k held to it wherever clear of the margin; each run's
+     staged collective bytes a step by kind and each rank's peak memory in
+     the reference's window and the sharded one: both ranks together at
+     most ``SHARD_PEAK_GB``, and in B no all-gather of a routed expert
+     weight (``EXPERT_GATHER_BYTES`` a step, the largest gathered tensor
+     below a rank's expert shard). ``--phases 1,27`` runs it alone with
+     its kernel checks.
 
 flash_attention and ssd_scan take two routes by the input's type: bfloat16
 runs the tensor-core kernels (``csrc/*_tc.cu``), float32 the CUDA-core
@@ -219,29 +238,35 @@ timed with bfloat16 storage at their first two shapes (bound at 2 bytes
 an element). The main-path runs of GA and SA also
 report the share of rows their fused kernel took or accepted.
 
-Phases 3-5, 7, 8, 10, 11, 13, 15-19, 21, 23 and 26 are the main path: each run
+Phases 3-5, 7, 8, 10, 11, 13, 15-19, 21, 23, 26 and 27 are the main path: each run
 resets the kernels' launch counters, drives its entry point
 (``IslandOptimizer.minimize``, ``explore_then_polish``, ``serve``, a prefill
 step, ``launch.steps``, ``OptimizationService.handle``, ``launch.train.train``,
-over a mesh in 26) and reads the counters right after. Each engine configuration is then profiled over a few rounds of a
+over a mesh in 26-27) and reads the counters right after. Each engine configuration is then profiled over a few rounds of a
 further run, init excluded, and each serve run over a few further decode
 steps, for the device's busy time and idle share.
 Every launch records its kernel and input shape; the run fails if a phase
 launched a kernel at a shape phase 1 did not check, or if a run marked to
 adopt migrants never did.
 
-Phases 6, 10-12, 14, 15, 19-24 and 26 run in a second process of this
-script, started after the build, beside the first process's phases 1-5,
-7-9, 13, 16-18 and 25 (``SECOND_PROCESS_PHASES``); both drive the one
-card, so each phase's seconds and host-clock readings are taken beside
-the other process's work. Phase 26 comes last in the second process: its
-two ranks peak near 50 GB of the card together (granite-3-8b's unsharded
-steps), so it must not meet the second process's model phases (phase 19
-holds 40-57 GB, phase 23's llama 42), and beside it the first process
-runs only population engines. Phase 13 moved to the first process for
-it: before phase 26 the two processes' phases took 622 and 630 s on an
-H100 80GB HBM3 at 700 W. The second process's lines are relayed through the first; when it
-ends, its launches, errors and launch shapes join the first's record. The
+Phases 12, 15 and 19-27 run in a second process of this script, started
+after the build, beside the first process's phases 1-11, 13, 14 and 16-18
+(``SECOND_PROCESS_PHASES``); both drive the one card, so each
+phase's seconds and host-clock readings are taken beside the other
+process's work. Phases 26 and 27 come last in the second process, in one
+spawn of 2 ranks: their ranks peak near 55 GB of the card together
+(llama4-scout's sharded steps), so they must not meet the second
+process's model phases (phase 19 holds 40-57 GB, phase 23's llama 24), and
+beside them the first process runs only population engines. Phases 13
+and 14 moved to the first process for phases 26 and 27, then 6, 10 and
+11 for phases 20-22 at their full sizes: the two processes' phases took
+617 and 685 s on an H100 80GB HBM3 at 700 W with phases 20-22 cut, 760
+and 712 s at their full sizes with 6 and 10-15 in the first process and
+the sharded phases' references handed over through the host, 731 and 702
+s with 12 and 15 back in the second; phase 25 (13 s) then moved to the
+second.
+The second process's lines are relayed through the first; when it ends,
+its launches, errors and launch shapes join the first's record. The
 kernel timings run after both, alone on the card.
 
 Before the last line it prints the card's name and power limit and one JSON
@@ -865,12 +890,13 @@ def card_rates(name: str) -> dict[str, float]:
     return CARD_RATES[name]
 
 
-def time_ms(fn, reps: int = 50, warmup: int = 3, spin: int = 200_000_000) -> float:
+def time_ms(fn, reps: int = 50, warmup: int = 3, spin: int = 80_000_000) -> float:
     """Mean device time of ``fn()`` over ``reps`` back-to-back runs, by CUDA
-    events. A spin kernel of ``spin`` cycles (the default about 0.1 s)
+    events. A spin kernel of ``spin`` cycles (the default about 45 ms)
     first holds the card while the host enqueues the runs, so the events
     time the device work and not the host's launch rate (a ctypes launch
-    costs the host tens of microseconds)."""
+    costs the host tens of microseconds: 50 of them about 2.5 ms, 50 runs
+    of a plain version of some 25 launches about 10 ms)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -959,8 +985,10 @@ class Ctx:
         self.kern = {k: {"launches": 0, "max_abs_err": 0.0, "max_rel_err": 0.0}
                      for k in KERNELS}
         self.phase = None     # the phase running now
+        self.phases = set()   # the phases this process runs
         self.shapes = {}      # phase -> {(kernel, shape of its first input)}
         self.decided = {}     # kernel -> its take/accept outputs since reset
+        self.sass = None      # the SassDumps started after the build, if any
 
     def sync(self) -> None:
         if self.dev.type == "cuda":
@@ -1154,6 +1182,10 @@ def phase_kernels(c: Ctx) -> None:
     check_nan_lanes(c)
     check_model_kernels(c)
     check_grad_kernels(c)
+    if c.dev.type == "cuda":
+        # The model kernels' checks cache several GB that the phases beside
+        # this process (26-27 among them) need.
+        torch.cuda.empty_cache()
 
 
 def _same(torch, a, b) -> bool:
@@ -3201,6 +3233,9 @@ class RoutingReplay:
         self.c, self.K, self.margin = c, cfg.top_k, margin
         self.calls, self.i = [], None
         self.tokens = self.near = self.flips = self.clear_flips = 0
+        # A rank of a group-local dispatch (phase 27) replays its own block
+        # of each recorded call's groups.
+        self.group_block = 0
 
     def __enter__(self):
         self.c.rt.layers.ROUTING_HOOK = self
@@ -3221,6 +3256,9 @@ class RoutingReplay:
             return eidx
         p_cpu, e_cpu = self.calls[self.i]
         self.i += 1
+        if eidx.shape[0] != e_cpu.shape[0]:
+            lo = self.group_block * eidx.shape[0]
+            p_cpu, e_cpu = p_cpu[lo:lo + eidx.shape[0]], e_cpu[lo:lo + eidx.shape[0]]
         same = (torch.sort(eidx.cpu(), -1).values == torch.sort(e_cpu, -1).values).all(-1)
         top = torch.sort(p_cpu, -1, descending=True).values
         clear = (torch.ones_like(same) if self.K >= top.shape[-1] else
@@ -3372,10 +3410,15 @@ class TrainRun:
     n_layers: int = 0
     compute_dtype: str = "bfloat16"
     drill: bool = False
-    # Phase 26: the (data, model) mesh of the ranks, and the sharding mode
-    # ("" keeps the config's).
+    # Phases 26-27: the (data, model) mesh of the ranks, and the sharding
+    # mode ("" keeps the config's); config overrides as (field, value) pairs.
     mesh: tuple = ()
     mode: str = ""
+    over: tuple = ()
+    # Phase 27: the step-1 params bound where the gradient is clear never
+    # below one ulp of the param's type at its value (1e-3 lr, 1e-7 at step
+    # 1, is below float32's spacing at |p| >= 0.84).
+    ulp_floor: bool = False
 
 
 # llama3.2-1b and mamba2-370m at their own training shape (seq_len 512,
@@ -3433,23 +3476,26 @@ def train_cfg(rt, r: TrainRun):
         over["n_layers"] = r.n_layers
     if r.mode:
         over["sharding_mode"] = r.mode
-    return dataclasses.replace(rt.get_config(r.arch), **over)
+    return dataclasses.replace(rt.get_config(r.arch), **over, **dict(r.over))
 
 
-def _rank_share(rt, cfg, r: TrainRun) -> tuple[int, int]:
-    """(batch rows, heads) of one rank of ``r.mesh``: the batch over
-    ``data`` where ``batch_specs`` shards it, the heads over ``model`` where
-    the compute layout shards the head projections (``wq``, ``w_x``), as
+def _rank_share(rt, cfg, r: TrainRun, kind: str) -> tuple[int, int]:
+    """(batch rows, heads) of one rank of ``r.mesh`` for the attention
+    (``kind`` "attn") or the SSM kernels: the batch over ``data`` where
+    ``batch_specs`` shards it, the heads over ``model`` where the compute
+    layout shards the head projections (``wq``, ``w_x``), as
     ``parallel.ctx.on_local_shards`` gives the kernels their shards."""
-    heads = cfg.n_heads if cfg.block_pattern == "attn" else cfg.ssm_heads
+    heads = cfg.n_heads if kind == "attn" else cfg.ssm_heads
     if not r.mesh:
         return r.batch, heads
     data, model = r.mesh
     axes = ("data", "model")
     _, bax = rt.sharding.batch_specs(cfg, axes, r.batch)
     spec = rt.sharding.compute_specs(cfg, axes) or rt.sharding.param_specs(cfg, axes)
-    layer = spec["layers"]
-    w = layer["attn"]["wq"] if cfg.block_pattern == "attn" else layer["ssm"]["w_x"]
+    if kind == "ssm":
+        w = spec["layers"]["ssm"]["w_x"]
+    else:
+        w = (spec["layers"] if cfg.block_pattern == "attn" else spec["shared_attn"])["attn"]["wq"]
     split = w[-1] == "model" and heads % model == 0
     return (r.batch // data if bax else r.batch), (heads // model if split else heads)
 
@@ -3459,25 +3505,31 @@ def train_cases(rt, r: TrainRun) -> dict[str, list[tuple[tuple, int]]]:
     its mesh, at the rank's batch rows and heads): ``{kernel: [(case,
     launches)]}`` in ``model_cases``' form. The forward kernel runs twice a
     layer under remat (the forward and the backward's recompute), the
-    backward kernel once."""
+    backward kernel once; the hybrid's shared attention once per
+    application."""
     cfg = train_cfg(rt, r)
     fwd = 2 if cfg.remat else 1
-    B, H = _rank_share(rt, cfg, r)
-    if cfg.block_pattern == "attn" and not cfg.local_global_pattern:
+    out = {}
+    if cfg.block_pattern != "ssm":
+        if cfg.local_global_pattern:
+            raise ValueError(f"no training cases for {r.arch}")
+        B, H = _rank_share(rt, cfg, r, "attn")
+        n = (cfg.n_layers if cfg.block_pattern == "attn"
+             else cfg.n_layers // cfg.shared_attn_every)
         case = ((B * H, r.seq, cfg.hd), r.seq, r.compute_dtype,
                 (max(cfg.window, 0), cfg.attn_softcap, True))
-        return {"flash_attention": [(case, fwd * cfg.n_layers)],
-                "flash_attention_bwd": [(case, cfg.n_layers)]}
-    if cfg.block_pattern == "ssm":
+        out.update(flash_attention=[(case, fwd * n)], flash_attention_bwd=[(case, n)])
+    if cfg.block_pattern != "attn":
+        B, H = _rank_share(rt, cfg, r, "ssm")
         case = ((B * H, r.seq, cfg.ssm_head_dim), cfg.ssm_state,
                 H, min(cfg.ssm_chunk, r.seq), r.compute_dtype)
-        return {"ssd_scan": [(case, fwd * cfg.n_layers)], "ssd_scan_bwd": [(case, cfg.n_layers)]}
-    raise ValueError(f"no training cases for {r.arch}")
+        out.update(ssd_scan=[(case, fwd * cfg.n_layers)], ssd_scan_bwd=[(case, cfg.n_layers)])
+    return out
 
 
 def _train_runs():
-    """Every training run of phases 23, 24 and 26; a sharded run also
-    unsharded, as phase 26's reference step launches it."""
+    """Every training run of phases 23, 24, 26 and 27; a sharded run also
+    unsharded, as its reference step launches it."""
     for table in (TRAIN_RUNS, CARD_VS_CPU_TRAIN_RUNS, SHARD_RUNS):
         for runs in table.values():
             for r in runs:
@@ -3611,8 +3663,8 @@ class StepWatch:
         inner = self.inner = self.train.make_train_step
         c, after = self.c, self.after
 
-        def watching(cfg, acfg, *rest):
-            step_fn, n = inner(cfg, acfg, *rest), [0]
+        def watching(cfg, acfg, *rest, **kw):
+            step_fn, n = inner(cfg, acfg, *rest, **kw), [0]
 
             def step(params, opt_state, batch):
                 out = step_fn(params, opt_state, batch)
@@ -3819,29 +3871,79 @@ def train_card_vs_cpu_phase(phase: int):
 # width, bf16 on float32 masters, 512-token rows: llama3.2-1b at 2 of its
 # 16 layers on (1, 2) with batch 8 and on (2, 1) with batch 16 (the batch
 # over data), mamba2-370m at 4 of 48 on (1, 2), granite-3-8b (tp+fsdp) at 2
-# layers on (2, 1). Each run: the unsharded train on each rank, then
-# train(mesh=...) for ``steps`` steps (the main path: the counters reset
-# just before, read just after), each rank's step-1 shards against the
-# unsharded step 1's at TRAIN_TOL's bf16 bounds, the losses against the
-# unsharded ones. mamba2's run is the resume drill's (``drill``): 4 steps
-# checkpointed every 2 (0.31 GB of params and 0.62 of moments; llama's at
-# 4 layers, 505,956,352 params, would be 6 GB), resumed onto the other
-# mesh and its own. On an H100 80GB HBM3 at 700 W the phase took 241 s
-# with llama at 4 layers and a separate drill at 8, then 135 s with mamba2
-# at 8 and the drill at 4: a sharded step is host-bound, 2.4-5.6 s, most
-# of it in collectives staged through host memory.
+# layers on (2, 1). Each run: the unsharded train once, on rank 0, its
+# step-1 slices handed to each rank (``_reference``), then train(mesh=...)
+# for ``steps`` steps (the main path: the counters reset just before, read
+# just after), each rank's step-1 shards against the unsharded step 1's at
+# TRAIN_TOL's bf16 bounds, the losses against the unsharded ones. mamba2's
+# run is the resume drill's (``drill``): 4 steps checkpointed every 2 (0.31
+# GB of params and 0.62 of moments; llama's at 4 layers, 505,956,352
+# params, would be 6 GB), resumed onto the other mesh and its own. On an
+# H100 80GB HBM3 at 700 W the phase took 241 s with llama at 4 layers and a
+# separate drill at 8, then 135 s with mamba2 at 8 and the drill at 4, then
+# 115.9 s with the unsharded reference on each rank and 3 sharded steps a
+# run: a sharded step is host-bound, 1.7-3.8 s, most of it in collectives
+# staged through host memory. The other runs now take 2 sharded steps (the
+# drill its 4) and the reference once, for phase 27's room.
 PHASE26_DEPTH = {"llama3.2-1b": 2, "mamba2-370m": 4, "granite-3-8b": 2}
-SHARD_RUNS = {26: (
-    TrainRun("llama3.2-1b on (1, 2)", "llama3.2-1b", 8, 512, steps=3,
-             n_layers=PHASE26_DEPTH["llama3.2-1b"], mesh=(1, 2)),
-    TrainRun("llama3.2-1b on (2, 1), the batch over data", "llama3.2-1b", 16, 512, steps=3,
-             n_layers=PHASE26_DEPTH["llama3.2-1b"], mesh=(2, 1)),
-    TrainRun("mamba2-370m on (1, 2), checkpointed every 2 steps", "mamba2-370m", 8, 512,
-             steps=4, n_layers=PHASE26_DEPTH["mamba2-370m"], mesh=(1, 2), drill=True),
-    TrainRun("granite-3-8b tp+fsdp on (2, 1)", "granite-3-8b", 8, 512, steps=3,
-             n_layers=PHASE26_DEPTH["granite-3-8b"], mesh=(2, 1), mode="tp+fsdp"))}
+# Phase 27: sharded training of the MoE archs, zamba2 and the stub
+# frontends, the same way, 2 sharded steps a run (the second process's
+# last phase, in phase 26's spawn): A, qwen2-moe-a2.7b at 1 of its 24
+# layers (60 experts, top-4, the shared expert, its own moe_groups 16) on
+# (1, 2), the expert hidden dim over model, and on (2, 1) at batch 16, each
+# rank dispatching its own 8 groups; B, llama4-scout-17b-a16e at 1 of 48
+# layers on (1, 2): 40 heads (attention replicated), 16 experts x 8192 over
+# model, top-1, the shared expert; C, zamba2-7b at 6 of 81 Mamba2 layers
+# and one application of the shared block on (1, 2) (32 attention heads at
+# hd 112 and 112 SSM heads split); D, internvl2-2b at 2 of 24 layers on (2,
+# 1) at batch 16 (256 patches and 256 tokens a row, the embeds over data);
+# E, musicgen-medium at 2 of 48 layers on (1, 2), its 24 heads replicated.
+# The reference is train() unsharded, once, on rank 0 (``_reference``). The
+# (2, 1) runs take batch 16 because batch_specs splits the batch over
+# data only at a multiple of 16. B's vocab is cut to 32,768: at its own
+# 202,048 the two untied tables alone hold 2.07 B params. A step of
+# ``train`` updates its params and moments in place (the reference's
+# trainer donates them): a float32 parameter then holds 16 B (params,
+# moments, gradient) with one leaf's temporaries beside, so B's 1.30 B a
+# rank take about 27 GB; holding the old and new state, as the step did
+# before, 36 GB a rank and 73 GB both. The MoE runs replay the reference's
+# routing (RoutingReplay), each rank at its own groups.
+PHASE27_DEPTH = {"qwen2-moe-a2.7b": 1, "llama4-scout-17b-a16e": 1, "zamba2-7b": 6,
+                 "internvl2-2b": 2, "musicgen-medium": 2}
+LLAMA4_27 = (("vocab", 32768),)
+SHARD_RUNS = {
+    26: (TrainRun("llama3.2-1b on (1, 2)", "llama3.2-1b", 8, 512, steps=2,
+                  n_layers=PHASE26_DEPTH["llama3.2-1b"], mesh=(1, 2)),
+         TrainRun("llama3.2-1b on (2, 1), the batch over data", "llama3.2-1b", 16, 512,
+                  steps=2, n_layers=PHASE26_DEPTH["llama3.2-1b"], mesh=(2, 1)),
+         TrainRun("mamba2-370m on (1, 2), checkpointed every 2 steps", "mamba2-370m", 8, 512,
+                  steps=4, n_layers=PHASE26_DEPTH["mamba2-370m"], mesh=(1, 2), drill=True),
+         TrainRun("granite-3-8b tp+fsdp on (2, 1)", "granite-3-8b", 8, 512, steps=2,
+                  n_layers=PHASE26_DEPTH["granite-3-8b"], mesh=(2, 1), mode="tp+fsdp")),
+    27: (TrainRun("qwen2-moe-a2.7b on (1, 2), the expert hidden dim over model",
+                  "qwen2-moe-a2.7b", 8, 512, steps=2, ulp_floor=True,
+                  n_layers=PHASE27_DEPTH["qwen2-moe-a2.7b"], mesh=(1, 2)),
+         TrainRun("qwen2-moe-a2.7b on (2, 1), each rank's own 8 groups", "qwen2-moe-a2.7b",
+                  16, 512, steps=2, ulp_floor=True, n_layers=PHASE27_DEPTH["qwen2-moe-a2.7b"], mesh=(2, 1)),
+         TrainRun("llama4-scout-17b-a16e on (1, 2), the experts over model",
+                  "llama4-scout-17b-a16e", 8, 512, steps=2, ulp_floor=True,
+                  n_layers=PHASE27_DEPTH["llama4-scout-17b-a16e"], mesh=(1, 2), over=LLAMA4_27),
+         TrainRun("zamba2-7b on (1, 2)", "zamba2-7b", 8, 512, steps=2, ulp_floor=True,
+                  n_layers=PHASE27_DEPTH["zamba2-7b"], mesh=(1, 2)),
+         TrainRun("internvl2-2b on (2, 1), the embeds over data", "internvl2-2b", 16, 512,
+                  steps=2, ulp_floor=True, n_layers=PHASE27_DEPTH["internvl2-2b"], mesh=(2, 1)),
+         TrainRun("musicgen-medium on (1, 2), attention replicated", "musicgen-medium", 8, 512,
+                  steps=2, ulp_floor=True, n_layers=PHASE27_DEPTH["musicgen-medium"], mesh=(1, 2))),
+}
+# Phase 27: both ranks' peaks together at most this many GB, and in B no
+# rank's all-gathers may receive this many bytes a step: the other rank's
+# half of the routed experts' bf16 weights is 2.01 GB.
+SHARD_PEAK_GB = 60.0
+EXPERT_GATHER_BYTES = 2.0e9
 # compressed_pod_mean's gradient tree (leaf shapes) for phase 26 E.
 POD_LEAVES = {"a": (2048, 2048), "b": {"c": (8192,), "d": (64, 2048, 4)}}
+# Elements a step-1 check moves to the card at a time.
+CHECK_CHUNK = 1 << 26
 
 
 def _local_bytes(tree) -> int:
@@ -3864,38 +3966,84 @@ def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def _shard_step_check(c: Ctx, r: TrainRun, got, want, acfg) -> dict:
+def _cut(t, layout, mesh, coord):
+    """The shard of the whole tensor ``t`` that the rank at mesh coordinate
+    ``coord`` holds in ``layout``: a chunk over each mesh dimension that
+    shards it, in the mesh's order, as DTensor splits."""
+    for d, p in enumerate(layout.placements):
+        if p.is_shard():
+            t = t.chunk(mesh.size(d), dim=p.dim)[coord[d]]
+    return t
+
+
+def _ulp(torch, x):
+    """The spacing of ``x``'s type at |x| (bfloat16: 2^(e - 7))."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.full_like(x, torch.finfo(x.dtype).eps, dtype=torch.float32), e - 1)
+
+
+def _shard_step_check(c: Ctx, r: TrainRun, got, want: dict, acfg) -> dict:
     """This rank's shards after one sharded step (``got``: params, opt
     state, metrics) against the same slices of the unsharded step
-    (``want``, whole) from the same weights and batch: the loss; each
-    leaf's first moment, 0.1 of its clipped gradient, within the gradient
-    bound of the whole leaf's largest; the params where the gradient is
-    clear within 1e-3 lr, else 2 lr (as phase 24). The worst of each and
-    the leaves out of bounds; the phase holds them to TRAIN_TOL."""
+    (``want``: this rank's slices of its params and first moments on the
+    host, each whole leaf's largest |first moment|, the loss) from the
+    same weights and batch: the loss; each leaf's first moment, 0.1 of its
+    clipped gradient, within the gradient bound of the whole leaf's
+    largest; the params where the gradient is clear within 1e-3 lr (for
+    16-bit params, and with ``r.ulp_floor``, within the larger of that and
+    one ulp of the type at the param's value), else 2 lr (as phase 24).
+    The worst of each and the leaves out of bounds; the phase holds them
+    to TRAIN_TOL. Compared CHECK_CHUNK elements at a time."""
     torch, rt = c.torch, c.rt
     tol = TRAIN_TOL[r.compute_dtype]
-    (gp, go, gm), (wp, wo, wm) = got, want
+    gp, go, gm = got
     lr0 = float(rt.adam.schedule(torch.zeros((), dtype=torch.int32), acfg))
-    out = {"loss": float(_local(gm["loss"])), "unsharded_loss": float(wm["loss"]),
-           "max_grad_err": 0.0, "params_err_lr": 0.0, "bad": []}
+    out = {"loss": float(_local(gm["loss"])), "unsharded_loss": want["loss"],
+           "max_grad_err": 0.0, "params_err_lr": 0.0, "params_err_ulps": 0.0, "bad": []}
     out["loss_rel_err"] = abs(out["loss"] - out["unsharded_loss"]) / abs(out["unsharded_loss"])
-    gmu, gpd, wpd = dict(_named(go.mu)), dict(_named(gp)), dict(_named(wp))
-    for name, mw_full in _named(wo.mu):
-        scale = float(mw_full.float().abs().max())
-        m, mw = _local(gmu[name]).float(), _local_of(mw_full, gmu[name]).float()
+    gmu, gpd = dict(_named(go.mu)), dict(_named(gp))
+    for name, mw_all in want["mu"].items():
+        scale = want["scale"][name]
+        m, p, pw_all = _local(gmu[name]), _local(gpd[name]), want["params"][name]
+        if m.shape != mw_all.shape or p.shape != pw_all.shape:
+            out["bad"].append(f"{name}: shard {tuple(m.shape)}, reference slice "
+                              f"{tuple(mw_all.shape)}")
+            continue
         if scale == 0.0:
             if bool(m.abs().max() > 0):
                 out["bad"].append(f"{name}: gradient not 0")
             continue
-        err = float((m - mw).abs().max()) / scale
+        ulps = p.dtype != torch.float32 or r.ulp_floor
+        err = dmax = worst = 0.0
+        m, p = m.reshape(-1), p.reshape(-1)
+        mw_all, pw_all = mw_all.reshape(-1), pw_all.reshape(-1)
+        for lo in range(0, m.numel(), CHECK_CHUNK):
+            hi = lo + CHECK_CHUNK
+            mw = mw_all[lo:hi].to(c.dev).float()
+            err = max(err, float((m[lo:hi].float() - mw).abs().max()) / scale)
+            pw = pw_all[lo:hi].to(c.dev)
+            d = (p[lo:hi].float() - pw.float()).abs()
+            clear = (mw.abs() > tol["grad"] * scale) & (mw.abs() * 10 > 1e-5)
+            if ulps:
+                over = d / torch.maximum(_ulp(torch, pw), torch.full_like(d, 1e-3 * lr0))
+                dmax = max(dmax, float(d.max()))
+                worst = max(worst, float(over[clear].max()) if bool(clear.any()) else 0.0)
+            else:
+                dmax = max(dmax, float(d.max()))
+                worst = max(worst, float(d[clear].max()) if bool(clear.any()) else 0.0)
+            del mw, pw, d, clear
         out["max_grad_err"] = max(out["max_grad_err"], err)
-        d = (_local(gpd[name]).float() - _local_of(wpd[name], gpd[name]).float()).abs()
-        clear = (mw.abs() > tol["grad"] * scale) & (mw.abs() * 10 > 1e-5)
-        worst = float(d[clear].max()) if bool(clear.any()) else 0.0
-        out["params_err_lr"] = max(out["params_err_lr"], worst / lr0)
-        if err >= tol["grad"] or float(d.max()) > 2 * lr0 * (1 + 1e-3) or worst > 1e-3 * lr0:
+        if ulps:
+            out["params_err_ulps"] = max(out["params_err_ulps"], worst)
+            far = dmax > 2 * lr0 * (1 + 1e-3) + float(_ulp(torch, pw_all.abs().max()[None])[0])
+            near = worst > 1.0
+        else:
+            out["params_err_lr"] = max(out["params_err_lr"], worst / lr0)
+            far, near = dmax > 2 * lr0 * (1 + 1e-3), worst > 1e-3 * lr0
+        if err >= tol["grad"] or far or near:
             out["bad"].append(f"{name}: gradient err {err:.3g} of its max, params max diff "
-                              f"{float(d.max()):.3g} ({worst:.3g} where clear; lr {lr0:.3g})")
+                              f"{dmax:.3g} ({worst:.3g} {'ulps' if ulps else ''} where clear; "
+                              f"lr {lr0:.3g})")
     return out
 
 
@@ -3928,48 +4076,212 @@ def _watched_train(c: Ctx, r: TrainRun, cfg, acfg, mesh=None, on_step1=None,
     return rec
 
 
-def _shard_run(c: Ctx, r: TrainRun) -> dict:
-    """One phase-26 run on this rank (see SHARD_RUNS): the unsharded train,
-    its step 1 kept; then the sharded train on every rank (the counters
-    reset just before it and read just after), each rank's step-1 shards
-    held to the same slices of the unsharded step 1; for a ``drill`` run
-    checkpointed, then resumed (``_shard_drill``)."""
+def _step1(params, opt_state, metrics, device) -> dict:
+    """The unsharded step 1 on ``device`` (the card, or the host): copies
+    of the params and first moments by leaf (the next step updates them in
+    place), each leaf's largest |first moment|, the loss."""
+    mu = dict(_named(opt_state.mu))
+    return {"params": {k: v.detach().to(device, copy=True) for k, v in _named(params)},
+            "mu": {k: v.to(device, copy=True) for k, v in mu.items()},
+            "scale": {k: float(v.float().abs().max()) for k, v in mu.items()},
+            "loss": float(metrics["loss"])}
+
+
+def _peak_gb(c: Ctx) -> float | None:
+    if c.dev.type != "cuda":
+        return None
+    return c.torch.cuda.max_memory_allocated() / 1e9
+
+
+def _fresh_peak(c: Ctx) -> None:
+    """Every rank's cached blocks back to the card and its peak reset, at
+    one point of every rank."""
     import torch.distributed as dist
-    torch, rt = c.torch, c.rt
+    c.sync()
+    if c.dev.type == "cuda":
+        c.torch.cuda.empty_cache()
+        c.torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+
+
+# The reference's step-1 params and first moments stay on the card, the
+# other rank reading them in place (CUDA IPC), up to this many bytes; above
+# it (llama4-scout's 20.3 GB beside its sharded steps' 55 GB) they go to the
+# host and each other rank's slices over the default gloo group. Through
+# the host, the nine runs below it took 69.4 s of references with their
+# hand-offs against 26.5 s in place (the hand-offs 22.2 s against 0.1 s)
+# on an H100 80GB HBM3 at 700 W.
+REF_ON_CARD_BYTES = 12e9
+
+
+def _reference(c: Ctx, r: TrainRun, cfg, acfg, mesh) -> dict:
+    """The unsharded train of ``r`` once, on rank 0 (an MoE arch's routing
+    recorded), its step-1 params and first moments kept (``_step1``) and
+    handed to every rank, each taking its slices in its own layout: on the
+    card through CUDA IPC handles, or, above REF_ON_CARD_BYTES (and on the
+    CPU), on the host, rank 0 sending each other rank its slices. Every
+    rank returns its slices with the reference's scalars (losses, ms,
+    bytes, step-1 scales and loss, routing, rank 0's peak GB)."""
+    import torch.distributed as dist
+    from torch.multiprocessing.reductions import reduce_tensor
+    rt = c.rt
+    rank, world = dist.get_rank(), dist.get_world_size()
+    lay = dict(_named(rt.train.layouts(cfg, mesh)[0]))
+    coords = [[int(i) for i in (mesh.mesh == q).nonzero()[0]] for q in range(world)]
+    meta = dict(_named(rt.T.init_params(rt.prng.PRNGKey(0, "meta"), cfg)))
+    size = sum(t.numel() * (t.element_size() + 4) for t in meta.values())
+    on_card = c.dev.type == "cuda" and size <= REF_ON_CARD_BYTES
+    head = [None]
+    if rank == 0:
+        replay = _replaying(c, cfg, r)
+        with replay:
+            base = _watched_train(c, r, cfg, acfg, on_step1=lambda *step: _step1(
+                *step, c.dev if on_card else "cpu"))
+        del base["final"]
+        step1 = base.pop("step1")
+        routing = ([(p.cpu(), e.cpu()) for p, e in replay.calls]
+                   if isinstance(replay, RoutingReplay) else None)
+        head = [{"losses": base["losses"], "ms": base["ms"], "param_bytes": base["param_bytes"],
+                 "moment_bytes": base["moment_bytes"], "scale": step1["scale"],
+                 "loss": step1["loss"], "routing": routing, "peak_gb": _peak_gb(c)}]
+        if on_card:
+            head[0]["ipc"] = {part: {k: reduce_tensor(t) for k, t in step1[part].items()}
+                              for part in ("params", "mu")}
+    c.sync()
+    t0 = time.perf_counter()
+    dist.broadcast_object_list(head, src=0)
+    ref = head[0]
+    handles = ref.pop("ipc", None)
+    if on_card:
+        whole = step1 if rank == 0 else {
+            part: {k: fn(*args) for k, (fn, args) in handles[part].items()}
+            for part in ("params", "mu")}
+        mine = {part: {k: _cut(t, lay[k], mesh, coords[rank]) for k, t in whole[part].items()}
+                for part in ("params", "mu")}
+    elif rank == 0:
+        for q in range(1, world):
+            for part in ("params", "mu"):
+                for name, t in step1[part].items():
+                    dist.send(_cut(t, lay[name], mesh, coords[q]).contiguous(), dst=q)
+        mine = {part: {k: _cut(t, lay[k], mesh, coords[0]) for k, t in step1[part].items()}
+                for part in ("params", "mu")}
+    else:
+        mine = {}
+        for part in ("params", "mu"):
+            mine[part] = {}
+            for name in meta:
+                like = _cut(meta[name], lay[name], mesh, coords[rank])
+                buf = c.torch.empty(like.shape, dtype=like.dtype if part == "params"
+                                    else c.torch.float32)
+                dist.recv(buf, src=0)
+                mine[part][name] = buf
+    return {**ref, **mine, "on_card": on_card, "handoff_s": time.perf_counter() - t0}
+
+
+# The staged collectives of a rank, tallied while STAGED["on"]: bytes by
+# kind (an all-gather's, those received from the other ranks) and the
+# largest all-gather input in elements; groups of one rank move nothing.
+STAGED = {"on": False, "bytes": {}, "largest_gather": 0}
+
+
+def _tally_staged(lmesh) -> None:
+    """Wrap ``launch.mesh.StagedGloo``'s collectives (once a process) to
+    tally into :data:`STAGED`."""
+    S = lmesh.StagedGloo
+    if getattr(S, "tallied", False):
+        return
+
+    def wrap(name: str, kind: str, arg: int) -> None:
+        f = getattr(S, name)
+
+        def counted(self, *a, **k):
+            if STAGED["on"] and self.size() > 1:
+                x = a[arg][0] if isinstance(a[arg], list) else a[arg]
+                n = x.numel() * x.element_size()
+                if kind == "all_gather":
+                    n *= self.size() - 1
+                    STAGED["largest_gather"] = max(STAGED["largest_gather"], x.numel())
+                STAGED["bytes"][kind] = STAGED["bytes"].get(kind, 0) + n
+            return f(self, *a, **k)
+
+        setattr(S, name, counted)
+
+    for name, kind, arg in (("allreduce", "all_reduce", 0), ("broadcast", "broadcast", 0),
+                            ("allgather", "all_gather", 1),
+                            ("all_gather_single", "all_gather", 1),
+                            ("reduce_scatter_single", "reduce_scatter", 1),
+                            ("all_to_all_single", "all_to_all", 1)):
+        wrap(name, kind, arg)
+    # the C++ names of the tensor forms, and the list forms that call them
+    S._allgather_base = S.all_gather_single
+    S._reduce_scatter_base = S.reduce_scatter_single
+    S.alltoall_base = S.all_to_all_single
+    S.tallied = True
+
+
+def _shard_run(c: Ctx, r: TrainRun) -> dict:
+    """One run of phase 26 or 27 on this rank (see SHARD_RUNS): the
+    unsharded reference (``_reference``); then the sharded train on every
+    rank (the counters reset just before it and read just after, the
+    staged collectives tallied, an MoE arch replaying the reference's
+    routing at this rank's groups), each rank's step-1 shards held to its
+    slices of the unsharded step 1; for a ``drill`` run checkpointed, then
+    resumed (``_shard_drill``). Peaks are taken per window: the reference
+    (rank 0 alone at work) and the sharded train."""
+    import torch.distributed as dist
+    rt = c.rt
     rank = dist.get_rank()
     cfg = train_cfg(rt, r)
     acfg = rt.adam.AdamConfig(**TRAIN_ADAM, total_steps=r.steps)
-    if c.dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
     mesh = rt.lmesh.make_host_mesh(*r.mesh, device=c.dev)
     root = ROOT / "build" / "shard_drill"
     if r.drill and rank == 0:
         shutil.rmtree(root, ignore_errors=True)
-    # step 1 kept without its second moments
-    base = _watched_train(c, r, cfg, acfg,
-                          on_step1=lambda p, o, m: (p, o._replace(nu=None), m))
-    base.pop("final")
-    if c.dev.type == "cuda":
-        torch.cuda.empty_cache()
-    dist.barrier()
+    _fresh_peak(c)
+    t0 = time.perf_counter()
+    ref = _reference(c, r, cfg, acfg, mesh)
+    reference_s = time.perf_counter() - t0
+    reference_peak = _peak_gb(c)
+    _fresh_peak(c)
+    replay = contextlib.nullcontext()
+    if ref["routing"] is not None:
+        replay = RoutingReplay(c, cfg, ROUTE_MARGIN[r.compute_dtype])
+        replay.calls, replay.group_block = ref["routing"], mesh.get_coordinate()[0]
+        replay.replay()
     c.reset()
-    got = _watched_train(c, r, cfg, acfg, mesh, on_step1=lambda *step1: _shard_step_check(
-        c, r, step1, base["step1"], acfg), ckpt_dir=str(root / "whole") if r.drill else None)
+    STAGED.update(on=True, bytes={}, largest_gather=0)
+    with replay:
+        got = _watched_train(c, r, cfg, acfg, mesh, on_step1=lambda *step1: _shard_step_check(
+            c, r, step1, ref, acfg), ckpt_dir=str(root / "whole") if r.drill else None)
+    STAGED["on"] = False
     out = {"counts": c.counts(), "tc": {k: getattr(rt, k).TC_LAUNCHES for k in TC_LIBRARY},
            "losses": got["losses"], "train_s": got["train_s"], "check": got["step1"],
            "ms_per_step": statistics.fmean(got["ms"][1:]),
            "param_bytes": got["param_bytes"], "moment_bytes": got["moment_bytes"],
-           "unsharded_param_bytes": base["param_bytes"],
-           "unsharded_moment_bytes": base["moment_bytes"],
-           "unsharded_losses": base["losses"],
-           "unsharded_ms_per_step": statistics.fmean(base["ms"][1:])}
-    if r.drill:
-        out["drill"] = _shard_drill(c, r, cfg, mesh, root, got["final"])
-    del got, base
-    if c.dev.type == "cuda":
-        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        torch.cuda.empty_cache()
+           "unsharded_param_bytes": ref["param_bytes"],
+           "unsharded_moment_bytes": ref["moment_bytes"],
+           "unsharded_losses": ref["losses"],
+           "unsharded_ms_per_step": statistics.fmean(ref["ms"][1:]),
+           "unsharded_peak_gb": ref["peak_gb"],
+           "staged_bytes_per_step": {k: v / r.steps for k, v in STAGED["bytes"].items()},
+           "largest_gather": STAGED["largest_gather"],
+           "peak_gb": _peak_gb(c), "reference_peak_gb": reference_peak,
+           "ms_steps": got["ms"], "reference_s": reference_s, "handoff_s": ref["handoff_s"]}
+    if isinstance(replay, RoutingReplay):
+        out["routing"] = {"calls": replay.i, "of": len(replay.calls), "tokens": replay.tokens,
+                          "near": replay.near, "flips": replay.flips,
+                          "clear_flips": replay.clear_flips}
+    out["reference_on_card"] = ref["on_card"]
+    final = got["final"] if r.drill else None
+    del got, ref
+    # The other ranks let go of the reference's memory before rank 0 frees it.
     dist.barrier()
+    if c.dev.type == "cuda":
+        c.torch.cuda.ipc_collect()
+    if r.drill:
+        out["drill"] = _shard_drill(c, r, cfg, mesh, root, final)
+    del final
+    _fresh_peak(c)
     return out
 
 
@@ -4057,58 +4369,127 @@ def _pod_mean_check(c: Ctx) -> dict:
             "bytes": sum(v.numel() for _, v in _named(cpu))}
 
 
-def _shard_rank(runs, device: str) -> dict:
-    """A spawned rank of phase 26: every run (the drill in its run) and the
-    pod mean;
-    its launch shapes and per-run counts gathered to rank 0 with its
-    results."""
+
+def _shard_rank(tables: dict, device: str) -> dict:
+    """A spawned rank of phases 26 and 27: each phase's runs of ``tables``
+    (phase -> runs; the drill in its run) and phase 26's pod mean; each
+    phase's launch shapes and per-run results gathered to rank 0."""
     t_in = time.perf_counter()
     import torch
     import torch.distributed as dist
     rt = port_modules()
     c = Ctx(torch, rt, device)
     record_launch_shapes(c)
-    c.phase = 26
-    out = {"runs": [_shard_run(c, r) for r in runs]}
-    out["pod"] = _pod_mean_check(c)
-    mine = {"counts": [r["counts"] for r in out["runs"]], "tc": [r["tc"] for r in out["runs"]],
-            "check": [r["check"] for r in out["runs"]],
-            "bytes": [(r["param_bytes"], r["moment_bytes"]) for r in out["runs"]],
-            "peak_gb": [r.get("peak_gb") for r in out["runs"]],
-            "shapes": c.shapes.get(26, set()), "device": str(c.dev),
-            "pod": out["pod"],
-            "drill": [{k: r["drill"][k] for k in ("same_bits_differ", "restored_differ")}
-                      for r in out["runs"] if "drill" in r]}
-    every = [None] * dist.get_world_size()
-    dist.all_gather_object(every, mine)
-    out["ranks"] = every
+    _tally_staged(rt.lmesh)
+    out = {}
+    for phase, runs in tables.items():
+        c.phase = phase
+        t0 = time.perf_counter()
+        res = {"runs": [_shard_run(c, r) for r in runs]}
+        if phase == 26:
+            res["pod"] = _pod_mean_check(c)
+        res["rank_s"] = time.perf_counter() - t0
+        keys = ("counts", "tc", "check", "peak_gb", "reference_peak_gb", "staged_bytes_per_step",
+                "largest_gather", "routing")
+        mine = {k: [x.get(k) for x in res["runs"]] for k in keys}
+        mine.update(bytes=[(x["param_bytes"], x["moment_bytes"]) for x in res["runs"]],
+                    shapes=c.shapes.get(phase, set()), device=str(c.dev), pod=res.get("pod"),
+                    drill=[{k: x["drill"][k] for k in ("same_bits_differ", "restored_differ")}
+                           for x in res["runs"] if "drill" in x])
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        res["ranks"] = every
+        out[phase] = res
     out["rank_s"] = time.perf_counter() - t_in
     return out
 
 
-def phase_sharded(c: Ctx) -> dict:
-    """Phase 26 (see the module docstring): A-C the runs of SHARD_RUNS, D
-    the drill, E the pod mean; every check on the ranks' results here."""
-    t0 = time.perf_counter()
-    runs = SHARD_RUNS[26]
-    # This process's cached blocks go back to the card first: after the
-    # model phases before it they can hold tens of GB (phase 23's 42), and
-    # the ranks' own peaks sum to 55.
-    PARAMS.drop()
-    if c.dev.type == "cuda":
-        c.torch.cuda.empty_cache()
-    out = c.rt.mesh.spawn(2, _shard_rank, runs, c.dev.type, backend="gloo", timeout=600)
-    spawn_s = time.perf_counter() - t0 - out["rank_s"]
-    for rank in out["ranks"]:
-        c.shapes.setdefault(26, set()).update(rank["shapes"])
-        for counts in rank["counts"]:
-            c.add_launches(counts)
-    for i, (r, res) in enumerate(zip(runs, out["runs"])):
+# The ranks' results for phases 26 and 27, from one spawn the two phases
+# share (``_sharded_ranks``).
+SHARDED: dict = {}
+
+
+def _sharded_ranks(c: Ctx) -> dict:
+    """Phases 26 and 27 (those of ``c.phases``, else the running one) from
+    one spawn of 2 gloo ranks, made by whichever phase comes first; its
+    launch shapes merged per phase. A spawn that failed fails both."""
+    if "error" in SHARDED:
+        raise PhaseFailed(f"the sharded phases' spawn failed: {SHARDED['error']}")
+    if not SHARDED:
+        tables = {p: SHARD_RUNS[p] for p in (26, 27) if p in (c.phases or {c.phase})}
+        # This process's cached blocks go back to the card first: after the
+        # model phases before it they can hold tens of GB (phase 23's 42).
+        PARAMS.drop()
+        if c.dev.type == "cuda":
+            c.torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            out = c.rt.mesh.spawn(2, _shard_rank, tables, c.dev.type, backend="gloo",
+                                  timeout=900)
+        except Exception as e:
+            SHARDED["error"] = repr(e)
+            raise
+        out["spawn_s"] = time.perf_counter() - t0 - out["rank_s"]
+        for phase in tables:
+            for rank in out[phase]["ranks"]:
+                c.shapes.setdefault(phase, set()).update(rank["shapes"])
+        SHARDED.update(out)
+        log(f"phase {c.phase}: one spawn of 2 ranks for phases {sorted(tables)}: spawn "
+            f"{out['spawn_s']:.1f} s, ranks {out['rank_s']:.1f} s ("
+            + ", ".join(f"phase {p} {out[p]['rank_s']:.1f} s" for p in tables) + ")")
+    return SHARDED
+
+
+def _shard_line(c: Ctx, r: TrainRun, i: int, res: dict, ranks: list, cases: dict) -> dict:
+    """Run ``i``'s line of readings from the ranks' results."""
+    checks = [k["check"][i] for k in ranks]
+    routing = [k["routing"][i] for k in ranks]
+    peaks = [k["peak_gb"][i] for k in ranks]
+    ref_peaks = [k["reference_peak_gb"][i] for k in ranks]
+    together = (max(sum(peaks), sum(ref_peaks)) if None not in peaks + ref_peaks else None)
+    return {
+        "mesh": dict(zip(("data", "model"), r.mesh)), "batch": r.batch, "seq": r.seq,
+        "layers": train_cfg(c.rt, r).n_layers,
+        **{k: max(x[k] for x in checks) for k in ("loss_rel_err", "max_grad_err",
+                                                  "params_err_lr", "params_err_ulps")},
+        "ms_per_step": res["ms_per_step"],
+        "unsharded_ms_per_step": res["unsharded_ms_per_step"],
+        "losses": res["losses"], "unsharded_losses": res["unsharded_losses"],
+        "launches_per_step_per_rank": [
+            {k: v / r.steps for k, v in k_["counts"][i].items() if v} for k_ in ranks],
+        "launch_cases": {k: [list(map(str, case)) for case, _ in kc]
+                         for k, kc in cases.items()},
+        "param_and_moment_share_per_rank": [
+            (p / res["unsharded_param_bytes"], m / res["unsharded_moment_bytes"])
+            for p, m in (k["bytes"][i] for k in ranks)],
+        "param_bytes_per_rank": [k_["bytes"][i][0] for k_ in ranks],
+        "peak_gb_per_rank": peaks, "reference_peak_gb_per_rank": ref_peaks,
+        "peak_gb_together": together,
+        "staged_bytes_per_step_per_rank": [k_["staged_bytes_per_step"][i] for k_ in ranks],
+        "largest_gather_per_rank": [k_["largest_gather"][i] for k_ in ranks],
+        "routing_per_rank": routing if routing[0] is not None else None,
+        "train_s": res["train_s"], "ms_steps": res["ms_steps"],
+        "reference_s": res["reference_s"], "handoff_s": res["handoff_s"],
+        "reference_on_card": res["reference_on_card"]}
+
+
+def _shard_lines(c: Ctx, phase: int) -> list[dict]:
+    """Each run of ``phase``'s line (logged), then the checks every run
+    shares (see SHARD_RUNS) on the ranks' results."""
+    out = _sharded_ranks(c)[phase]
+    ranks = out["ranks"]
+    for counts in (k["counts"] for k in ranks):
+        for n in counts:
+            c.add_launches(n)
+    lines = []
+    for i, (r, res) in enumerate(zip(SHARD_RUNS[phase], out["runs"])):
+        lines.append(_shard_line(c, r, i, res, ranks, train_cases(c.rt, r)))
+        log(f"phase {phase}: {r.label}: {json.dumps(lines[-1])}")
+    for i, (r, res) in enumerate(zip(SHARD_RUNS[phase], out["runs"])):
         tol = TRAIN_TOL[r.compute_dtype]["loss"]
         want = {k: 0 for k in KERNELS}
-        for k, cases in train_cases(c.rt, r).items():
-            want[k] = r.steps * sum(n for _, n in cases)
-        ranks = out["ranks"]
+        for k, kc in train_cases(c.rt, r).items():
+            want[k] = r.steps * sum(n for _, n in kc)
         require(all(k["counts"][i] == want for k in ranks),
                 f"{r.label}: each rank's launches {[k['counts'][i] for k in ranks]}, expected "
                 f"{want}")
@@ -4121,25 +4502,25 @@ def phase_sharded(c: Ctx) -> dict:
         require(len(losses) == r.steps and all(map(math.isfinite, losses))
                 and all(abs(a - b) <= tol * abs(b) for a, b in zip(losses, base)),
                 f"{r.label}: train(mesh=) losses {losses} against the unsharded {base}")
+        routing = [k["routing"][i] for k in ranks]
+        if routing[0] is not None:
+            require(all(x["calls"] == x["of"] and x["clear_flips"] == 0 for x in routing),
+                    f"{r.label}: each rank's routing against the reference's "
+                    f"(margin {ROUTE_MARGIN[r.compute_dtype]}): {routing}")
         share = [(p / res["unsharded_param_bytes"], m / res["unsharded_moment_bytes"])
                  for p, m in (k["bytes"][i] for k in ranks)]
         if r.mode == "tp+fsdp":
             require(all(0.45 < p < 0.55 and 0.45 < m < 0.55 for p, m in share),
                     f"{r.label}: each rank's share of params and moments {share}")
-        line = {"mesh": dict(zip(("data", "model"), r.mesh)), "batch": r.batch, "seq": r.seq,
-                "layers": train_cfg(c.rt, r).n_layers,
-                **{k: max(x[k] for x in checks) for k in ("loss_rel_err", "max_grad_err",
-                                                          "params_err_lr")},
-                "ms_per_step": res["ms_per_step"],
-                "unsharded_ms_per_step": res["unsharded_ms_per_step"],
-                "losses": losses, "unsharded_losses": base,
-                "launches_per_step_per_rank": [
-                    {k: v / r.steps for k, v in k_["counts"][i].items() if v} for k_ in ranks],
-                "param_and_moment_share_per_rank": share,
-                "param_bytes_per_rank": [k_["bytes"][i][0] for k_ in ranks],
-                "peak_gb_per_rank": [k_["peak_gb"][i] for k_ in ranks],
-                "train_s": res["train_s"]}
-        log(f"phase 26: {r.label}: {json.dumps(line)}")
+    return lines
+
+
+def phase_sharded(c: Ctx) -> dict:
+    """Phase 26 (see the module docstring): A-C the runs of SHARD_RUNS[26],
+    D the drill, E the pod mean; every check on the ranks' results here."""
+    out = _sharded_ranks(c)[26]
+    runs = SHARD_RUNS[26]
+    _shard_lines(c, 26)
     for r, res in zip(runs, out["runs"]):
         if not r.drill:
             continue
@@ -4163,7 +4544,34 @@ def phase_sharded(c: Ctx) -> dict:
     log(f"phase 26: compressed_pod_mean on a (2, 1, 1) pod mesh on the card: payload and mean "
         f"bit-equal to the CPU's on each rank; {pods[0]['bytes']} elements a rank, "
         f"{[round(p['ms'], 2) for p in pods]} ms")
-    log(f"phase 26: spawn {spawn_s:.1f} s, ranks {out['rank_s']:.1f} s")
+    log(f"phase 26: ranks {out['rank_s']:.1f} s")
+    return out
+
+
+def phase_sharded_archs(c: Ctx) -> dict:
+    """Phase 27 (see the module docstring and SHARD_RUNS[27]): phase 26's
+    checks on each run, and: both ranks' peaks together at most
+    SHARD_PEAK_GB; the MoE runs' routing at the reference's wherever clear
+    of the margin; in llama4-scout's run no all-gather receiving
+    EXPERT_GATHER_BYTES a step on a rank, nor taking a tensor as large as a
+    rank's shard of a routed expert weight."""
+    out = _sharded_ranks(c)[27]
+    for r, line in zip(SHARD_RUNS[27], _shard_lines(c, 27)):
+        if line["peak_gb_together"] is not None:
+            require(line["peak_gb_together"] <= SHARD_PEAK_GB,
+                    f"{r.label}: both ranks' peaks together {line['peak_gb_together']:.2f} GB, "
+                    f"over {SHARD_PEAK_GB}")
+        cfg = train_cfg(c.rt, r)
+        if cfg.num_experts and cfg.num_experts % c.rt.sharding.TP == 0:
+            shard = cfg.num_experts // r.mesh[1] * cfg.d_model * cfg.expert_ff
+            got = [x.get("all_gather", 0) for x in line["staged_bytes_per_step_per_rank"]]
+            require(all(b < EXPERT_GATHER_BYTES for b in got)
+                    and all(n < shard for n in line["largest_gather_per_rank"]),
+                    f"{r.label}: all-gather bytes a step by rank {got} (bound "
+                    f"{EXPERT_GATHER_BYTES:.3g}), largest gathered tensor "
+                    f"{line['largest_gather_per_rank']} elements against a routed expert "
+                    f"weight's shard of {shard}")
+    log(f"phase 27: ranks {out['rank_s']:.1f} s")
     return out
 
 
@@ -4384,26 +4792,61 @@ def _alternate(old, new, reps: int) -> tuple[float, float, list[float]]:
     return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
 
 
+class SassDumps:
+    """``cuobjdump -sass`` of each redesigned kernel's library, started
+    right after the build so that the dumps run beside the phases and not
+    after them; each dump is written to a file beside its library."""
+
+    def __init__(self, b):
+        self.error, self.jobs = None, {}
+        try:
+            tool = b.cuda_tool("cuobjdump")
+        except RuntimeError as e:
+            self.error = str(e)
+            return
+        for name in TC_OPCODES:
+            lib = b.library_path(TC_LIBRARY[name])
+            out = lib.with_name(lib.name + ".sass")
+            with out.open("w") as fh:
+                proc = subprocess.Popen([tool, "-sass", str(lib)], stdout=fh,
+                                        stderr=subprocess.DEVNULL)
+            self.jobs[name] = (lib, out, proc)
+
+    def read(self, name: str) -> tuple[Path, str]:
+        """The library and its SASS; PhaseFailed if the dump failed."""
+        if self.error:
+            raise PhaseFailed(self.error)
+        lib, out, proc = self.jobs[name]
+        try:
+            rc = proc.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            rc = "still running after 300 s"
+        require(rc == 0, f"cuobjdump -sass {lib.name} exited {rc}")
+        return lib, out.read_text()
+
+    def stop(self) -> None:
+        for _, _, proc in self.jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
 def sass_counts(c: Ctx) -> None:
     """Count the tensor-core instructions in the SASS of each redesigned
-    kernel's library (cuobjdump -sass); fail if the tool is missing, if
-    flash attention or its gradient has no HGMMA or the SSD scan or its
-    gradient no HGMMA or HMMA."""
-    b = c.rt._build
+    kernel's library (``c.sass``, else dumped now); fail if cuobjdump is
+    missing, if flash attention or its gradient has no HGMMA or the SSD
+    scan or its gradient no HGMMA or HMMA."""
+    dumps = c.sass or SassDumps(c.rt._build)
     try:
-        tool = b.cuda_tool("cuobjdump")
-    except RuntimeError as e:
-        raise PhaseFailed(str(e)) from e
-    for name, ops in TC_OPCODES.items():
-        lib = b.library_path(TC_LIBRARY[name])
-        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                              timeout=300)
-        require(sass.returncode == 0, f"cuobjdump -sass {lib.name} exited {sass.returncode}")
-        counts = {op: len(re.findall(rf"\b{op}\.", sass.stdout)) for op in ops}
-        c.kern[name]["sass"] = counts
-        log(f"sass {lib.name}: {counts}")
-        need = counts["HGMMA"] if name.startswith("flash_attention") else sum(counts.values())
-        require(need > 0, f"{lib.name}: no tensor-core instruction ({counts}) in its SASS")
+        for name, ops in TC_OPCODES.items():
+            lib, sass = dumps.read(name)
+            counts = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ops}
+            c.kern[name]["sass"] = counts
+            log(f"sass {lib.name}: {counts}")
+            need = counts["HGMMA"] if name.startswith("flash_attention") else sum(counts.values())
+            require(need > 0, f"{lib.name}: no tensor-core instruction ({counts}) in its SASS")
+    finally:
+        dumps.stop()
 
 
 def model_kernel_timings(c: Ctx, rates: dict[str, float]) -> None:
@@ -4731,12 +5174,6 @@ def ptxas_summary(entries: list[dict]) -> dict:
             "shifted_rosenbrock": [e for e in entries if "<4," in e["name"]]}
 
 
-# Phases a second process of this script runs beside the first, on the same
-# card: the model serving path (10-12, 19-22), the remaining engines and
-# the hybrid (13-15) and phase 6's small DE runs against the CPU. The first
-# process runs the rest (1-5, 7-9, 16-18) and then, alone on the card, the
-# kernel timings. The second process takes half of torch's default CPU
-# threads for the CPU sides of its card-vs-CPU phases.
 # -- phase 25: bfloat16 population storage and the geometry tuner ------------------
 
 # B: Table I's fused DE with KernelConfig(dtype="bfloat16") set only on
@@ -5047,7 +5484,14 @@ def phase_storage_tuner(c: Ctx) -> dict:
     return out
 
 
-SECOND_PROCESS_PHASES = frozenset({6, 10, 11, 12, 14, 15, 19, 20, 21, 22, 23, 24, 26})
+# Phases a second process of this script runs beside the first, on the same
+# card: the small models against the CPU (12), the hybrid (15), the large
+# models' serving, card-vs-CPU and training phases (19-24), the bfloat16
+# storage and the tuner (25) and the sharded training (26-27). The first
+# process runs the rest and then, alone on the card, the kernel timings.
+# The second process takes half of torch's default CPU threads for the CPU
+# sides of its card-vs-CPU phases.
+SECOND_PROCESS_PHASES = frozenset({12, 15, 19, 20, 21, 22, 23, 24, 25, 26, 27})
 # Seconds from the script's start after which the second process is killed
 # (the script's whole limit is 1,200).
 PART_TIMEOUT = 1100.0
@@ -5142,7 +5586,7 @@ def log_ptxas(c: Ctx, _build) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default=",".join(str(n) for n in range(1, 27)),
+    ap.add_argument("--phases", default=",".join(str(n) for n in range(1, 28)),
                     help="comma-separated phases to run (default: all)")
     # Internal: run as the second process, writing the record to this file.
     ap.add_argument("--part-out", default=None, help=argparse.SUPPRESS)
@@ -5180,6 +5624,8 @@ def main() -> int:
     if first:
         log(f"build: {time.perf_counter() - t_build:.1f} s into {_build.build_dir()}")
         log_ptxas(c, _build)
+        if 1 in phases:
+            c.sass = SassDumps(_build)     # read by the kernel timings
 
     ok = True
     record_launch_shapes(c)
@@ -5191,11 +5637,13 @@ def main() -> int:
              **{n: run_train_phase(n) for n in TRAIN_RUNS},
              **{n: train_card_vs_cpu_phase(n) for n in CARD_VS_CPU_TRAIN_RUNS},
              15: phase_hybrid, 16: phase_service, 17: phase_portfolio_async,
-             18: phase_mesh, 25: phase_storage_tuner, 26: phase_sharded}
+             18: phase_mesh, 25: phase_storage_tuner, 26: phase_sharded,
+             27: phase_sharded_archs}
     # The second process's phases run beside this process's.
     second = phases & SECOND_PROCESS_PHASES if first else set()
     part = SecondProcess(second) if second and phases - second else None
     mine = phases - second if part else phases
+    c.phases = mine
     try:
         for num in sorted(steps):
             if num not in mine:
@@ -5217,6 +5665,8 @@ def main() -> int:
     finally:
         if part:
             part.stop()
+        if c.sass and sys.exc_info()[1] is not None:
+            c.sass.stop()       # an error left the phases: no kernel timings
     if not first:
         log(f"the second process's phases: {time.perf_counter() - t_start:.1f} s from its "
             "start")
@@ -5231,6 +5681,8 @@ def main() -> int:
         except PhaseFailed as e:
             ok = False
             log(f"kernel timings FAILED: {e}")
+        finally:
+            c.sass.stop()
         # Every shape a later phase launched a kernel at was checked in phase 1.
         checked = c.shapes.get(1, set())
         for num in sorted(phases - {1}):

@@ -58,7 +58,9 @@ def _host(x: Any) -> np.ndarray:
         from torch.distributed.tensor import DTensor
         if isinstance(x, DTensor):
             x = x.full_tensor()     # a collective: every rank of the mesh saves
-        return x.detach().cpu().numpy()
+        # a copy even of a host tensor: the trainer updates its state in
+        # place while the writer thread runs
+        return x.detach().to("cpu", copy=True).numpy()
     return np.asarray(x)
 
 

@@ -8,6 +8,7 @@ out by ``parallel.sharding`` (``launch.train.train(mesh=...)``).
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -59,25 +60,32 @@ def loss_and_grads(params: PyTree, cfg: ModelConfig, batch: PyTree,
 
 
 def make_train_step(cfg: ModelConfig, adam_cfg: adam.AdamConfig | None = None,
-                    compute_shardings: PyTree | None = None):
+                    compute_shardings: PyTree | None = None, donate: bool = False):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: :func:`loss_and_grads`, one Adam update
     (``optim.adam.update``, clipping included) and the metrics ``ce``,
     ``aux``, ``loss`` and ``grad_norm`` (the square root of the float32 sum
-    of squares over every leaf, before clipping). Like the reference it
-    returns new params and state: the update holds the old and the new
-    params, mu and nu at once (at llama3.2-1b, float32, about 15 GB of
-    them). ``compute_shardings`` (``parallel.sharding.to_shardings`` of
-    ``compute_specs``) lays out the compute copies, see
-    :func:`_cast_params`."""
+    of squares over every leaf, before clipping). It returns new params
+    and state: the update holds the old and the new params, mu and nu at
+    once (at llama3.2-1b, float32, about 15 GB of them). With ``donate``,
+    as the reference's trainer donates them to its jitted step, the update
+    writes the given params and moments in place (``optim.adam.update_``,
+    the same bits) and returns them: one copy of the state. A non-finite
+    loss then leaves them untouched (a host read of the loss), which is
+    what the trainer's retry needs. ``compute_shardings``
+    (``parallel.sharding.to_shardings`` of ``compute_specs``) lays out the
+    compute copies, see :func:`_cast_params`."""
     acfg = adam_cfg or adam.AdamConfig()
 
     def train_step(params: PyTree, opt_state: adam.AdamState, batch: PyTree):
         loss, metrics, grads = loss_and_grads(params, cfg, batch, compute_shardings)
-        new_params, new_opt = adam.update(grads, opt_state, params, acfg)
         gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                             for g in adam.tree_leaves(grads)))
-        return new_params, new_opt, {**metrics, "loss": loss, "grad_norm": gn}
+        if not donate:
+            params, opt_state = adam.update(grads, opt_state, params, acfg)
+        elif math.isfinite(float(loss)):
+            opt_state = adam.update_(grads, opt_state, params, acfg)
+        return params, opt_state, {**metrics, "loss": loss, "grad_norm": gn}
 
     return train_step
 

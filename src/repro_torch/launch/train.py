@@ -117,7 +117,7 @@ def train(cfg, steps: int = 50, ckpt_dir: str | None = None, ckpt_every: int = 2
             print(f"[train] restored step {start_step} "
                   f"(data cursor {stream.step})", flush=True)
 
-    step_fn = make_train_step(cfg, acfg, c_sh)
+    step_fn = make_train_step(cfg, acfg, c_sh, donate=True)
     if lead:
         where = f"device {dev}" if mesh is None else \
             f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on {dev}"

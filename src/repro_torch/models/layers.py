@@ -19,7 +19,18 @@ MoE (``init_moe``, ``moe``) routes, ranks, drops and combines as the
 reference does, in plain PyTorch (the reference computes them outside any
 Pallas kernel): top-k with ``jax.lax.top_k``'s tie order, capacity ranks
 over the token-major flattening, over-capacity pairs dropped into a zero
-slot, the expert products as batched matrix products.
+slot, the expert products as batched matrix products. Over a device mesh
+(DTensors) routing and the combine run group-local on each rank's local
+tensors (``route``), and the expert products on DTensors where the
+weights lie. Of the two ways to keep the routed experts from being
+gathered, DTensor's own propagation was enough: with the dispatch
+buffers replicated over ``model`` it slices them on the experts' dim
+(llama4-scout's experts over ``model``) or contracts the hidden dim in
+place (qwen2-moe), and where llama4-scout's hidden dim is also split over
+``data`` it gathers the token buffers over ``data``, never the weights
+(the collectives of ``tests/test_torch_sharded_train_moe.py``'s steps).
+So no launcher installs the reference's dry-run layouts ``moe_eb`` and
+``moe_hidden``; their hook sites stay for a caller's.
 
 Parameters are drawn leaf by leaf with :func:`normal_leaf`, one layer's key
 at a time and a large leaf in blocks of rows, so that a full-size init
@@ -376,18 +387,65 @@ def moe_dispatch(params: Params, xt: Tensor, cfg: ModelConfig, cap: int):
     return eb, dest, gate, aux
 
 
+def _dispatch_rows(x: Tensor, router: Tensor, cfg: ModelConfig, cap: int, Tg: int):
+    """:func:`moe_dispatch` of the rows ``x`` (b, S, D), cut into groups of
+    ``Tg`` tokens."""
+    b, S, D = x.shape
+    return moe_dispatch({"router": router}, x.reshape(b * S // Tg, Tg, D), cfg, cap)
+
+
+def _combine_rows(dest: Tensor, out: Tensor, gate: Tensor, S: int) -> Tensor:
+    """Each (token, k)'s expert output ``out`` (g, E, cap, D) gathered at
+    its slot ``dest`` (a dropped pair reads the zero row E*cap) and
+    weighted by its gate -> the rows (g*Tg / S, S, D)."""
+    g, E, cap, D = out.shape
+    Tg, K = gate.shape[1:]
+    flat = torch.cat([out.reshape(g, E * cap, D),
+                      torch.zeros((g, 1, D), dtype=out.dtype, device=out.device)], dim=1)
+    gathered = torch.gather(flat, 1, dest[..., None].expand(-1, -1, D))
+    y = torch.einsum("gtkd,gtk->gtd", gathered.reshape(g, Tg, K, D), gate)
+    return y.reshape(g * Tg // S, S, D)
+
+
+def _groups(cfg: ModelConfig, T: int) -> tuple[int, int]:
+    """(G, capacity) for T tokens: ``moe_groups`` groups of ``T // G`` when
+    it divides T, else 1."""
+    G = cfg.moe_groups if T % cfg.moe_groups == 0 and T >= cfg.moe_groups else 1
+    return G, max(1, int(cfg.capacity_factor * (T // G) * cfg.top_k / cfg.num_experts))
+
+
+def route(params: Params, x: Tensor, cfg: ModelConfig):
+    """Routing and dispatch of ``x`` (B, S, D) in its :func:`_groups`: the
+    expert buffers (G, E, cap, D), ``dest`` (G, Tg*K), the gates (G, Tg, K)
+    and each group's aux loss (G,), as :func:`moe_dispatch` gives them.
+
+    Over a mesh (``x`` a DTensor) routing, ranks and slots are group-local,
+    as in the reference: when ``x``'s batch rows are split over ``data``
+    and the split divides G, each rank dispatches its own groups on its
+    local tensors (``ctx.on_local_shards`` with ``groups=G``), and the
+    four come back split by group; otherwise (and over ``model``, whatever
+    layout DTensor gave ``x`` there) every rank dispatches the replicated
+    tokens alike. The router's gradient from a rank's own groups is its
+    part of a sum (``Partial``)."""
+    B, S, _ = x.shape
+    G, cap = _groups(cfg, B * S)
+    return ctx.on_local_shards(_dispatch_rows, [(x, 0, None), (params["router"], None, None)],
+                               [(0, None)] * 4, cfg, cap, B * S // G, groups=G)
+
+
 def moe(params: Params, x: Tensor, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
     """Returns (y, aux_loss). Tokens are routed top-k into per-expert
-    capacity buffers per group of ``T // G`` tokens (``G = moe_groups``
-    when it divides T, else 1); over-capacity pairs are dropped (the
-    residual carries them). The shared expert is added after."""
-    B, S, D = x.shape
-    E, K = cfg.num_experts, cfg.top_k
+    capacity buffers per group of ``T // G`` tokens (:func:`route`);
+    over-capacity pairs are dropped (the residual carries them). The
+    shared expert is added after.
+
+    Over a mesh the three expert products run on DTensors under the
+    weights' layouts (see the module docstring), and the combine's gather
+    runs group-local again, on the expert outputs in the slots' layout."""
+    B, S, _ = x.shape
     cd = dtype_of(cfg.compute_dtype)
-    T = B * S
-    G = cfg.moe_groups if T % cfg.moe_groups == 0 and T >= cfg.moe_groups else 1
-    cap = max(1, int(cfg.capacity_factor * (T // G) * K / E))
-    eb, dest, gate, aux = moe_dispatch(params, x.reshape(G, T // G, D), cfg, cap)
+    G, _ = _groups(cfg, B * S)
+    eb, dest, gate, aux = route(params, x, cfg)
     aux = aux.mean()
     eb = ctx.constrain(eb, "moe_eb")
 
@@ -398,11 +456,8 @@ def moe(params: Params, x: Tensor, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
     out = ctx.constrain(torch.einsum("gecf,efd->gecd", g * u, params["w_down"].to(cd)),
                         "moe_eb")
 
-    flat = torch.cat([out.reshape(G, E * cap, D),
-                      torch.zeros((G, 1, D), dtype=cd, device=x.device)], dim=1)
-    gathered = torch.gather(flat, 1, dest[..., None].expand(-1, -1, D))
-    y = torch.einsum("gtkd,gtk->gtd", gathered.reshape(G, T // G, K, D), gate)
-    y = y.reshape(B, S, D)
+    y = ctx.on_local_shards(_combine_rows, [(dest, 0, None), (out, 0, None), (gate, 0, None)],
+                            (0, None), S, groups=G)
     if "shared" in params:
         y = y + mlp(params["shared"], x, cfg)
     return y, aux

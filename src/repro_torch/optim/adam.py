@@ -5,8 +5,10 @@
    Richardson or autodiff gradients) for the Fig.4-style testbed.
 2. ``init``/``update``: Adam(W) over a tree of tensors (nested dicts) for
    the LM training substrate, with decoupled weight decay, global-norm
-   clipping and a warmup+cosine schedule. Pure functions: no tensor is
-   written in place.
+   clipping and a warmup+cosine schedule. ``update_`` writes params and
+   moments in place (the reference's train step donates its params and
+   state, so a step holds one copy of them); ``update`` is ``update_`` on
+   copies, the given trees left as they were.
 
 Division by a constant is a product with its float32 reciprocal and
 ``b ** step`` a float32 power, as the reference rounds them
@@ -93,27 +95,35 @@ def schedule(step: Tensor, cfg: AdamConfig) -> Tensor:
 
 def update(grads: Tree, state: AdamState, params: Tree,
            cfg: AdamConfig) -> tuple[Tree, AdamState]:
-    """One Adam(W) step: returns (new_params, new_state)."""
+    """One Adam(W) step: returns (new_params, new_state), ``params`` and
+    ``state`` untouched (:func:`update_` on copies of them)."""
+    params, mu, nu = (tree_map(torch.clone, t) for t in (params, state.mu, state.nu))
+    return params, update_(grads, AdamState(step=state.step, mu=mu, nu=nu), params, cfg)
+
+
+def update_(grads: Tree, state: AdamState, params: Tree, cfg: AdamConfig) -> AdamState:
+    """One Adam(W) step in place: ``params`` and the moments of ``state``
+    are overwritten leaf by leaf, and the new state, whose moments are the
+    same tensors, is returned. Each product and sum is rounded as the
+    reference's pure update rounds it; only one leaf's temporaries live at
+    a time."""
     step = state.step + 1
+    scale = None
     if cfg.grad_clip > 0:
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                for g in tree_leaves(grads)))
         scale = torch.clamp(torch.full_like(gnorm, cfg.grad_clip) / (gnorm + 1e-9), max=1.0)
-        grads = tree_map(lambda g: g * scale, grads)
-
-    mu = tree_map(lambda m, g: cfg.b1 * m + (1 - cfg.b1) * g.float(), state.mu, grads)
-    nu = tree_map(lambda v, g: cfg.b2 * v + (1 - cfg.b2) * torch.square(g.float()),
-                  state.nu, grads)
     bc1 = 1 - f32.pow(cfg.b1, step.float())
     bc2 = 1 - f32.pow(cfg.b2, step.float())
     lr = schedule(state.step, cfg)
-
-    def upd(p: Tensor, m: Tensor, v: Tensor) -> Tensor:
-        delta = lr * (m / bc1 / (torch.sqrt(v / bc2) + cfg.eps)
-                      + cfg.weight_decay * p.float())
-        return (p.float() - delta).to(p.dtype)
-
-    return tree_map(upd, params, mu, nu), AdamState(step=step, mu=mu, nu=nu)
+    for g, p, m, v in zip(*map(tree_leaves, (grads, params, state.mu, state.nu))):
+        g = (g if scale is None else g * scale).float()
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+        del g
+        delta = lr * (m / bc1 / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p.float())
+        p.copy_((p.float() - delta).to(p.dtype))
+    return AdamState(step=step, mu=state.mu, nu=state.nu)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ a DTensor raises.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Any
 
 import torch
@@ -116,7 +117,8 @@ def like(t: torch.Tensor, ref: Any) -> Any:
 
 
 def on_local_shards(fn, args: list[tuple[Any, int | None, int | None]],
-                    out: tuple[int | None, int | None], *rest: Any) -> Any:
+                    out: tuple[int | None, int | None] | list[tuple[int | None, int | None]],
+                    *rest: Any, groups: int | None = None) -> Any:
     """``fn(*locals, *rest)`` on each rank's shards, for a kernel that
     works on whole (batch, head) rows. ``args`` are ``(tensor, batch_dim,
     head_dim)`` (``None`` where the tensor has no such dim); the first is
@@ -129,7 +131,14 @@ def on_local_shards(fn, args: list[tuple[Any, int | None, int | None]],
     kernel on its own batch rows and heads, and the result (``out``'s
     dims) is laid out the same way. The gradient of an argument replicated
     over a sharded mesh dimension (SSD's B and C over the heads) is each
-    rank's part of a sum: ``Partial`` there."""
+    rank's part of a sum: ``Partial`` there.
+
+    ``out`` is a list of dims when ``fn`` returns a tuple (one DTensor
+    each). ``groups`` is the number of token groups the batch dim holds
+    (MoE's, which a rank must hold whole): then only the data axes
+    (``pod``, ``data``) keep the batch split, and only where together they
+    divide ``groups``; otherwise ``fn`` runs on the replicated tensors,
+    every rank alike."""
     ref = args[0][0]
     if not _is_dtensor(ref):
         return fn(*(a for a, _, _ in args), *rest)
@@ -142,7 +151,12 @@ def on_local_shards(fn, args: list[tuple[Any, int | None, int | None]],
         for name, dim in (("batch", b0), ("head", h0)):
             if dim is not None and p.is_shard(dim) and ref.shape[dim] % mesh.size(d) == 0:
                 kind = name
+        if groups is not None and mesh.mesh_dim_names[d] not in ("pod", "data"):
+            kind = None
         kinds.append(kind)
+    if groups is not None and groups % math.prod(
+            mesh.size(d) for d, k in enumerate(kinds) if k == "batch"):
+        kinds = [None] * len(kinds)
 
     def placements(bd, hd):
         return [Shard(bd) if k == "batch" and bd is not None
@@ -155,4 +169,8 @@ def on_local_shards(fn, args: list[tuple[Any, int | None, int | None]],
 
     loc = [_placed(a, mesh, placements(bd, hd)).to_local(grad_placements=grads(bd, hd))
            for a, bd, hd in args]
-    return DTensor.from_local(fn(*loc, *rest), mesh, placements(*out), run_check=False)
+    res = fn(*loc, *rest)
+    if isinstance(out, list):
+        return tuple(DTensor.from_local(r, mesh, placements(*o), run_check=False)
+                     for r, o in zip(res, out))
+    return DTensor.from_local(res, mesh, placements(*out), run_check=False)

@@ -268,3 +268,38 @@ def test_convert_carries_moe_and_frontend_subtrees():
         assert got[name].dtype == torch.bfloat16, name
         assert np.array_equal(got[name].contiguous().view(torch.int16).numpy(),
                               w.view(np.int16)), name
+
+
+@pytest.mark.parametrize("arch,over,B,S,zero_router", [
+    (QWEN, {**QWEN_K4, "moe_groups": 4}, 4, 16, False),                   # 2 groups a rank
+    (QWEN, {**QWEN_K4, "moe_groups": 2, "capacity_factor": 0.25}, 2, 16, False),  # drops
+    (LLAMA4, {"moe_groups": 4, "capacity_factor": 0.3}, 2, 12, False),
+    (LLAMA4, {"moe_groups": 2}, 2, 8, True),                               # every tie
+    (QWEN, {**QWEN_K4, "moe_groups": 4}, 2, 8, True),
+])
+def test_group_local_dispatch_stitches_to_the_unsharded_bits(arch, over, B, S, zero_router):
+    """What each of 2 ranks computes when its batch rows are split over
+    ``data`` (``moe`` on a DTensor: its own rows' groups, ``_dispatch_rows``
+    on its local tensor), stitched back along the groups, is the unsharded
+    dispatch's buffers, slots, gates and aux bit for bit: with capacity
+    drops forced and with an all-tie router (the lower expert index first)
+    too. On the replicated route (G not a multiple of the ranks, or 1) a
+    rank runs the unsharded call itself."""
+    _, tc = _cfgs(arch, **over)
+    _, lt = _layer_moe(*_params(_cfgs(arch, **over)[0]))
+    router = torch.zeros_like(lt["router"]) if zero_router else lt["router"]
+    x = torch.from_numpy(np.random.default_rng(B * S).standard_normal(
+        (B, S, tc.d_model)).astype(np.float32))
+    G, cap = TL._groups(tc, B * S)
+    Tg = B * S // G
+    assert G % 2 == 0
+    want = TL._dispatch_rows(x, router, tc, cap, Tg)
+    ranks = [TL._dispatch_rows(rows, router, tc, cap, Tg) for rows in x.chunk(2)]
+    for w, *parts in zip(want, *ranks):
+        got = torch.cat(parts)
+        assert got.dtype == w.dtype and got.numpy().tobytes() == w.numpy().tobytes()
+    dropped = int((want[1] == tc.num_experts * cap).sum())
+    if over.get("capacity_factor", 1.25) < 1:
+        assert dropped > 0
+    if zero_router:
+        assert dropped == G * (Tg * tc.top_k - tc.top_k * cap)
