@@ -218,7 +218,20 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` with nvcc into
      most ``SHARD_PEAK_GB``, and in B no all-gather of a routed expert
      weight (``EXPERT_GATHER_BYTES`` a step, the largest gathered tensor
      below a rank's expert shard). ``--phases 1,27`` runs it alone with
-     its kernel checks.
+     its kernel checks;
+ 28. the planning tools (``parallel.roofline``, ``launch.dryrun``) against
+     the card, after phase 23 in the second process: A, phase 23's
+     llama3.2-1b train step (8 x 512, donated) traced on ``meta`` tensors
+     and counted, its FLOPs over phase 23's device busy time at most 1.05
+     of ``PEAK_FLOPS_BF16`` (the counted HBM bytes and traced peak logged
+     beside the step's ``max_memory_allocated``); B, the card's own rates:
+     a device-to-device copy of 2 GiB and a bf16 8192^3 ``torch.matmul``
+     by CUDA events, each at most 1.05 of ``HBM_BW`` and
+     ``PEAK_FLOPS_BF16``; C, ``python -m repro_torch.launch.dryrun --arch
+     llama3.2-1b --shape train_4k`` at full depth on the fake 16 x 16 mesh
+     in a process of its own, whose cell must be ``ok``. It launches no
+     kernel and adds nothing to the last line. ``--phases 23,28`` runs it
+     with the step it reads.
 
 flash_attention and ssd_scan take two routes by the input's type: bfloat16
 runs the tensor-core kernels (``csrc/*_tc.cu``), float32 the CUDA-core
@@ -249,7 +262,7 @@ Every launch records its kernel and input shape; the run fails if a phase
 launched a kernel at a shape phase 1 did not check, or if a run marked to
 adopt migrants never did.
 
-Phases 12, 15 and 19-27 run in a second process of this script, started
+Phases 12, 15 and 19-28 run in a second process of this script, started
 after the build, beside the first process's phases 1-11, 13, 14 and 16-18
 (``SECOND_PROCESS_PHASES``); both drive the one card, so each
 phase's seconds and host-clock readings are taken beside the other
@@ -989,6 +1002,7 @@ class Ctx:
         self.shapes = {}      # phase -> {(kernel, shape of its first input)}
         self.decided = {}     # kernel -> its take/accept outputs since reset
         self.sass = None      # the SassDumps started after the build, if any
+        self.results = {}     # phase -> what its function returned
 
     def sync(self) -> None:
         if self.dev.type == "cuda":
@@ -1066,12 +1080,13 @@ def port_modules() -> types.SimpleNamespace:
     from repro_torch.kernels import (_build, autotune, bench_eval, de_step, eval_select,
                                      flash_attention, flash_attention_bwd, ga_step,
                                      pso_step, ssd_scan, ssd_scan_bwd)
+    from repro_torch.kernels import meta as kmeta
     from repro_torch import data
     from repro_torch.launch import mesh as lmesh
     from repro_torch.launch import serve, steps, train
     from repro_torch.models import layers, transformer
     from repro_torch.optim import adam
-    from repro_torch.parallel import compress, sharding
+    from repro_torch.parallel import compress, roofline, sharding
     return types.SimpleNamespace(
         prng=prng, de=de, bm=bm, bench_eval=bench_eval, de_step=de_step,
         autotune=autotune, KernelConfig=autotune.KernelConfig,
@@ -1079,7 +1094,7 @@ def port_modules() -> types.SimpleNamespace:
         flash_attention=flash_attention, ssd_scan=ssd_scan,
         flash_attention_bwd=flash_attention_bwd, ssd_scan_bwd=ssd_scan_bwd,
         train=train, data=data, adam=adam, lmesh=lmesh, sharding=sharding,
-        compress=compress,
+        compress=compress, roofline=roofline, kmeta=kmeta,
         ALGORITHMS=ALGORITHMS, migration=migration, mesh=mesh, executor=executor,
         OptRequest=OptRequest,
         _build=_build, ExecutorConfig=ExecutorConfig, IslandConfig=IslandConfig,
@@ -4934,7 +4949,7 @@ def _time_flash_bwd_case(c: Ctx, rates, gen, label: str, shape, dtype: str, mask
                       reps=10)
     size = dt.itemsize
     nbytes = size * 8 * BH * S * hd + 4 * BH * S
-    nops = 10 * BH * _causal_pairs(S, window) * hd if causal else 10 * BH * S * S * hd
+    nops = 10 * BH * c.rt.kmeta.kept_pairs(S, S, causal, window) * hd
     b_bytes, b_ops = nbytes / rates["bytes"], nops / rates[dtype]
     row = {"label": label, "shape": list(shape), "dtype": dtype, "mask": list(mask), "ms": ms,
            "plain_ms": plain, "library_ms": lib, "bound_ms": max(b_bytes, b_ops) * 1e3,
@@ -5050,13 +5065,6 @@ def _timed_cases(rt) -> tuple[dict, dict]:
     return flash, ssd
 
 
-def _causal_pairs(S: int, window: int) -> int:
-    """(query, key) pairs a causal mask of ``window`` (0: none) keeps over
-    S = T positions."""
-    w = S if window <= 0 or window >= S else window
-    return w * (w + 1) // 2 + (S - w) * w
-
-
 def _time_flash_case(c: Ctx, rates, gen, label: str, shape, mask) -> dict:
     """flash_attention at one case of the model phases, bf16, S = T: kernel, plain
     version, SDPA (only where it computes the same function: no softcap,
@@ -5075,7 +5083,7 @@ def _time_flash_case(c: Ctx, rates, gen, label: str, shape, mask) -> dict:
         sdpa = torch.nn.functional.scaled_dot_product_attention
         q4, k4, v4 = (t.view(1, BH, S, hd) for t in (q, k, v))
         lib = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), reps=10)
-    nbytes, nops = 2 * 4 * BH * S * hd, 4 * BH * _causal_pairs(S, window) * hd
+    nbytes, nops = 2 * 4 * BH * S * hd, 4 * BH * c.rt.kmeta.kept_pairs(S, S, causal, window) * hd
     b_bytes, b_ops = nbytes / rates["bytes"], nops / rates["bfloat16"]
     out = {"label": label, "shape": list(shape), "mask": list(mask), "ms": ms,
            "plain_ms": plain, "library_ms": lib, "bound_ms": max(b_bytes, b_ops) * 1e3,
@@ -5084,28 +5092,17 @@ def _time_flash_case(c: Ctx, rates, gen, label: str, shape, mask) -> dict:
     return out
 
 
-def _ssd_work(Qk: int, BH: int, H: int, S: int, P: int, N: int) -> tuple[int, int]:
-    """(bytes, operations) of one ssd_scan: x read and y written (bf16), B
-    and C once per batch row (bf16), dt and A (f32); the chunked form at
-    the kernel's chunk Qk: C B^T on the causal half of each (Qk, Qk) tile
-    once per batch row (the heads share it), its decay-weighted product
-    with x dt per head, C times the carried state and the state update per
-    head."""
-    B, n_chunks = BH // H, -(-S // Qk)
-    nbytes = 2 * 2 * BH * S * P + 2 * 2 * B * S * N + 4 * BH * S + 4 * BH
-    nops = n_chunks * Qk * (Qk + 1) * (B * N + BH * P) + BH * n_chunks * 4 * Qk * N * P
-    return nbytes, nops
-
-
 def _time_ssd_case(c: Ctx, rates, gen, label: str, shape, N: int, H: int, chunk: int) -> dict:
     """ssd_scan at one prefill shape, bf16: kernel, plain version and the
-    bound (``_ssd_work``); no library call computes it."""
+    bound (``kernels.meta.ssd_work`` at the kernel's chunk: x read and y
+    written, B and C once per batch row, dt and A; the chunked form's
+    products); no library call computes it."""
     ss = c.rt.ssd_scan
     BH, S, P = shape
     args = _ssd_inputs(c, gen, shape, N, H, "bfloat16")
     ms = time_ms(lambda: ss.ssd_scan(*args, chunk=chunk), reps=10)
     plain = time_ms(lambda: ss.ssd_ref(*args), reps=2, warmup=1)
-    nbytes, nops = _ssd_work(ss.TC_CHUNK, BH, H, S, P, N)
+    nops, nbytes = c.rt.kmeta.ssd_work(BH, BH // H, S, P, N, 2, ss.TC_CHUNK)
     b_bytes, b_ops = nbytes / rates["bytes"], nops / rates["bfloat16"]
     out = {"label": label, "shape": list(shape), "N": N, "heads": H, "ms": ms,
            "plain_ms": plain, "library_ms": None, "bound_ms": max(b_bytes, b_ops) * 1e3,
@@ -5484,14 +5481,107 @@ def phase_storage_tuner(c: Ctx) -> dict:
     return out
 
 
+# Phase 28: the count of phase 23's first run, traced on meta; the copy
+# (bytes of the source) and the product (its side) that time the card's own
+# rates; the dry-run's cell on the fake 16 x 16 mesh and its time limit.
+PLAN_RUN = TRAIN_RUNS[23][0]
+PLAN_COPY_BYTES = 2 << 30
+PLAN_MATMUL = 8192
+PLAN_CELL = ("llama3.2-1b", "train_4k")
+PLAN_CLI_TIMEOUT = 40.0
+# No reading may exceed the constant it is held to by more than this.
+PLAN_SHARE_MAX = 1.05
+
+
+def phase_planning(c: Ctx) -> dict:
+    """Phase 28 (see the module docstring): the planning layer's count and
+    constants against what the card measured and does."""
+    torch, rt = c.torch, c.rt
+    rl = rt.roofline
+    out = {}
+    # A: the count of phase 23's step against its device busy time.
+    rec = c.results.get(23, {}).get(PLAN_RUN.label)
+    require(rec is not None, f"phase 28 reads phase 23's {PLAN_RUN.label!r}: run phase 23 "
+                             "in the same call")
+    cfg = train_cfg(rt, PLAN_RUN)
+    acfg = rt.adam.AdamConfig(**TRAIN_ADAM, total_steps=PLAN_RUN.steps)
+    params = rt.sharding.param_shapes(cfg)
+    batch = {k: torch.empty((PLAN_RUN.batch, PLAN_RUN.seq), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    t0 = time.perf_counter()
+    _, count = rl.trace(rt.steps.make_train_step(cfg, acfg, donate=True), params,
+                        rt.adam.init(params), batch)
+    roof = count.roofline()
+    busy_s = rec["device_busy_ms_per_step"] / 1e3
+    peak_gb = rec["peak_gb"]
+    out["count"] = {
+        "trace_s": time.perf_counter() - t0, "flops": roof.flops, "hbm_bytes": roof.hbm_bytes,
+        "peak_bytes_traced": roof.peak_bytes, "kernels": count.kernels,
+        "busy_ms_per_step": rec["device_busy_ms_per_step"],
+        "flops_per_busy_s": roof.flops / busy_s,
+        "share_of_peak_bf16": roof.flops / busy_s / rl.PEAK_FLOPS_BF16,
+        "t_compute_over_busy": roof.t_compute / busy_s,
+        "t_memory_over_busy": roof.t_memory / busy_s,
+        "peak_gb_card": peak_gb,
+        "traced_over_card_peak": (roof.peak_bytes / 1e9 / peak_gb) if peak_gb else None}
+    log(f"phase 28: A {PLAN_RUN.label} counted on meta: {json.dumps(out['count'])}")
+    require(roof.flops > 0 and out["count"]["share_of_peak_bf16"] <= PLAN_SHARE_MAX,
+            f"counted {roof.flops:.4g} FLOPs over {busy_s * 1e3:.1f} busy ms is "
+            f"{out['count']['share_of_peak_bf16']:.3f} of PEAK_FLOPS_BF16")
+    # B: the card's copy and product rates against the constants.
+    src = torch.empty(PLAN_COPY_BYTES // 2, dtype=torch.bfloat16, device=c.dev)
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src), reps=10)
+    del src, dst
+    n = PLAN_MATMUL
+    gen = torch.Generator(device=c.dev).manual_seed(28)
+    a, b = (torch.randn((n, n), generator=gen, device=c.dev).to(torch.bfloat16)
+            for _ in range(2))
+    mm_ms = time_ms(lambda: torch.matmul(a, b), reps=10)
+    del a, b
+    out["rates"] = {
+        "copy_ms": copy_ms, "copy_bytes_moved": 2 * PLAN_COPY_BYTES,
+        "copy_share_of_hbm_bw": 2 * PLAN_COPY_BYTES / (copy_ms / 1e3) / rl.HBM_BW,
+        "matmul_ms": mm_ms, "matmul_flops": 2.0 * n ** 3,
+        "matmul_share_of_peak_bf16": 2.0 * n ** 3 / (mm_ms / 1e3) / rl.PEAK_FLOPS_BF16}
+    log(f"phase 28: B the card's rates: {json.dumps(out['rates'])}")
+    require(out["rates"]["copy_share_of_hbm_bw"] <= PLAN_SHARE_MAX
+            and out["rates"]["matmul_share_of_peak_bf16"] <= PLAN_SHARE_MAX,
+            f"a measured rate over its constant: {out['rates']}")
+    # C: the dry-run's CLI on this machine's torch, in a process of its own.
+    arch, shape = PLAN_CELL
+    where = ROOT / "build" / "dryrun-phase28"
+    shutil.rmtree(where, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--out", str(where)], cwd=ROOT, capture_output=True, text=True,
+            timeout=PLAN_CLI_TIMEOUT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    except subprocess.TimeoutExpired:
+        raise PhaseFailed(f"the dry-run of {arch} {shape} ran past {PLAN_CLI_TIMEOUT:.0f} s")
+    cli_s = time.perf_counter() - t0
+    path = where / f"{arch}__{shape}__16x16.json"
+    cell = json.loads(path.read_text()) if path.exists() else {}
+    out["dryrun"] = {"seconds": cli_s, "rc": proc.returncode, "status": cell.get("status"),
+                     "t_trace_s": cell.get("t_trace_s"), "per_device": cell.get("per_device"),
+                     "fits_80GB_analytic": cell.get("memory", {}).get("fits_80GB_analytic")}
+    log(f"phase 28: C dry-run {arch} {shape} 16x16: {json.dumps(out['dryrun'])}")
+    require(proc.returncode == 0 and cell.get("status") == "ok",
+            f"the dry-run of {arch} {shape}: rc {proc.returncode}, status "
+            f"{cell.get('status')}: {cell.get('error', '')} {proc.stderr[-1500:]}")
+    return out
+
+
 # Phases a second process of this script runs beside the first, on the same
 # card: the small models against the CPU (12), the hybrid (15), the large
 # models' serving, card-vs-CPU and training phases (19-24), the bfloat16
-# storage and the tuner (25) and the sharded training (26-27). The first
+# storage and the tuner (25), the sharded training (26-27) and the planning
+# tools against phase 23's step (28). The first
 # process runs the rest and then, alone on the card, the kernel timings.
 # The second process takes half of torch's default CPU threads for the CPU
 # sides of its card-vs-CPU phases.
-SECOND_PROCESS_PHASES = frozenset({12, 15, 19, 20, 21, 22, 23, 24, 25, 26, 27})
+SECOND_PROCESS_PHASES = frozenset({12, 15, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28})
 # Seconds from the script's start after which the second process is killed
 # (the script's whole limit is 1,200).
 PART_TIMEOUT = 1100.0
@@ -5586,7 +5676,7 @@ def log_ptxas(c: Ctx, _build) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default=",".join(str(n) for n in range(1, 28)),
+    ap.add_argument("--phases", default=",".join(str(n) for n in range(1, 29)),
                     help="comma-separated phases to run (default: all)")
     # Internal: run as the second process, writing the record to this file.
     ap.add_argument("--part-out", default=None, help=argparse.SUPPRESS)
@@ -5638,7 +5728,7 @@ def main() -> int:
              **{n: train_card_vs_cpu_phase(n) for n in CARD_VS_CPU_TRAIN_RUNS},
              15: phase_hybrid, 16: phase_service, 17: phase_portfolio_async,
              18: phase_mesh, 25: phase_storage_tuner, 26: phase_sharded,
-             27: phase_sharded_archs}
+             27: phase_sharded_archs, 28: phase_planning}
     # The second process's phases run beside this process's.
     second = phases & SECOND_PROCESS_PHASES if first else set()
     part = SecondProcess(second) if second and phases - second else None
@@ -5651,7 +5741,7 @@ def main() -> int:
             c.phase = num
             t0 = time.perf_counter()
             try:
-                steps[num](c)
+                c.results[num] = steps[num](c)
             except PhaseFailed as e:
                 ok = False
                 log(f"phase {num} FAILED: {e}")

@@ -158,6 +158,18 @@ def on_card(name: str, x: torch.Tensor, dims: tuple[int, ...] = (2, 3)) -> bool:
     return True
 
 
+def on_meta(name: str, x: torch.Tensor, dims: tuple[int, ...] = (2, 3)) -> bool:
+    """Whether ``x`` is a ``meta`` tensor, which the model kernels' wrappers
+    take on their counted route (``kernels.meta``); ValueError for a meta
+    tensor of another dimension count."""
+    if x.device.type != "meta":
+        return False
+    if x.dim() not in dims:
+        raise ValueError(f"{name}: input must have {' or '.join(map(str, dims))} "
+                         f"dimensions, got {tuple(x.shape)}")
+    return True
+
+
 def check_inputs(device, *specs, dtype: torch.dtype | tuple = torch.float32) -> None:
     """Raise unless each ``(name, tensor, shape)`` is a contiguous tensor of
     that shape on ``device`` whose type is ``dtype`` (or one of them); a

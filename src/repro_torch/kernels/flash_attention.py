@@ -9,7 +9,9 @@ A CPU tensor goes to :func:`flash_attention_ref`. A CUDA tensor goes to a
 kernel chosen by its type: bfloat16 to the tensor-core kernel in
 ``csrc/flash_attention_tc.cu`` (wgmma; P enters P V as bfloat16), float32
 to the CUDA-core kernel in ``csrc/flash_attention.cu``, whose float32
-arithmetic the float32 bound of 2e-6 needs.
+arithmetic the float32 bound of 2e-6 needs. A ``meta`` tensor takes the
+card's route, autograd included, up to the launch, which it replaces by a
+tally of the kernel's work (``kernels.meta``).
 
 On the card the wrapper takes part in autograd: when grad is enabled and
 an input requires it, the forward kernel also writes each row's float32
@@ -22,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
 
 # Kernel launches in this process (plain-version calls are not counted), and
 # those of them that went to the tensor-core (bfloat16) kernel.
@@ -80,6 +82,10 @@ def _launch(q, k, v, causal, window, softcap, lse):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if dev.type == "meta":
+        meta.tally("flash_attention", *meta.flash_work(
+            BH, S, T, hd, q.element_size(), bool(causal), max(int(window), 0), lse is not None))
+        return out
     mask = (int(bool(causal)), max(int(window), 0), float(softcap))
     global LAUNCHES, TC_LAUNCHES
     if q.dtype == torch.bfloat16:
@@ -94,7 +100,7 @@ def _launch(q, k, v, causal, window, softcap, lse):
 
 
 def forward_with_lse(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """The forward kernel on CUDA tensors: (out, each row's float32
+    """The forward kernel on CUDA (or meta) tensors: (out, each row's float32
     log-sum-exp ``(BH, S)``), the backward kernel's inputs."""
     check_inputs(q, k, v)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
@@ -124,7 +130,8 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     """q ``(BH, S, hd)``; k, v ``(BH, T, hd)``, float32 or bfloat16.
     Returns ``(BH, S, hd)`` in q's type, differentiable on every device."""
-    if not _build.on_card("flash_attention", q, dims=(3,)):
+    if not (_build.on_meta("flash_attention", q, dims=(3,))
+            or _build.on_card("flash_attention", q, dims=(3,))):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
     check_inputs(q, k, v)

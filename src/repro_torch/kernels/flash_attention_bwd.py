@@ -22,15 +22,16 @@ reference's. A CUDA tensor goes to a kernel by this rule:
 - float32: the same CUDA-core kernel, whose float32 arithmetic the float32
   bound of 1e-4 needs.
 
-A launch that fails raises; nothing falls back to another kernel or to the
-plain version. ``flash_attention``'s autograd function calls
-:func:`flash_attention_bwd`.
+A ``meta`` tensor gets empty gradients and a tally of the kernel's work
+(``kernels.meta``). A launch that fails raises; nothing falls back to
+another kernel or to the plain version. ``flash_attention``'s autograd
+function calls :func:`flash_attention_bwd`.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.flash_attention import (DTYPES, check_inputs,
                                                  flash_attention_ref, scale_of)
 
@@ -62,7 +63,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=0, softc
     """q, out, dout ``(BH, S, hd)``; k, v ``(BH, T, hd)``, float32 or
     bfloat16; lse ``(BH, S)`` float32, the forward's row log-sum-exp (unread
     on the CPU, as is ``out``). Returns (dq, dk, dv) in q's type."""
-    if not _build.on_card("flash_attention_bwd", q, dims=(3,)):
+    if not (_build.on_meta("flash_attention_bwd", q, dims=(3,))
+            or _build.on_card("flash_attention_bwd", q, dims=(3,))):
         return flash_attention_bwd_ref(q, k, v, dout, causal=causal, window=window,
                                        softcap=softcap)
     check_inputs(q, k, v)
@@ -75,6 +77,10 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=0, softc
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
+    if dev.type == "meta":
+        meta.tally("flash_attention_bwd", *meta.flash_bwd_work(
+            BH, S, T, hd, q.element_size(), bool(causal), max(int(window), 0)))
+        return dq, dk, dv
     D = torch.empty((BH, S), dtype=torch.float32, device=dev)
     mask = (int(bool(causal)), max(int(window), 0), float(softcap))
     global LAUNCHES, TC_LAUNCHES

@@ -15,7 +15,9 @@ bfloat16 to the chunked form on the tensor cores in ``csrc/ssd_scan_tc.cu``
 (its own chunk of 64 steps, whatever ``chunk`` says; C B^T once per B/C row
 and chunk into float32 scratch), float32 to the recurrence on the CUDA
 cores in ``csrc/ssd_scan.cu``, whose float32 arithmetic the float32 bound
-of 1e-4 needs.
+of 1e-4 needs. A ``meta`` tensor takes the card's route, autograd
+included, up to the launch, which it replaces by a tally of the kernel's
+work (``kernels.meta``).
 
 On the card the wrapper takes part in autograd: when grad is enabled and
 an input requires it, the backward is the ``ssd_scan_bwd`` kernel
@@ -26,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
 
 # Kernel launches in this process (plain-version calls are not counted), and
 # those of them that went to the tensor-core (bfloat16) kernel.
@@ -89,6 +91,9 @@ def _launch(xh, dt, A, Bm, Cm):
     y = torch.empty_like(xh)
     if y.numel() == 0:
         return y
+    if dev.type == "meta":
+        meta.tally("ssd_scan", *meta.ssd_work(BH, R, S, P, N, xh.element_size(), TC_CHUNK))
+        return y
     global LAUNCHES, TC_LAUNCHES
     if xh.dtype == torch.bfloat16:
         cb = torch.empty((R, -(-S // TC_CHUNK), TC_CHUNK, TC_CHUNK),
@@ -129,7 +134,8 @@ def ssd_scan(xh, dt, A, Bm, Cm, chunk=128):
     if chunk < 1 or S % chunk:
         raise ValueError(f"sequence length {S} is not a multiple of the chunk "
                          f"{chunk}: pad the sequence to the chunk size")
-    if not _build.on_card("ssd_scan", xh, dims=(3,)):
+    if not (_build.on_meta("ssd_scan", xh, dims=(3,))
+            or _build.on_card("ssd_scan", xh, dims=(3,))):
         return ssd_ref(xh, dt, A, Bm, Cm)
     check_inputs(xh, dt, A, Bm, Cm)
     ins = (xh, dt, A, Bm, Cm)

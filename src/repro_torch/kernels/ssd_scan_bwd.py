@@ -21,15 +21,16 @@ kernel by its type:
   whose float32 arithmetic the float32 bound of 1e-4 needs.
 
 Both take every N of ``STATE_SIZES`` and head dims up to ``MAX_BWD_P``. A
-launch that fails raises; nothing falls back to another kernel or to the
-plain version. ``ssd_scan``'s autograd function calls
-:func:`ssd_scan_bwd`.
+``meta`` tensor gets empty gradients and a tally of the kernel's work
+(``kernels.meta``). A launch that fails raises; nothing falls back to
+another kernel or to the plain version. ``ssd_scan``'s autograd function
+calls :func:`ssd_scan_bwd`.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.ssd_scan import (DTYPES, MAX_BWD_P, TC_CHUNK, check_inputs,
                                           ssd_ref)
 
@@ -64,7 +65,8 @@ def ssd_scan_bwd_ref(xh, dt, A, Bm, Cm, dy):
 def ssd_scan_bwd(xh, dt, A, Bm, Cm, dy):
     """xh, dy ``(BH, S, P)``; dt ``(BH, S)`` and A ``(BH,)`` float32; Bm, Cm
     ``(R, S, N)`` with R dividing BH. Returns (dxh, ddt, dA, dBm, dCm)."""
-    if not _build.on_card("ssd_scan_bwd", xh, dims=(3,)):
+    if not (_build.on_meta("ssd_scan_bwd", xh, dims=(3,))
+            or _build.on_card("ssd_scan_bwd", xh, dims=(3,))):
         return ssd_scan_bwd_ref(xh, dt, A, Bm, Cm, dy)
     check_inputs(xh, dt, A, Bm, Cm)
     BH, S, P = xh.shape
@@ -77,6 +79,9 @@ def ssd_scan_bwd(xh, dt, A, Bm, Cm, dy):
     dBm, dCm = torch.empty_like(Bm), torch.empty_like(Cm)
     if dx.numel() == 0:
         return dx, ddt.zero_(), dA.zero_(), dBm.zero_(), dCm.zero_()
+    if dev.type == "meta":
+        meta.tally("ssd_scan_bwd", *meta.ssd_bwd_work(BH, R, S, P, N, xh.element_size()))
+        return dx, ddt, dA, dBm, dCm
     H = BH // R
     global LAUNCHES, TC_LAUNCHES
     if xh.dtype == torch.bfloat16:

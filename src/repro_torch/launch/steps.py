@@ -83,7 +83,9 @@ def make_train_step(cfg: ModelConfig, adam_cfg: adam.AdamConfig | None = None,
                             for g in adam.tree_leaves(grads)))
         if not donate:
             params, opt_state = adam.update(grads, opt_state, params, acfg)
-        elif math.isfinite(float(loss)):
+        elif loss.device.type == "meta" or math.isfinite(float(loss)):
+            # a meta loss (a step traced by ``parallel.roofline``) has no
+            # value to read: its update is traced as a finite loss's
             opt_state = adam.update_(grads, opt_state, params, acfg)
         return params, opt_state, {**metrics, "loss": loss, "grad_norm": gn}
 

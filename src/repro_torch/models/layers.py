@@ -186,9 +186,14 @@ def _repeat_kv(k: Tensor, rep: int) -> Tensor:
 
 
 def _attend_direct_g(q, k, v, q_pos, k_pos, window, softcap_val, scale):
-    """Grouped-query einsum without KV expansion — the decode path."""
+    """Grouped-query einsum without KV expansion — the decode path. A
+    DTensor q whose heads are split into parts that do not hold whole KV
+    groups (32 heads over 16 ranks, 8 KV heads) is gathered on its heads
+    first: the grouped view needs whole groups a part."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
+    if KV % ctx.shards(q, 2):
+        q = ctx.unsplit(q, 2)
     qh = q.reshape(B, S, KV, H // KV, hd)
     scores = torch.einsum("bsgrh,btgh->bgrst", qh, k).float() * scale
     scores = softcap(scores, softcap_val)
@@ -262,7 +267,7 @@ def attention(params: Params, x: Tensor, cfg: ModelConfig, *,
             # Keys past pos + S are masked for every query; leave them out.
             n = pos + S
             out = _attend_direct_g(q, ck[:, :n].to(cd), cv[:, :n].to(cd),
-                                   positions, torch.arange(n, device=x.device),
+                                   positions, ctx.like(torch.arange(n, device=x.device), x),
                                    window, cfg.attn_softcap, inv_sqrt(hd))
         y = out.reshape(B, S, H * hd) @ wo
         return y, (ck, cv)

@@ -412,7 +412,7 @@ def decode_step(params: Params, cfg: ModelConfig, state: Params,
         raise ValueError(
             f"{cfg.block_pattern} decode_step is single-token (got S={Ssz}); "
             "use launch.steps.make_prefill_decode for multi-token prefill")
-    positions = pos + torch.arange(Ssz, device=x.device)
+    positions = ctx.like(pos + torch.arange(Ssz, device=x.device), x)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         if cfg.block_pattern == "attn":

@@ -75,8 +75,23 @@ def constrain_layer_weights(lp: Any) -> Any:
 
 
 def constrain(x: Any, key: str) -> Any:
-    """``x`` in the layout installed under ``key``, if any."""
-    return redistribute(x, _RULES.get(key))
+    """``x`` in the layout installed under ``key``, if any and if it splits
+    ``x`` evenly: DTensor refuses to view an unevenly split tensor (the MoE
+    buffers' 16 token groups over the 32 ranks of the multi-pod data axes),
+    where XLA pads the shards, so such a layout is left out."""
+    layout = _RULES.get(key)
+    if layout is None or not _is_dtensor(x) or not _even(x, layout):
+        return x
+    return redistribute(x, layout)
+
+
+def _even(x: Any, layout) -> bool:
+    """Whether ``layout`` splits each dim of ``x`` into equal parts."""
+    parts = [1] * x.dim()
+    for i, p in enumerate(layout.placements):
+        if p.is_shard():
+            parts[p.dim % x.dim()] *= layout.mesh.size(i)
+    return all(n % k == 0 for n, k in zip(x.shape, parts))
 
 
 def split(x: Any, dim: int) -> bool:
@@ -87,6 +102,28 @@ def split(x: Any, dim: int) -> bool:
     dim %= x.dim()
     return any(p.is_shard() and p.dim % x.dim() == dim and x.device_mesh.size(i) > 1
                for i, p in enumerate(x.placements))
+
+
+def shards(x: Any, dim: int) -> int:
+    """Into how many parts ``x`` is split on ``dim``: the product of the
+    sizes of the mesh dimensions on which it is ``Shard(dim)``; 1 for a
+    plain tensor."""
+    if not _is_dtensor(x):
+        return 1
+    dim %= x.dim()
+    return math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
+                     if p.is_shard() and p.dim % x.dim() == dim)
+
+
+def unsplit(x: Any, dim: int) -> Any:
+    """``x`` whole on ``dim`` (replicated over the mesh dimensions that
+    split it), its other placements kept; anything else as it is."""
+    if shards(x, dim) == 1:
+        return x
+    from torch.distributed.tensor import Replicate
+    dim %= x.dim()
+    return _placed(x, x.device_mesh, [Replicate() if p.is_shard() and p.dim % x.dim() == dim
+                                      else p for p in x.placements])
 
 
 def replicated(x: Any) -> Any:
